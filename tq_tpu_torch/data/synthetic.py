@@ -1,0 +1,37 @@
+"""Deterministic synthetic stand-in for MNIST (no downloads).
+
+A numpy copy of ``tq_tpu.data.synthetic.synthetic_mnist``: the same seed
+gives byte-identical arrays, so the two packages evaluate on the same data.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["synthetic_mnist"]
+
+
+def synthetic_mnist(num_train: int = 60000, num_test: int = 10000,
+                    seed: int = 1234):
+    """MNIST-shaped 10-class data an MLP can learn to high accuracy.
+
+    Each class is a smooth random 28x28 template; samples are
+    template * brightness + pixel noise, normalized with the MNIST
+    statistics (0.1307, 0.3081).  Returns ((x_train, y_train),
+    (x_test, y_test)) as float32 NCHW / int32.
+    """
+    rng = np.random.default_rng(seed)
+    freq = rng.normal(size=(10, 7, 7))
+    templates = np.kron(freq, np.ones((4, 4)))  # (10, 28, 28)
+    templates = (templates - templates.min()) / np.ptp(templates)
+
+    def make(n, split_seed):
+        r = np.random.default_rng(split_seed)
+        y = r.integers(0, 10, size=n).astype(np.int32)
+        bright = r.uniform(0.6, 1.0, size=(n, 1, 1)).astype(np.float32)
+        x = templates[y] * bright + r.normal(0, 0.25, (n, 28, 28))
+        x = np.clip(x, 0.0, 1.0).astype(np.float32)
+        x = (x - 0.1307) / 0.3081
+        return x[:, None, :, :], y
+
+    return make(num_train, seed + 1), make(num_test, seed + 2)

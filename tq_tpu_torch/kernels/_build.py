@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels of ``tq_tpu_torch/csrc``.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, which is loaded with ``ctypes``: seconds to build, where an
+extension that includes PyTorch's headers takes minutes.  No
+``--use_fast_math``: the quantize division must stay correctly rounded.
+
+The library is named by a hash of the sources and flags and written to
+``tq_tpu_torch/_build/`` (ignored by git), so an edited source rebuilds
+and an unchanged one is compiled once per checkout.  Nothing here runs
+at import time: :func:`load` is called by a kernel wrapper the first
+time it is given a CUDA tensor.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises if that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["load", "check", "library_path"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+# name -> argtypes; every entry point returns a cudaError_t as int.
+SIGNATURES = {
+    # x, sf, out, n, bits, budget, serial, int_out, stream
+    "tq_tr_quantize_elementwise": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # x, sf, out, n_groups, group_size, bits, budget, serial, stream
+    "tq_tr_quantize_grouped": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # x, w, sf, out, ws, M, N, K, bits, budget, w_sf, splits, k_per_split,
+    # stream
+    "tq_term_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           ctypes.c_float, _I, _I, _P],
+}
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from tq_tpu_torch/csrc")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for s in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return BUILD_DIR / f"libtq_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n(exit {p.returncode})\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _compile(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{s.stem}.o" for s in _sources()]
+        _run_all([[nvcc, *ARCH_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(_sources(), objs)])
+        lib = Path(tmp) / out.name
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                   *map(str, objs)]])
+        os.replace(lib, out)
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call if it is not on disk."""
+    global _LIB
+    if _LIB is None:
+        path = library_path()
+        if not path.exists():
+            _compile(path)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tq_error_string.argtypes = [_I]
+        lib.tq_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = _LIB.tq_error_string(err) if _LIB is not None else b""
+        raise RuntimeError(f"{name}: CUDA error {err} at launch "
+                           f"({(msg or b'').decode()})")

@@ -1,0 +1,228 @@
+"""Fused term-reveal fake quantization: CUDA kernels and their plain version.
+
+Port of ``tq_tpu.kernels.tr_quantize``.  :func:`tr_quantize` computes
+exactly :func:`tq_tpu_torch.ops.term_reveal.term_reveal`:
+
+* on a CUDA tensor it launches a kernel of ``csrc/tr_quantize.cu`` (the
+  element-wise body for ``group_size == 1``, the grouped body otherwise)
+  and raises on what the kernel does not take;
+* on a CPU tensor it runs :func:`tr_quantize_ref`, the plain version.
+
+The helpers below are the loop-free int32 bit-mask math of the TPU
+kernel's element-wise body, as tensor ops; the plain version uses them and
+the CUDA kernels repeat them per thread (``csrc/tr_common.cuh``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tq_tpu_torch.kernels import _build
+from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
+
+__all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
+           "tr_quantize_int_ref", "max_hese_terms", "MAX_BITS"]
+
+_KEEP_MODES = ("largest", "serial")
+MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
+_MAX_GROUP = 32  # the grouped kernel keeps a group's masks in registers
+# More terms than any group holds: a budget past it keeps everything.
+_BUDGET_CAP = _MAX_GROUP * (MAX_BITS + 1)
+
+
+def max_hese_terms(bits: int) -> int:
+    """Maximum automaton terms of a ``bits``-wide magnitude:
+    ``floor(2 * (bits + 1) / 3)`` (repeating '110' patterns)."""
+    return 2 * (bits + 1) // 3
+
+
+def _term_masks(q: torch.Tensor):
+    """(t, neg): term-position mask and negative-term mask of int32 ``q``."""
+    dn1 = q << 1
+    a = q & ~dn1
+    t = a | (dn1 & (q << 2) & ~q)
+    neg = (q >> 1) & a
+    return t, neg
+
+
+def _popcount(v: torch.Tensor) -> torch.Tensor:
+    """SWAR popcount of non-negative int32 values."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return v & 0x3F
+
+
+def _top_bit(r: torch.Tensor) -> torch.Tensor:
+    """Mask of the highest set bit of non-negative int32 ``r`` (0 for 0),
+    by smearing the top bit downwards: exact for every int32, where the
+    TPU kernel's float32-exponent trick is exact only below 2**24."""
+    s = r
+    for k in (1, 2, 4, 8, 16):
+        s = s | (s >> k)
+    return s - (s >> 1)
+
+
+def _topk_value(q: torch.Tensor, bits: int, budget: int) -> torch.Tensor:
+    """Integer value of ``q``'s ``budget`` largest HESE terms.
+
+    Two equivalent strategies, chosen by which takes fewer steps: peel the
+    top bit ``budget`` times, or clear the ``popcount - budget`` lowest
+    set bits.
+    """
+    if budget >= max_hese_terms(bits):
+        return q  # every term kept: plain uniform quantization
+    t, neg = _term_masks(q)
+    n_clear = max_hese_terms(bits) - budget
+    if budget * 4 <= n_clear * 4 + 9:
+        r = t
+        for _ in range(budget):
+            r = r - _top_bit(r)
+        kept = t ^ r
+    else:
+        excess = _popcount(t) - budget
+        kept = t
+        u = t
+        for i in range(1, n_clear + 1):
+            u = u & (u - 1)
+            kept = torch.where(excess >= i, u, kept)
+    return kept - ((kept & neg) << 1)
+
+
+def _bottomk_value(q: torch.Tensor, bits: int, budget: int) -> torch.Tensor:
+    """Integer value of ``q``'s ``budget`` lowest-magnitude HESE terms (the
+    FPGA truncator's first-seen order)."""
+    if budget >= max_hese_terms(bits):
+        return q
+    t, neg = _term_masks(q)
+    r = t
+    for _ in range(budget):
+        r = r ^ (r & -r)
+    kept = t ^ r
+    return kept - ((kept & neg) << 1)
+
+
+def _check_keep_mode(keep_mode: str) -> None:
+    if keep_mode not in _KEEP_MODES:
+        raise ValueError(f"unknown keep_mode {keep_mode!r}")
+
+
+def _kept(x: torch.Tensor, sf, bits: int, budget: int, keep_mode: str):
+    """(int32 magnitude of the kept terms, sign) per element."""
+    q, sign = uniform_quantize(x, sf, bits)
+    select = _topk_value if keep_mode == "largest" else _bottomk_value
+    return select(q, bits, budget), sign
+
+
+def tr_quantize_ref(x: torch.Tensor, sf, bits: int, group_size: int = 1,
+                    num_keep_terms: int = 8, axis: int = 1,
+                    keep_mode: str = "largest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`tr_quantize`."""
+    _check_keep_mode(keep_mode)
+    if group_size > 1:
+        return term_reveal(x, sf, bits, group_size, num_keep_terms, axis,
+                           keep_mode)
+    acc, sign = _kept(x, sf, bits, num_keep_terms, keep_mode)
+    return sign * acc.to(x.dtype) * as_scale(sf, x.device)
+
+
+def _kernel_scale(x: torch.Tensor, sf, bits: int,
+                  keep_mode: str) -> torch.Tensor:
+    """Check what both kernels take; ``sf`` as a float32 scalar on the card."""
+    _check_keep_mode(keep_mode)
+    if x.dtype != torch.float32:
+        raise TypeError(f"tr_quantize kernel takes float32, got {x.dtype}")
+    if not 1 <= bits <= MAX_BITS:
+        raise ValueError(f"tr_quantize kernel takes 1 <= bits <= {MAX_BITS},"
+                         f" got {bits}")
+    return as_scale(sf, x.device).contiguous()
+
+
+def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool):
+    sf = _kernel_scale(x, sf, bits, keep_mode)
+    xc = x.contiguous()
+    out = torch.empty(x.shape, dtype=torch.int32 if int_out else x.dtype,
+                      device=x.device)
+    if xc.numel():
+        _build.check(_build.load().tq_tr_quantize_elementwise(
+            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), xc.numel(), bits,
+            min(budget, _BUDGET_CAP), int(keep_mode == "serial"),
+            int(int_out), torch.cuda.current_stream(x.device).cuda_stream),
+            "tq_tr_quantize_elementwise")
+        tr_quantize.launches["elementwise"] += 1
+    return out
+
+
+def _launch_grouped(x, sf, bits, group_size, budget, axis, keep_mode):
+    sf = _kernel_scale(x, sf, bits, keep_mode)
+    if group_size > _MAX_GROUP:
+        raise ValueError(f"grouped kernel takes group_size <= {_MAX_GROUP}, "
+                         f"got {group_size}")
+    # Data movement only: grouping axis last, zero-padded to whole groups.
+    orig_shape = x.shape
+    axis = axis % x.ndim
+    xm = torch.movedim(x, axis, -1)
+    n = xm.shape[-1]
+    pad = (-n) % group_size
+    if pad:
+        xm = torch.nn.functional.pad(xm, (0, pad))
+    xm = xm.contiguous()
+    out = torch.empty_like(xm)
+    n_groups = xm.numel() // group_size
+    if n_groups:
+        _build.check(_build.load().tq_tr_quantize_grouped(
+            xm.data_ptr(), sf.data_ptr(), out.data_ptr(), n_groups,
+            group_size, bits, min(budget, _BUDGET_CAP),
+            int(keep_mode == "serial"),
+            torch.cuda.current_stream(x.device).cuda_stream),
+            "tq_tr_quantize_grouped")
+        tr_quantize.launches["grouped"] += 1
+    if pad:
+        out = out[..., :n]
+    return torch.movedim(out, -1, axis).reshape(orig_shape)
+
+
+def tr_quantize(x: torch.Tensor, sf, bits: int, group_size: int = 1,
+                num_keep_terms: int = 8, axis: int = 1,
+                keep_mode: str = "largest") -> torch.Tensor:
+    """Term-reveal fake quantization (equals :func:`term_reveal`).
+
+    ``sf`` is read from device memory by the kernel, so a scale computed
+    on the device needs no host sync.  ``keep_mode``: 'largest' keeps the
+    largest-magnitude terms, 'serial' the lowest (first-seen) ones.
+    """
+    if group_size < 1:
+        raise ValueError(f"group_size must be >= 1, got {group_size}")
+    if not x.is_cuda:
+        return tr_quantize_ref(x, sf, bits, group_size, num_keep_terms, axis,
+                               keep_mode)
+    if group_size == 1:
+        return _launch_elementwise(x, sf, bits, num_keep_terms, keep_mode,
+                                   int_out=False)
+    return _launch_grouped(x, sf, bits, group_size, num_keep_terms, axis,
+                           keep_mode)
+
+
+tr_quantize.launches = {"elementwise": 0, "grouped": 0}
+
+
+def tr_quantize_int_ref(x: torch.Tensor, sf, bits: int, num_keep_terms: int,
+                        keep_mode: str = "largest") -> torch.Tensor:
+    """Plain PyTorch version of :func:`tr_quantize_int`; in 'largest' mode
+    it equals
+    :func:`~tq_tpu_torch.ops.term_reveal.term_reveal_elementwise_int`."""
+    _check_keep_mode(keep_mode)
+    acc, _ = _kept(x, sf, bits, num_keep_terms, keep_mode)
+    return torch.where(x < 0, -acc, acc)
+
+
+def tr_quantize_int(x: torch.Tensor, sf, bits: int, num_keep_terms: int,
+                    keep_mode: str = "largest") -> torch.Tensor:
+    """Element-wise term reveal without the dequantization: int32
+    ``+-q_kept``, the element-wise kernel's integer-output variant."""
+    if not x.is_cuda:
+        return tr_quantize_int_ref(x, sf, bits, num_keep_terms, keep_mode)
+    return _launch_elementwise(x, sf, bits, num_keep_terms, keep_mode,
+                               int_out=True)
