@@ -22,7 +22,24 @@ non-zero without printing a result:
    path on the same 512 test samples: equal calibrated scales, equal
    quantized layer inputs (but for float32-sum-order boundary flips,
    counted), each layer within atol=1e-4 given the same input, and the
-   log-probs of the rows without a flip within atol=1e-4.
+   log-probs of the rows without a flip within atol=1e-4;
+5. ``term_matmul``'s other modes (raw input, int8/int16/bf16-stored and
+   9-bit packed weights, the bf16 and int8 modes): every combination the
+   checks admit against ``term_matmul_ref`` on the card at ragged shapes
+   and at the LSTM serving shapes (the int8 mode bit for bit, the rest
+   within rtol=1e-5, atol=1e-4*max|ref|), timed beside bound, plain
+   version and library call at the serving shapes;
+6. the LSTM LM at full width (650/650/33278, ``lstm_checkpoint``'s seeded
+   weights): the README ``lstm-quant`` sweep and one TR setting through
+   ``run_sweep`` on the card; tmacs and param_bits equal to the JAX
+   package's, ppl within rtol=1e-3 (``EXPECTED_LSTM_SWEEPS``);
+7. TR serving generation at full width: ``generate_tr`` with the decoder
+   packed 9-bit, int16 and int8 (raw input), and the fixed decoder
+   (quantized input) in the bf16 mode (int16 and 9-bit) and the int8 mode,
+   100 tokens each; every kernel of the path must launch;
+8. the same serving models on the card and on the CPU: equal calibrated
+   scales, equal packs, and teacher-forced log-probs over 16 sampled
+   tokens, held as in phase 4; tokens/s of the sampler.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -37,6 +54,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "pretrained" / "mnist_mlp.npz"
@@ -71,11 +90,39 @@ EXPECTED_SWEEPS = {
     },
 }
 
+# The LSTM LM at the published width (vocab 33278, emsize = nhid = 650, two
+# layers, tied decoder) with random weights from LSTM_SEED
+# (lstm_checkpoint), on the synthetic Wikitext-2 test stream (20,000
+# tokens, batch 10, bptt 35).  ppls, tmacs and param_bits are the JAX
+# package's run_sweep on the CPU over the same npz, printed by
+# ``python tests/test_torch_port_lstm.py --expected``.
+LSTM_SEED = 0
+EXPECTED_LSTM_SWEEPS = {
+    "lstm-quant": {
+        "settings": dict(wb=[5, 6, 7, 8, 9], wt=[5, 6, 7, 8, 9],
+                         db=[8] * 5, dt=[8] * 5, gs=[1] * 5),
+        "ppls": [33323.98409694335, 33320.229376805226, 33322.31134474884,
+                 33322.51413087664, 33321.66407799847],
+        "tmacs": [302829800000, 363395760000, 423961720000, 484527680000,
+                  545093640000],
+        "param_bits": [108153500, 129784200, 151414900, 173045600,
+                       194676300],
+    },
+    "lstm-tr": {
+        "settings": dict(wb=[8], wt=[24], db=[8], dt=[8], gs=[8]),
+        "ppls": [33321.728110999145],
+        "tmacs": [181697880000],
+        "param_bits": [301505100],
+    },
+}
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
 # bytes/s and float32 FLOP/s outside the tensor cores.  The bounds are
 # stated against them, beside the card's name and power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67.0e12
+BF16_FLOP_PER_S = 989e12   # dense tensor-core rate
+INT8_OP_PER_S = 1979e12
 
 KERNELS = {
     "tr_quantize_elementwise": dict(
@@ -87,7 +134,79 @@ KERNELS = {
     "term_matmul_f32": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
+    "term_matmul_raw_packed8": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:151"),
+    "term_matmul_raw_int16": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:219"),
+    "term_matmul_raw_int8": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:219"),
+    "term_matmul_bf16_int16": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:202"),
+    "term_matmul_bf16_packed8": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:237"),
+    "term_matmul_int8": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:253"),
 }
+# Kernel row -> term_matmul's launch-counter key (its VARIANTS).
+TERM_MATMUL_ROWS = {
+    "term_matmul_f32": "f32",
+    "term_matmul_raw_packed8": "f32_raw_packed8",
+    "term_matmul_raw_int16": "f32_raw_int16",
+    "term_matmul_raw_int8": "f32_raw_int8",
+    "term_matmul_bf16_int16": "bf16_int16",
+    "term_matmul_bf16_packed8": "bf16_packed8",
+    "term_matmul_int8": "int8_int8",
+}
+PEAK_OPS = {"f32": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S,
+            "int8": INT8_OP_PER_S}
+
+# TR serving generation: (name, (wb, gs, wt, db, dt), pack, fixed decoder).
+# The fixed decoder quantizes its input, so its packed weights take the
+# bf16 mode (8-bit grids) or the int8 mode (int8 weights, db <= 7).
+GEN_CONFIGS = [
+    ("u8s", (8, 8, 24, 8, 8), "u8s", False),
+    ("int16", (8, 8, 24, 8, 8), "int", False),
+    ("int8", (7, 8, 12, 7, 3), "int", False),
+    ("fixed-bf16-int16", (8, 8, 24, 8, 3), "int", True),
+    ("fixed-bf16-u8s", (8, 8, 24, 8, 3), "u8s", True),
+    ("fixed-int8", (7, 8, 12, 7, 3), "int", True),
+]
+GEN_WORDS = 100
+GEN_SEED = 1111
+TEACHER_TOKENS = 16
+VOCAB = 33278
+
+
+def lstm_checkpoint(path, seed: int = LSTM_SEED, vocab: int = 33278,
+                    emsize: int = 650, nhid: int = 650,
+                    nlayers: int = 2) -> None:
+    """Save random LSTM LM weights made with numpy from ``seed``, in
+    ``lstm_lm.init``'s distributions (encoder U(-0.1, 0.1), recurrent
+    U(-1/sqrt(H), 1/sqrt(H)), decoder bias 0, tied), with the port's
+    ``save_params``: the same file loads in both packages."""
+    from tq_tpu_torch.utils.checkpoint import save_params
+
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(nhid)
+
+    def uniform(shape, bound):
+        return rng.uniform(-bound, bound, size=shape).astype(np.float32)
+
+    params = {"encoder": {"w": uniform((vocab, emsize), 0.1)}, "rnn": []}
+    for i in range(nlayers):
+        params["rnn"].append({
+            "w_ih": uniform((emsize if i == 0 else nhid, 4 * nhid), k),
+            "w_hh": uniform((nhid, 4 * nhid), k),
+            "b_ih": uniform((4 * nhid,), k),
+            "b_hh": uniform((4 * nhid,), k)})
+    params["decoder"] = {"b": np.zeros(vocab, np.float32)}
+    save_params(path, params)
 
 
 def emit(obj) -> None:
@@ -155,10 +274,12 @@ def timings(torch, kernel, plain, library=None) -> dict:
                 library_ms=device_ms(torch, library) if library else None)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    """The least time for the work: bytes moved or operations done."""
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes moved or operations done (at
+    ``peak`` operations per second)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -448,6 +569,386 @@ def phase_fixed_linear(torch):
           "logp_max_abs_err": logp_err})
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def _tm_weights(torch, fmt: str, K: int, N: int, gen, dev):
+    """(weight in format ``fmt``, w_sf or None, the float32 values the
+    kernel multiplies: q for integer and packed weights, w otherwise)."""
+    from tq_tpu_torch.kernels.term_matmul import (pack_weight_u8s,
+                                                  unpack_weight_u8s)
+
+    w_sf = torch.tensor(0.0123, device=dev)
+    if fmt in ("f32", "bf16"):
+        w = torch.randn(K, N, generator=gen, device=dev) * 0.05
+        if fmt == "bf16":
+            w = w.to(torch.bfloat16)
+        return w, None, w.to(torch.float32)
+    if fmt in ("int8", "int16"):
+        hi = 127 if fmt == "int8" else 1000  # int16 past bf16's 8 bits
+        q = torch.randint(-hi, hi + 1, (K, N), generator=gen, device=dev)
+        return q.to(getattr(torch, fmt)), w_sf, q.to(torch.float32)
+    # The 9-bit pack over the full magnitude range 0..255 and both signs.
+    q = torch.randint(-255, 256, (K, N), generator=gen, device=dev)
+    q[0, :3] = torch.tensor([0, 255, -255], device=dev)[:N]
+    wq = q.to(torch.float32) * w_sf
+    wp = pack_weight_u8s(wq, w_sf, 8)
+    if not torch.equal(unpack_weight_u8s(wp, k=K), wq):
+        fail(f"9-bit pack ({K}, {N}) does not round-trip on the card")
+    return wp, None, q.to(torch.float32)
+
+
+def _weight_bytes(fmt: str, K: int, N: int) -> int:
+    if fmt == "packed8":
+        K8 = -(-K // 8) * 8
+        return K8 * N + K8 // 8 * N
+    return {"f32": 4, "bf16": 2, "int16": 2, "int8": 1}[fmt] * K * N
+
+
+def phase_term_matmul_modes(torch):
+    from tq_tpu_torch.kernels.term_matmul import (VARIANTS, term_matmul,
+                                                  term_matmul_ref)
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    # Ragged shapes (M, N off the 64-tile, K off a multiple of 8) and the
+    # LSTM serving shapes: the recurrent (1, 650, 2600) and the decoder
+    # (1, 650, 33278) at one token, and a 350-row chunk.
+    shapes = [(3, 37, 19), (77, 300, 45), (1, 650, 2600), (350, 650, 2600),
+              (1, 650, VOCAB)]
+    weights = {}
+    cases, max_err = 0, {}
+    for variant, (mode, fmt, quantize_x) in VARIANTS.items():
+        bits, terms = (7, 3) if mode == "int8" else (8, 3)
+        for M, K, N in shapes:
+            key = (fmt, K, N)
+            if key not in weights:
+                weights[key] = _tm_weights(torch, fmt, K, N, gen, dev)
+            w, w_sf, _ = weights[key]
+            x = torch.randn(M, K, generator=gen, device=dev)
+            sf = torch.tensor(0.03, device=dev)
+            kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
+                      quantize_x=quantize_x)
+            out = term_matmul(x, w, sf, bits, terms, **kw)
+            ref = term_matmul_ref(x, w, sf, bits, terms, **kw)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            if mode == "int8":
+                if not torch.equal(out, ref):
+                    fail(f"term_matmul {variant} {(M, K, N)}: not bit-exact "
+                         f"(max |diff| {err})")
+            elif not torch.allclose(out, ref, rtol=1e-5, atol=1e-4 * scale):
+                fail(f"term_matmul {variant} {(M, K, N)}: max |diff| {err} "
+                     f"(max |ref| {scale})")
+            max_err[variant] = max(max_err.get(variant, 0.0), err)
+            cases += 1
+
+    # Time the rows of the serving path at its shapes.
+    results = {}
+    for row, variant in TERM_MATMUL_ROWS.items():
+        if row == "term_matmul_f32":
+            continue
+        mode, fmt, _ = VARIANTS[variant]
+        row_shapes = [(1, 650, VOCAB)]
+        if fmt == "packed8" and mode == "f32":
+            row_shapes.append((1, 650, 2600))  # the packed recurrent weights
+        per_shape = {}
+        for M, K, N in row_shapes:
+            w, w_sf, wv = weights[(fmt, K, N)]
+            x = torch.randn(M, K, generator=gen, device=dev)
+            sf = torch.tensor(0.03, device=dev)
+            bits, terms = (7, 3) if mode == "int8" else (8, 3)
+            quantize_x = mode != "f32"
+            kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
+                      quantize_x=quantize_x)
+            # The library call's operands: the already-quantized input and
+            # the integer weights, or the raw input and the decoded weights.
+            if quantize_x:
+                xa = tr_quantize_int_ref(x, sf, bits, terms).to(torch.float32)
+                wa = wv
+            else:
+                xa = x
+                wa = wv * (w.w_sf if fmt == "packed8" else w_sf)
+            b, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N) + 4 * M * N,
+                             2 * M * K * N, PEAK_OPS[mode])
+            per_shape[f"{M}x{K}x{N}"] = dict(
+                **timings(torch, lambda: term_matmul(x, w, sf, bits, terms,
+                                                     **kw),
+                          lambda: term_matmul_ref(x, w, sf, bits, terms,
+                                                  **kw),
+                          lambda: torch.matmul(xa, wa)),
+                bound_ms=b, bound_by=by)
+        head = per_shape[f"1x650x{VOCAB}"]
+        results[row] = dict(shape=[1, 650, VOCAB], variant=variant,
+                            per_shape=per_shape, max_abs_err=max_err[variant],
+                            **{k: head[k] for k in (
+                                "ms", "eager_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by")})
+    emit({"phase": "term_matmul_modes", "ok": True, "cases": cases,
+          "variants": len(VARIANTS), "max_abs_err": max_err,
+          "results": results})
+    return results
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def _reset_counts():
+    from tq_tpu_torch.kernels.term_matmul import term_matmul
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+
+    for counts in (tr_quantize.launches, term_matmul.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts() -> dict:
+    """Launches per kernel row since the last reset."""
+    from tq_tpu_torch.kernels.term_matmul import term_matmul
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+
+    out = {"tr_quantize_elementwise": tr_quantize.launches["elementwise"],
+           "tr_quantize_grouped": tr_quantize.launches["grouped"]}
+    for row, variant in TERM_MATMUL_ROWS.items():
+        out[row] = term_matmul.launches[variant]
+    out["term_matmul_other"] = sum(
+        n for k, n in term_matmul.launches.items()
+        if k not in TERM_MATMUL_ROWS.values())
+    return out
+
+
+def _require_launched(launches: dict, rows, path: str) -> None:
+    for name in rows:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+
+
+def phase_lstm_sweep(torch, ckpt: Path):
+    from tq_tpu_torch.data.wikitext import load_corpus
+    from tq_tpu_torch.evals.lstm import run_sweep
+
+    if load_corpus()[1] != "synthetic":
+        fail("EXPECTED_LSTM_SWEEPS hold the synthetic test stream's numbers; "
+             "unset TQ_DATA_DIR")
+    _reset_counts()
+    t0 = time.perf_counter()
+    got, sweep_seconds = {}, {}
+    for name, exp in EXPECTED_LSTM_SWEEPS.items():
+        s = exp["settings"]
+        t1 = time.perf_counter()
+        got[name] = run_sweep(s["wb"], s["wt"], s["db"], s["dt"], s["gs"],
+                              checkpoint=str(ckpt), verbose=False,
+                              device="cuda")
+        torch.cuda.synchronize()
+        sweep_seconds[name] = time.perf_counter() - t1
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    gap = 0.0
+    for name, exp in EXPECTED_LSTM_SWEEPS.items():
+        for key in ("tmacs", "param_bits"):
+            if got[name][key] != [float(v) for v in exp[key]]:
+                fail(f"{name} {key}: {got[name][key]} != JAX {exp[key]}")
+        for a, b in zip(got[name]["ppls"], exp["ppls"]):
+            gap = max(gap, abs(a - b) / abs(b))
+    if gap > 1e-3:
+        fail(f"LSTM sweep ppl differs from the JAX package's by {gap} "
+             "(relative)")
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped"], "LSTM sweep")
+    emit({"phase": "lstm_sweep", "ok": True, "seconds": seconds,
+          "sweep_seconds": sweep_seconds,
+          "settings": sum(len(e["ppls"]) for e in
+                          EXPECTED_LSTM_SWEEPS.values()),
+          "ppl_max_rel_gap": gap, "launches": launches, "results": got})
+    return launches
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def _lstm_inputs(ckpt: Path):
+    from tq_tpu_torch.data.wikitext import batchify, load_corpus
+    from tq_tpu_torch.evals.lstm import EVAL_BATCH
+    from tq_tpu_torch.utils.checkpoint import load_params
+
+    corpus, _ = load_corpus()
+    return load_params(ckpt), batchify(np.asarray(corpus.test), EVAL_BATCH)
+
+
+def phase_generation(torch, ckpt: Path):
+    from tq_tpu_torch.evals.generate import (generate_tr, sample_quantized,
+                                             serving_model)
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params_np, stream = _lstm_inputs(ckpt)
+    params = params_from_jax(params_np, "cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens, seconds = {}, {}
+    for name, tr, pack, fixed in GEN_CONFIGS:
+        t1 = time.perf_counter()
+        if fixed:  # no entry point serves the fixed decoder: its pieces
+            qp, qc, qs = serving_model(params, tr, pack, stream,
+                                       quantize_decoder_input=True)
+            toks = sample_quantized(qp, qc, qs, VOCAB, GEN_WORDS,
+                                    seed=GEN_SEED)
+        else:
+            toks = generate_tr(params, VOCAB, GEN_WORDS, seed=GEN_SEED,
+                               tr=tr, pack_fmt=pack, calib_stream=stream,
+                               device="cuda")
+        seconds[name] = time.perf_counter() - t1
+        if len(toks) != GEN_WORDS or not all(0 <= t < VOCAB for t in toks):
+            fail(f"generation {name}: tokens out of range or missing")
+        tokens[name] = toks
+    total = time.perf_counter() - t0
+    launches = _read_counts()
+    _require_launched(launches, [
+        "tr_quantize_elementwise", "tr_quantize_grouped",
+        "term_matmul_raw_packed8", "term_matmul_raw_int16",
+        "term_matmul_raw_int8", "term_matmul_bf16_int16",
+        "term_matmul_bf16_packed8", "term_matmul_int8"], "generation")
+    emit({"phase": "generation", "ok": True, "seconds": total,
+          "config_seconds": seconds, "words": GEN_WORDS,
+          "launches": launches,
+          "first_tokens": {k: v[:8] for k, v in tokens.items()}})
+    return launches, tokens
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def _teacher_forced(torch, qp, qc, qs, tokens, device):
+    """Per token, batch 1: the step's raw inputs, quantized inputs, LSTM
+    output, new hidden state and log-probs."""
+    from tq_tpu_torch.layers.linear import tr_dense_apply
+    from tq_tpu_torch.layers.lstm import tr_lstm_apply
+    from tq_tpu_torch.layers.quantize import act_quantize
+    from tq_tpu_torch.models import lstm_lm
+
+    tr_rnn, tr_dec = qc["rnn"], qc["decoder"]
+    H = qp["rnn"][0]["b_hh"].shape[0] // 4
+    hidden = lstm_lm.init_hidden(1, nhid=H, nlayers=len(qp["rnn"]),
+                                 device=device)
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    rows = []
+    for t in tokens:
+        tok = torch.tensor([[t]], device=device)
+        emb = qp["encoder"]["w"][tok]
+        q_in = [act_quantize(p, qs["rnn"]["sf"], tr_rnn.data_bits,
+                             tr_rnn.data_terms) for p in (emb, *hidden)]
+        out, new_hidden, _ = tr_lstm_apply(qp["rnn"], tr_rnn, qs["rnn"], emb,
+                                           hidden, False)
+        dec_in = out.reshape(1, H)
+        if tr_dec.quantize_input:
+            q_in.append(act_quantize(dec_in, qs["decoder"]["sf"],
+                                     tr_dec.data_bits, tr_dec.data_terms))
+        logits, _ = tr_dense_apply(qp["decoder"], tr_dec, qs["decoder"],
+                                   dec_in, False)
+        logp = torch.log_softmax(logits, dim=-1)
+        if not torch.equal(logp, fwd(qp, qs, tok, hidden)[0]):
+            fail("teacher-forced step differs from the model's forward")
+        rows.append(dict(emb=emb, hidden=hidden, q_in=q_in, out=out,
+                         new_hidden=new_hidden, logp=logp))
+        hidden = new_hidden
+    return rows
+
+
+def _packs_equal(a, b) -> bool:
+    from tq_tpu_torch.utils.checkpoint import flatten_tree
+
+    fa, fb = flatten_tree({"d": a["decoder"], "r": a["rnn"]}), \
+        flatten_tree({"d": b["decoder"], "r": b["rnn"]})
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+def phase_serving_compare(torch, ckpt: Path, tokens: dict, card: str,
+                          smi: str):
+    """The serving models on the card and on the CPU, from the same
+    converted weights: scales, packs and teacher-forced log-probs; and the
+    sampler's tokens/s on the card."""
+    from tq_tpu_torch.evals.generate import calibrate, sample_quantized
+    from tq_tpu_torch.layers.linear import tr_dense_apply
+    from tq_tpu_torch.layers.lstm import tr_lstm_apply
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params_np, stream = _lstm_inputs(ckpt)
+    params = params_from_jax(params_np, "cuda")
+    results = {}
+    groups: dict = {}
+    for name, tr, pack, fixed in GEN_CONFIGS:
+        groups.setdefault((tr, fixed), []).append((name, pack))
+    for (tr, fixed), packs in groups.items():
+        wb, gs, wt, db, dt = tr
+        qp, qc, qs0 = lstm_lm.convert(params, wb, gs, wt, db, dt,
+                                      quantize_decoder_input=fixed)
+        qs = calibrate(qp, qc, qs0, stream)
+        # The CPU path starts from the card's converted weights (the
+        # conversion kernels are bit-exact: phase 2).
+        qp_c = params_from_jax(qp, "cpu")
+        qs_c = calibrate(qp_c, qc, params_from_jax(qs0, "cpu"), stream)
+        sfs = {}
+        for q in ("rnn", "decoder"):
+            a, b = float(qs[q]["sf"]), float(qs_c[q]["sf"])
+            if a != b:
+                fail(f"serving {tr}: calibrated {q} sf {a} (card) != {b} "
+                     "(cpu)")
+            sfs[q] = a
+        for name, pack in packs:
+            qpk = lstm_lm.pack(qp, qc, fmt=pack)
+            qpk_c = lstm_lm.pack(qp_c, qc, fmt=pack)
+            if not _packs_equal(qpk, qpk_c):
+                fail(f"serving {name}: packed weights differ card vs cpu")
+            sample_quantized(qpk, qc, qs, VOCAB, 5, seed=GEN_SEED)  # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sample_quantized(qpk, qc, qs, VOCAB, GEN_WORDS, seed=GEN_SEED)
+            tok_s = GEN_WORDS / (time.perf_counter() - t0)
+            toks = tokens[name][:TEACHER_TOKENS]
+            rows_g = _teacher_forced(torch, qpk, qc, qs, toks, "cuda")
+            rows_c = _teacher_forced(torch, qpk_c, qc, qs_c, toks, "cpu")
+            flipped, rnn_err, dec_err, logp_err = 0, 0.0, 0.0, 0.0
+            for g, c in zip(rows_g, rows_c):
+                # Layer by layer on the CPU's inputs.
+                out, hid, _ = tr_lstm_apply(
+                    qpk["rnn"], qc["rnn"], qs["rnn"], c["emb"].cuda(),
+                    tuple(h.cuda() for h in c["hidden"]), False)
+                rnn_err = max([rnn_err, float((out.cpu() - c["out"]).abs()
+                                              .max())]
+                              + [float((a.cpu() - b).abs().max())
+                                 for a, b in zip(hid, c["new_hidden"])])
+                logits, _ = tr_dense_apply(
+                    qpk["decoder"], qc["decoder"], qs["decoder"],
+                    c["out"].reshape(1, -1).cuda(), False)
+                dec_err = max(dec_err, float(
+                    (torch.log_softmax(logits, -1).cpu() - c["logp"]).abs()
+                    .max()))
+                if any(not torch.equal(a.cpu(), b)
+                       for a, b in zip(g["q_in"], c["q_in"])):
+                    flipped += 1
+                else:
+                    logp_err = max(logp_err, float(
+                        (g["logp"].cpu() - c["logp"]).abs().max()))
+            for what, err in (("LSTM", rnn_err), ("decoder", dec_err),
+                              ("log-probs", logp_err)):
+                if err > 1e-4:
+                    fail(f"serving {name}: {what} differs by {err} card vs "
+                         "cpu")
+            results[name] = dict(tr=list(tr), pack=pack, fixed_decoder=fixed,
+                                 sf=sfs, tokens_per_s=tok_s,
+                                 rows_with_boundary_flip=flipped,
+                                 lstm_max_abs_err=rnn_err,
+                                 decoder_max_abs_err=dec_err,
+                                 logp_max_abs_err=logp_err)
+    emit({"phase": "serving_compare", "ok": True, "card": card,
+          "nvidia_smi": smi, "teacher_tokens": TEACHER_TOKENS,
+          "results": results})
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -469,13 +970,23 @@ def main() -> None:
     smi = phase_build(torch)
     card = torch.cuda.get_device_name(0)
     kernel_results = phase_kernels(torch)
-    launches = phase_main_path(torch)
+    kernel_results.update(phase_term_matmul_modes(torch))
+    by_path = {"mnist_mlp": phase_main_path(torch)}
     phase_fixed_linear(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "lstm_seeded.npz"
+        lstm_checkpoint(ckpt)
+        by_path["lstm_sweep"] = phase_lstm_sweep(torch, ckpt)
+        by_path["lstm_generation"], tokens = phase_generation(torch, ckpt)
+        phase_serving_compare(torch, ckpt, tokens, card, smi)
 
     lines = []
     for name, meta in KERNELS.items():
         r = kernel_results[name]
-        lines.append({"name": name, **meta, "launches": launches[name],
+        per_path = {p: counts.get(name, 0) for p, counts in by_path.items()}
+        lines.append({"name": name, **meta,
+                      "launches": sum(per_path.values()),
+                      "launches_by_path": per_path,
                       **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "eager_ms")},
@@ -485,7 +996,6 @@ def main() -> None:
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
-
 
 if __name__ == "__main__":
     main()

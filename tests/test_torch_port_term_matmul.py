@@ -1,15 +1,28 @@
-"""The port's fused term matmul (f32 mode) against the JAX package's."""
+"""The port's fused term matmul, every mode and weight format, and its
+weight packing, against the JAX package's (``term_matmul`` runs in
+interpret mode on the CPU)."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tq_tpu_torch.kernels import term_matmul as tm
+from tq_tpu_torch.utils.params import params_from_jax
 
 jm = importlib.import_module("tq_tpu.kernels.term_matmul")
+
+
+def _close(got: torch.Tensor, want, rtol=1e-5):
+    """The f32 mode's tolerance for float32 sums taken in another order:
+    rtol=1e-5, atol=1e-4 * max|ref|."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
+                               atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("M,K,N", [(8, 32, 16), (13, 100, 7), (130, 300, 70)])
@@ -32,32 +45,117 @@ def test_plain_version_matches_jax_f32(rng, M, K, N, bits, terms):
         rtol=0, atol=0)
 
 
+def _weights(rng, fmt: str, K: int, N: int):
+    """(JAX weight, port weight, w_sf or None) in format ``fmt``: the
+    same values on both sides (integer weights hold q, the pack q*w_sf)."""
+    w_sf = np.float32(0.0123)
+    if fmt == "f32":
+        w = (rng.normal(size=(K, N)) * 0.1).astype(np.float32)
+        return jnp.asarray(w), torch.from_numpy(w), None
+    if fmt == "bf16":
+        w = (rng.normal(size=(K, N)) * 0.1).astype(np.float32)
+        return (jnp.asarray(w, jnp.bfloat16),
+                torch.from_numpy(w).to(torch.bfloat16), None)
+    if fmt in ("int8", "int16"):
+        hi = 127 if fmt == "int8" else 255
+        q = rng.integers(-hi, hi + 1, size=(K, N)).astype(fmt)
+        return (jnp.asarray(q), torch.from_numpy(q), w_sf)
+    q = rng.integers(-255, 256, size=(K, N)).astype(np.float32)
+    wq = (q * w_sf).astype(np.float32)
+    jw = jm.pack_weight_u8s(jnp.asarray(wq), jnp.float32(w_sf), 8)
+    tw = tm.pack_weight_u8s(torch.from_numpy(wq), torch.tensor(w_sf), 8)
+    for a, b in zip(jw, tw):  # the pack, byte for byte
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    return jw, tw, None
+
+
+FORMATS = ("f32", "bf16", "int8", "int16", "packed8")
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 37, 19), (70, 130, 66)])
+@pytest.mark.parametrize("mode,fmt,quantize_x", [
+    (m, f, q) for m in ("f32", "bf16") for f in FORMATS for q in (True, False)
+] + [("int8", "int8", True)])
+def test_every_mode_matches_jax(rng, mode, fmt, quantize_x, M, K, N):
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jw, tw, w_sf = _weights(rng, fmt, K, N)
+    bits, terms = (6, 3) if mode == "int8" else (8, 3)
+    sf = np.float32(0.03)
+    kw = dict(bf16=mode == "bf16", int8=mode == "int8",
+              quantize_x=quantize_x)
+    want = jm.term_matmul(jnp.asarray(x), jw, jnp.float32(sf), bits, terms,
+                          w_sf=None if w_sf is None else jnp.float32(w_sf),
+                          bm=64, bk=128, bn=128, **kw)
+    tw_sf = None if w_sf is None else torch.tensor(w_sf)
+    got = tm.term_matmul(torch.from_numpy(x), tw, torch.tensor(sf), bits,
+                         terms, w_sf=tw_sf, **kw)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    if mode == "int8":  # int32 accumulation: exact
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        _close(got, want)
+    assert tm.variant(kw["bf16"], kw["int8"], tw, quantize_x) in tm.VARIANTS
+
+
 def test_cpu_tensor_counts_no_launch(rng):
     x = torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32))
     w = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
     tm.term_matmul(x, w, 0.1, 6, 2)
-    assert tm.term_matmul.launches == {"f32": 0}
+    tm.term_matmul(x, w.to(torch.int8), 0.1, 6, 2, int8=True,
+                   w_sf=torch.tensor(0.5))
+    assert set(tm.term_matmul.launches) == set(tm.VARIANTS)
+    assert len(tm.VARIANTS) == 21
+    assert not any(tm.term_matmul.launches.values())
 
 
-@pytest.mark.parametrize("kwargs,w_dtype,match", [
-    (dict(bf16=True), torch.float32, "bf16"),
-    (dict(int8=True), torch.float32, "int8"),
-    (dict(quantize_x=False), torch.float32, "raw-input"),
-    (dict(), torch.int8, "integer weights"),
-    (dict(), torch.int16, "integer weights"),
-])
-def test_unported_modes_raise(kwargs, w_dtype, match):
-    x = torch.zeros(4, 8)
-    w = torch.zeros(8, 3, dtype=w_dtype)
-    with pytest.raises(NotImplementedError, match=match):
-        tm.term_matmul(x, w, 0.1, 6, 2, **kwargs)
+def test_variant_names():
+    w = torch.zeros(8, 3)
+    assert tm.variant(w=w) == "f32"
+    assert tm.variant(w=w.to(torch.int16), quantize_x=False) == \
+        "f32_raw_int16"
+    packed = tm.pack_weight_u8s(w, torch.tensor(1.0), 8)
+    assert tm.variant(bf16=True, w=packed) == "bf16_packed8"
+    assert tm.variant(w=packed, quantize_x=False) == "f32_raw_packed8"
+    assert tm.variant(int8=True, w=w.to(torch.int8)) == "int8_int8"
 
 
-def test_packed_weights_raise():
-    packed = (torch.zeros(8, 3, dtype=torch.int8),
-              torch.zeros(1, 3, dtype=torch.int8), torch.tensor(1.0))
-    with pytest.raises(NotImplementedError, match="packed"):
-        tm.term_matmul(torch.zeros(4, 8), packed, 0.1, 8, 2)
+def _bad_cases():
+    z8 = np.zeros((8, 3), np.int8)
+    return [
+        ("carries its own w_sf", "packed", dict(w_sf=1.0)),
+        ("int8 mode is for <= 7-bit grids", "packed", dict(int8=True)),
+        ("do not cover x K", "packed16", {}),
+        ("integer weights must be int8 or int16", z8.astype(np.int32), {}),
+        ("integer weights require w_sf", z8, {}),
+        ("w_sf is only meaningful", z8.astype(np.float32), dict(w_sf=1.0)),
+        ("mutually exclusive", z8, dict(w_sf=1.0, int8=True, bf16=True)),
+        ("int8 mode requires int8-packed", z8.astype(np.int16),
+         dict(w_sf=1.0, int8=True)),
+        ("int8 mode needs bits <= 7", z8, dict(w_sf=1.0, int8=True)),
+        ("int8 mode requires quantized activations", z8,
+         dict(w_sf=1.0, int8=True, quantize_x=False, bits=6)),
+    ]
+
+
+@pytest.mark.parametrize("match,w,kw", _bad_cases(),
+                         ids=[c[0] for c in _bad_cases()])
+def test_refuses_what_jax_refuses(match, w, kw):
+    """The same ValueError, with the same message, on both sides."""
+    kw = dict(kw)
+    bits = kw.pop("bits", 8)
+    x = np.zeros((4, 8), np.float32)
+    if isinstance(w, str):
+        wq = np.zeros((16 if w == "packed16" else 8, 3), np.float32)
+        jw = jm.pack_weight_u8s(jnp.asarray(wq), jnp.float32(1.0), 8)
+        tw = params_from_jax(jax.device_get(jw), "cpu")
+    else:
+        jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    jkw = {k: (jnp.float32(v) if k == "w_sf" else v) for k, v in kw.items()}
+    tkw = {k: (torch.tensor(v) if k == "w_sf" else v) for k, v in kw.items()}
+    with pytest.raises(ValueError, match=match):
+        jm.term_matmul(jnp.asarray(x), jw, jnp.float32(0.1), bits, 2, **jkw)
+    with pytest.raises(ValueError, match=match):
+        tm.term_matmul(torch.from_numpy(x), tw, 0.1, bits, 2, **tkw)
 
 
 def test_rejects_bad_arguments():
@@ -66,3 +164,77 @@ def test_rejects_bad_arguments():
                        w_sf=torch.tensor(1.0))
     with pytest.raises(ValueError, match="x \\(M, K\\)"):
         tm.term_matmul(torch.zeros(4, 8), torch.zeros(7, 3), 0.1, 6, 2)
+    with pytest.raises(ValueError, match="x \\(M, K\\)"):
+        tm.term_matmul(torch.zeros(2, 4, 8), torch.zeros(8, 3), 0.1, 6, 2)
+
+
+@pytest.mark.parametrize("K", [1, 7, 8, 13, 64])
+def test_pack_u8s_byte_for_byte_and_round_trip(rng, K):
+    N = 11
+    w_sf = np.float32(0.037)
+    q = rng.integers(-255, 256, size=(K, N)).astype(np.float32)
+    q[0, :4] = [0, 255, -255, -128]
+    wq = (q * w_sf).astype(np.float32)
+    jw = jm.pack_weight_u8s(jnp.asarray(wq), jnp.float32(w_sf), 8)
+    tw = tm.pack_weight_u8s(torch.from_numpy(wq), torch.tensor(w_sf), 8)
+    assert tw.lo.dtype == tw.signs.dtype == torch.int8
+    assert tw.lo.shape == (-(-K // 8) * 8, N)
+    for a, b in zip(jw, tw):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    np.testing.assert_array_equal(
+        tm.unpack_weight_u8s(tw, k=K).numpy(),
+        np.asarray(jm.unpack_weight_u8s(jw, k=K)))
+    np.testing.assert_array_equal(tm.unpack_weight_u8s(tw, k=K).numpy(),
+                                  (q * w_sf).astype(np.float32))
+
+
+@pytest.mark.parametrize("bits", [4, 7, 8, 12])
+def test_pack_int_byte_for_byte(rng, bits):
+    w_sf = np.float32(0.021)
+    hi = 2 ** (bits - 1)
+    wq = (rng.integers(-hi, hi + 1, size=(9, 6)) * w_sf).astype(np.float32)
+    jq, jsf = jm.pack_weight_int(jnp.asarray(wq), jnp.float32(w_sf), bits)
+    tq, tsf = tm.pack_weight_int(torch.from_numpy(wq), torch.tensor(w_sf),
+                                 bits)
+    assert tq.dtype == (torch.int8 if bits <= 7 else torch.int16)
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert float(tsf) == float(jsf)
+
+
+def test_pack_zero_scale_packs_zeros():
+    w = torch.zeros(5, 3)
+    q, sf = tm.pack_weight_int(w, torch.tensor(0.0), 8)
+    assert float(sf) == 1.0 and not q.any()
+    wp = tm.pack_weight_u8s(w, torch.tensor(0.0), 8)
+    assert float(wp.w_sf) == 1.0
+    assert (wp.lo == -128).all() and not wp.signs.any()
+
+
+@pytest.mark.parametrize("pack,bits,scale", [
+    ("u8s", 8, 300), ("int", 7, 200), ("int", 9, 40000)])
+def test_overflow_raises_like_jax_now_and_deferred(pack, bits, scale):
+    w = np.full((8, 2), np.float32(scale))
+    jpack = jm.pack_weight_u8s if pack == "u8s" else jm.pack_weight_int
+    tpack = tm.pack_weight_u8s if pack == "u8s" else tm.pack_weight_int
+    with pytest.raises(ValueError) as jerr:
+        jpack(jnp.asarray(w), jnp.float32(1.0), bits)
+    with pytest.raises(ValueError) as terr:
+        tpack(torch.from_numpy(w), torch.tensor(1.0), bits)
+    assert str(terr.value) == str(jerr.value)
+    checks = []
+    tpack(torch.from_numpy(w), torch.tensor(1.0), bits, checks=checks)
+    tpack(torch.zeros(8, 2), torch.tensor(1.0), bits, checks=checks)
+    assert len(checks) == 2
+    with pytest.raises(ValueError) as derr:
+        tm.flush_pack_checks(checks)
+    assert str(derr.value) == str(jerr.value)
+
+
+def test_flush_pack_checks_passes_and_clears():
+    checks = []
+    tm.pack_weight_u8s(torch.ones(8, 2), torch.tensor(0.5), 8, checks=checks)
+    tm.pack_weight_int(torch.ones(8, 2), torch.tensor(0.5), 7, checks=checks)
+    tm.flush_pack_checks(checks)
+    assert checks == []
+    with pytest.raises(ValueError, match="bits <= 8"):
+        tm.pack_weight_u8s(torch.ones(8, 2), torch.tensor(0.5), 9)

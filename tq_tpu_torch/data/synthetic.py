@@ -1,14 +1,16 @@
-"""Deterministic synthetic stand-in for MNIST (no downloads).
+"""Deterministic synthetic stand-ins for MNIST and Wikitext-2 (no
+downloads).
 
-A numpy copy of ``tq_tpu.data.synthetic.synthetic_mnist``: the same seed
-gives byte-identical arrays, so the two packages evaluate on the same data.
+Numpy copies of ``tq_tpu.data.synthetic.synthetic_mnist`` and
+``synthetic_tokens``: the same seed gives byte-identical arrays, so the
+two packages evaluate on the same data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_mnist"]
+__all__ = ["synthetic_mnist", "synthetic_tokens"]
 
 
 def synthetic_mnist(num_train: int = 60000, num_test: int = 10000,
@@ -35,3 +37,13 @@ def synthetic_mnist(num_train: int = 60000, num_test: int = 10000,
         return x[:, None, :, :], y
 
     return make(num_train, seed + 1), make(num_test, seed + 2)
+
+
+def synthetic_tokens(vocab: int = 33278, length: int = 200000,
+                     seed: int = 7) -> np.ndarray:
+    """Zipf-distributed int32 token stream with Wikitext-2's vocab size."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    p = 1.0 / ranks
+    p /= p.sum()
+    return rng.choice(vocab, size=length, p=p).astype(np.int32)

@@ -1,0 +1,225 @@
+"""Text sampler for the LSTM language model, fp32 or TR-quantized.
+
+Port of the LSTM samplers of ``tq_tpu.evals.generate``.  Samples
+``--words`` tokens autoregressively with temperature scaling and writes one
+word per token, '<eos>' as a newline, 20 words per line.
+
+The sampling loop stays on the device: each step draws categorical
+``logp / T`` by the Gumbel-max rule from an explicit CUDA (or CPU)
+``torch.Generator`` seeded from ``--seed``, and the tokens are fetched once
+at the end.  The draws are not ``jax.random``'s, so the tokens differ from
+the JAX package's; the distributions are the same.
+
+TR serving (``generate_tr``): convert at (wb, gs, wt, db, dt), calibrate
+the activation scales on a few bptt chunks of the eval stream, optionally
+pack the weights ('u8s': 9 bits per weight; 'int': int8/int16), then
+sample token by token through ``term_matmul``'s packed-weight modes.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from tq_tpu_torch.data.wikitext import batchify, load_corpus
+from tq_tpu_torch.evals.lstm import (EVAL_BATCH, _chunks, _load_checkpoint,
+                                     _not_ported_model)
+from tq_tpu_torch.layers.lstm import GATE_MULT
+from tq_tpu_torch.models import lstm_lm
+from tq_tpu_torch.utils.device import resolve_device
+from tq_tpu_torch.utils.params import params_from_jax
+
+__all__ = ["generate", "generate_tr", "calibrate", "serving_model",
+           "sample_quantized", "main"]
+
+CELLS = ("LSTM", "GRU", "RNN_TANH", "RNN_RELU")
+
+
+def _sample_scan(fwd, hidden0, vocab: int, words: int, temperature: float,
+                 seed: int, device) -> list[int]:
+    """Sample ``words`` tokens: ``fwd(tok (1, 1), hidden) -> (logp (1,
+    vocab), hidden)`` once per token, the next token drawn on the device
+    (Gumbel-max: ``argmax(logp / T + Gumbel noise)`` is categorical
+    ``logp / T``); the first token comes from ``numpy`` seeded ``seed``."""
+    if temperature < 1e-3:
+        raise ValueError("temperature has to be greater or equal 1e-3")
+    rng = np.random.default_rng(seed)
+    tok = torch.full((1, 1), int(rng.integers(0, vocab)), dtype=torch.int64,
+                     device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tiny = torch.finfo(torch.float32).tiny
+    hidden, toks = hidden0, []
+    for _ in range(words):
+        logp, hidden = fwd(tok, hidden)
+        u = torch.rand(logp.shape[-1], generator=gen, device=device)
+        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        tok = torch.argmax(logp[0] / temperature + gumbel).reshape(1, 1)
+        toks.append(tok)
+    return torch.cat(toks).reshape(-1).tolist() if toks else []
+
+
+def generate(params, vocab: int, words: int = 100, temperature: float = 1.0,
+             seed: int = 1111, cell: str = "LSTM",
+             device="cuda") -> list[int]:
+    """Sample from the fp32 model (a tree of numpy arrays or tensors)."""
+    device = resolve_device(device)
+    params = params_from_jax(params, device)
+    nhid = params["rnn"][0]["w_hh"].shape[0]
+    hidden = lstm_lm.init_hidden(1, nhid=nhid, nlayers=len(params["rnn"]),
+                                 cell=cell, device=device)
+
+    def fwd(tok, hidden):
+        return lstm_lm.apply(params, tok, hidden, cell)
+
+    return _sample_scan(fwd, hidden, vocab, words, temperature, seed, device)
+
+
+def calibrate(qparams, qcfg, qstate, calib_stream=None,
+              calib_chunks: int = 4):
+    """Calibrate a converted model: phase 1 on the first ``calib_chunks``
+    bptt chunks of ``calib_stream`` (a batchified (T, B) token stream; None
+    skips it), then the MSE scale search.  Returns the finalized qstate."""
+    if calib_stream is not None:
+        device = qparams["encoder"]["w"].device
+        cell = qcfg.get("cell", "LSTM")
+        track = lstm_lm.make_quantized_apply(qcfg, track=True)
+        hidden = lstm_lm.init_hidden(
+            calib_stream.shape[1], nhid=qparams["rnn"][0]["w_hh"].shape[0],
+            nlayers=len(qparams["rnn"]), cell=cell, device=device)
+        for i, (x, _) in enumerate(_chunks(calib_stream)):
+            if i >= calib_chunks:
+                break
+            _, hidden, qstate = track(qparams, qstate,
+                                      torch.as_tensor(x, device=device),
+                                      hidden)
+    return lstm_lm.finalize(qstate, qcfg)
+
+
+def serving_model(params, tr=(8, 8, 24, 8, 8), pack_fmt: str | None = None,
+                  calib_stream=None, calib_chunks: int = 4,
+                  cell: str | None = None,
+                  quantize_decoder_input: bool = False):
+    """Convert at ``tr`` = (wb, gs, wt, db, dt), :func:`calibrate`, then
+    pack (``pack_fmt`` 'u8s' or 'int'; None keeps the term-revealed
+    float32 weights).  ``params`` are tensors on the device to serve on.
+    Returns (qparams, qcfg, qstate)."""
+    wb, gs, wt, db, dt = tr
+    if cell is None:
+        cell = lstm_lm.infer_cell(params)
+    qparams, qcfg, qstate = lstm_lm.convert(
+        params, wb, gs, wt, db, dt,
+        quantize_decoder_input=quantize_decoder_input, cell=cell)
+    qstate = calibrate(qparams, qcfg, qstate, calib_stream, calib_chunks)
+    if pack_fmt is not None:
+        qparams = lstm_lm.pack(qparams, qcfg, fmt=pack_fmt)
+    return qparams, qcfg, qstate
+
+
+def sample_quantized(qparams, qcfg, qstate, vocab: int, words: int = 100,
+                     temperature: float = 1.0, seed: int = 1111) -> list[int]:
+    """Sample token by token from a converted (and calibrated, maybe
+    packed) model, batch 1."""
+    device = qparams["encoder"]["w"].device
+    fwd = lstm_lm.make_quantized_apply(qcfg, track=False)
+
+    def step(tok, hidden):
+        logp, hidden, _ = fwd(qparams, qstate, tok, hidden)
+        return logp, hidden
+
+    cell = qcfg.get("cell", "LSTM")
+    nhid = qparams["rnn"][0]["b_hh"].shape[0] // GATE_MULT[cell]
+    hidden0 = lstm_lm.init_hidden(1, nhid=nhid, nlayers=len(qparams["rnn"]),
+                                  cell=cell, device=device)
+    return _sample_scan(step, hidden0, vocab, words, temperature, seed,
+                        device)
+
+
+def generate_tr(params, vocab: int, words: int = 100,
+                temperature: float = 1.0, seed: int = 1111,
+                tr=(8, 8, 24, 8, 8), pack_fmt: str | None = None,
+                calib_stream=None, calib_chunks: int = 4,
+                cell: str | None = None, export_path=None,
+                device="cuda") -> list[int]:
+    """Generate from the TR-quantized recurrent LM at serving speed:
+    :func:`serving_model`, then :func:`sample_quantized`.  ``cell``: None
+    infers it from the gate shapes.  ``export_path`` (a deployable serving
+    step) is not ported yet and raises."""
+    if export_path is not None:
+        raise NotImplementedError(
+            "--export needs utils/export, which is not ported yet "
+            "(ROADMAP slice 4)")
+    device = resolve_device(device)
+    params = params_from_jax(params, device)
+    qparams, qcfg, qstate = serving_model(params, tr, pack_fmt, calib_stream,
+                                          calib_chunks, cell)
+    return sample_quantized(qparams, qcfg, qstate, vocab, words, temperature,
+                            seed)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--checkpoint", default="pretrained/lstm.npz")
+    ap.add_argument("--data", default=None)
+    ap.add_argument("--model", default="LSTM",
+                    choices=["LSTM", "Transformer"])
+    ap.add_argument("--cell", default=None, choices=list(CELLS),
+                    help="recurrent cell family of the checkpoint; default: "
+                         "the checkpoint's own 'model' metadata, else "
+                         "inferred from gate shapes (which can not tell "
+                         "RNN_TANH from RNN_RELU)")
+    ap.add_argument("--words", type=int, default=100)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=1111)
+    ap.add_argument("--outf", default="generated.txt")
+    ap.add_argument("--tr", type=int, nargs=5, default=None,
+                    metavar=("WB", "GS", "WT", "DB", "DT"),
+                    help="generate from the TR-quantized model at this "
+                         "setting")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="serialize the serving step (not ported yet)")
+    ap.add_argument("--pack", default="none", choices=["u8s", "int", "none"],
+                    help="weight format for --tr serving: none (float32 "
+                         "fake-quant weights), u8s (9 bits per weight) or "
+                         "int (int8/int16)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' for the plain versions")
+    a = ap.parse_args(argv)
+    if a.export and a.tr is None:
+        raise SystemExit("--export requires --tr (the artifact is the "
+                         "quantized serving step)")
+    _not_ported_model(a.model)
+    if a.export:
+        raise NotImplementedError(
+            "--export needs utils/export, which is not ported yet "
+            "(ROADMAP slice 4)")
+    device = resolve_device(a.device)
+
+    corpus, source = load_corpus(a.data)
+    vocab = len(corpus.dictionary.idx2word)
+    params, meta = _load_checkpoint(a.checkpoint, with_meta=True)
+    meta_model = meta.get("model")
+    cell = a.cell or (meta_model if meta_model in CELLS else None)
+    if a.tr is not None:
+        stream = batchify(np.asarray(corpus.test), EVAL_BATCH)
+        toks = generate_tr(params, vocab, a.words, a.temperature, a.seed,
+                           tr=tuple(a.tr),
+                           pack_fmt=None if a.pack == "none" else a.pack,
+                           calib_stream=stream, cell=cell, device=device)
+    else:
+        toks = generate(params, vocab, a.words, a.temperature, a.seed,
+                        cell=cell or lstm_lm.infer_cell(params),
+                        device=device)
+    with open(a.outf, "w") as f:
+        for i, t in enumerate(toks):
+            word = (corpus.dictionary.idx2word[t]
+                    if source == "real" else str(t))
+            f.write("\n" if word == "<eos>" else word + " ")
+            if (i + 1) % 20 == 0:
+                f.write("\n")
+    print(f"wrote {a.words} words to {a.outf}")
+
+
+if __name__ == "__main__":
+    main()

@@ -25,18 +25,9 @@ from tq_tpu_torch.evals.train_mlp import load_or_train
 from tq_tpu_torch.layers.common import TRParams
 from tq_tpu_torch.models import mlp
 from tq_tpu_torch.profilers import model_cost
+from tq_tpu_torch.utils.device import resolve_device
 
 __all__ = ["evaluate_setting", "run_sweep", "main", "resolve_device"]
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names CUDA and there
-    is no CUDA device (no silent fallback to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available; pass device='cpu' "
-                           "(--device cpu) to run the plain versions")
-    return device
 
 
 def evaluate_setting(params, wb: int, wt: int, db: int, dt: int, gs: int,

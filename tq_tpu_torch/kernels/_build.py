@@ -43,10 +43,10 @@ SIGNATURES = {
     "tq_tr_quantize_elementwise": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     # x, sf, out, n_groups, group_size, bits, budget, serial, stream
     "tq_tr_quantize_grouped": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
-    # x, w, sf, out, ws, M, N, K, bits, budget, w_sf, splits, k_per_split,
-    # stream
-    "tq_term_matmul_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _I, _I, _P],
+    # x, w, signs, sf, w_sf, out, ws, M, N, K, bits, budget, mode, wfmt,
+    # quantize_x, splits, k_per_split, stream
+    "tq_term_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,61 +1,295 @@
-"""Fused activation term-reveal + matmul: CUDA kernel and its plain version.
+"""Fused activation term-reveal + matmul: CUDA kernel, its plain version,
+and the narrow weight formats it streams.
 
-Port of ``tq_tpu.kernels.term_matmul`` in its f32 mode with float32
-weights: ``tr_quantize(x, sf, bits, 1, k) @ w``, with the activation tile
-term-revealed as it is loaded, so the quantized activations never reach
-device memory.
+Port of ``tq_tpu.kernels.term_matmul``: ``tr_quantize(x, sf, bits, 1, k)
+@ w`` with the activation tile term-revealed as it is loaded, so the
+quantized activations never reach device memory, in every mode of the TPU
+kernel:
+
+* **f32** (default): ``acc(x_q * sf @ w) * w_sf``, float32 throughout;
+* **bf16** (``bf16=True``): the signed integer activations and the
+  weights rounded to bfloat16, float32 accumulation, ``* (sf * w_sf)``;
+* **int8** (``int8=True``): int8 x int8 -> int32, exact, ``* (sf * w_sf)``;
+  int8 weights and ``bits <= 7`` only;
+* **raw input** (``quantize_x=False``): ``x`` itself feeds the product and
+  ``sf`` is taken as 1.
+
+Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
+:func:`pack_weight_int`) or a :class:`PackedWeight8` (9 bits per weight,
+:func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
 * On a CUDA tensor :func:`term_matmul` launches ``csrc/term_matmul.cu``
-  (a tiled float32 SGEMM on CUDA cores, no TF32) and raises on what the
-  kernel does not take.
+  and raises on what the kernel does not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 
-The bf16 and int8 modes, integer and 9-bit packed weights and the
-raw-input mode (``quantize_x=False``) are not ported yet (ROADMAP B3, B4)
-and raise :class:`NotImplementedError`.
+The packing functions are plain tensor code (no kernel) on the weights'
+device.  Their overflow checks can be deferred and fetched in one
+device-to-host copy per model (:func:`flush_pack_checks`).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tq_tpu_torch.kernels import _build
-from tq_tpu_torch.kernels.tr_quantize import MAX_BITS, tr_quantize_ref
+from tq_tpu_torch.kernels.tr_quantize import (MAX_BITS, tr_quantize_int_ref,
+                                              tr_quantize_ref)
 from tq_tpu_torch.ops.term_reveal import as_scale
 
-__all__ = ["term_matmul", "term_matmul_ref"]
+__all__ = ["term_matmul", "term_matmul_ref", "pack_weight_int",
+           "pack_weight_u8s", "unpack_weight_u8s", "flush_pack_checks",
+           "PackedWeight8", "VARIANTS", "variant"]
 
 _TILE, _K_STEP = 64, 16  # the kernel's output tile and K step (kBM/kBN, kBK)
+# The kernel's codes for the multiply-accumulate mode and weight format.
+_MODES = {"f32": 0, "bf16": 1, "int8": 2}
+_FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
+_DTYPE_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16",
+                  torch.int8: "int8", torch.int16: "int16"}
 
 
-def term_matmul_ref(x: torch.Tensor, w: torch.Tensor, sf, bits: int = 8,
-                    num_keep_terms: int = 8) -> torch.Tensor:
-    """Plain PyTorch version of :func:`term_matmul` (f32 mode)."""
-    return torch.matmul(tr_quantize_ref(x, sf, bits, 1, num_keep_terms), w)
+class PackedWeight8(NamedTuple):
+    """9-bits-per-weight format for 8-bit grids (see
+    :func:`pack_weight_u8s`): biased int8 magnitude (``|q| - 128``, so the
+    full 0..255 clamp range of an 8-bit grid fits one byte) plus a sign
+    bitplane packing 8 rows per byte."""
+
+    lo: torch.Tensor     # (K8, N) int8: |q| - 128
+    signs: torch.Tensor  # (K8//8, N) int8: bit i of row r = sign of row 8r+i
+    w_sf: torch.Tensor   # () float32 weight scale
 
 
-def _check(x: torch.Tensor, w, bf16: bool, int8: bool, w_sf,
+def _safe_scale(w_sf, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w_sf == 0, w_sf with 0 replaced by 1), float32 0-d tensors."""
+    w_sf = as_scale(w_sf, device)
+    zero = w_sf == 0.0
+    return zero, torch.where(zero, torch.ones_like(w_sf), w_sf)
+
+
+def _pack_u8s(w_q: torch.Tensor, w_sf) -> tuple[PackedWeight8, torch.Tensor]:
+    """:func:`pack_weight_u8s` without the check: (pack, max |q|)."""
+    zero, safe_sf = _safe_scale(w_sf, w_q.device)
+    q = torch.where(zero, torch.zeros((), dtype=torch.int32, device=w_q.device),
+                    torch.round(w_q / safe_sf).to(torch.int32))
+    maxq = q.abs().max()
+    K, N = q.shape
+    K8 = -(-K // 8) * 8
+    q = torch.nn.functional.pad(q, (0, 0, 0, K8 - K))
+    lo = (q.abs() - 128).to(torch.int8)  # bias: 0..255 -> -128..127
+    sbit = (q < 0).to(torch.int32).reshape(K8 // 8, 8, N)
+    weights = (1 << torch.arange(8, dtype=torch.int32,
+                                 device=q.device))[None, :, None]
+    signs = (sbit * weights).sum(dim=1).to(torch.int8)
+    return PackedWeight8(lo, signs, safe_sf), maxq
+
+
+def _overflow_error(v: float, bits: int, what: str) -> ValueError:
+    return ValueError(f"max |w/w_sf| = {v} {what} — 'bits' ({bits}) "
+                      "understates the quantization grid")
+
+
+def _grid_check(maxq: torch.Tensor, limit: int, bits: int, what: str,
+                checks) -> None:
+    """Validate ``maxq <= limit``: now (one host fetch), or, if ``checks``
+    is a list, later, when :func:`flush_pack_checks` fetches every pack's
+    scalar in one copy."""
+    if checks is not None:
+        checks.append((maxq, limit, bits, what))
+        return
+    v = float(maxq)
+    if v > limit:
+        raise _overflow_error(v, bits, what)
+
+
+def flush_pack_checks(checks) -> None:
+    """Fetch all deferred overflow scalars in one device-to-host copy and
+    raise on the first violation; empties ``checks``."""
+    if not checks:
+        return
+    vals = torch.stack([m.reshape(()).to(torch.float64)
+                        for m, _, _, _ in checks]).tolist()
+    for v, (_, limit, bits, what) in zip(vals, checks):
+        if v > limit:
+            raise _overflow_error(v, bits, what)
+    checks.clear()
+
+
+def pack_weight_u8s(w_q: torch.Tensor, w_sf, bits: int,
+                    checks: list | None = None) -> PackedWeight8:
+    """Pack term-revealed weights of an 8-bit grid into 9 bits per weight.
+
+    An 8-bit grid's magnitudes clamp at 255, so a magnitude biased by -128
+    fits an int8 and the signs go to a bitplane of 1 bit per weight: 1.125
+    bytes per weight, 1.78x less weight traffic than int16.  Rows are
+    zero-padded to a multiple of 8 (``term_matmul`` reads only the
+    activations' K of them).  Requires ``bits <= 8``.  ``checks``: a shared
+    list for deferred overflow validation (:func:`flush_pack_checks`).
+    """
+    if bits > 8:
+        raise ValueError(f"pack_weight_u8s needs bits <= 8, got {bits}")
+    wp, maxq = _pack_u8s(w_q, w_sf)
+    _grid_check(maxq, 255, bits, "> 255", checks)
+    return wp
+
+
+def _decode_u8s(wp: PackedWeight8) -> torch.Tensor:
+    """int32 q of a :class:`PackedWeight8`, (K8, N)."""
+    lo, signs, _ = wp
+    mag = lo.to(torch.int32) + 128
+    K8, N = lo.shape
+    shifts = torch.arange(8, dtype=torch.int32, device=lo.device)
+    bit = (signs.to(torch.int32)[:, None, :] >> shifts[None, :, None]) & 1
+    return mag * (1 - 2 * bit.reshape(K8, N))
+
+
+def unpack_weight_u8s(wp: PackedWeight8, k: int | None = None) -> torch.Tensor:
+    """Decode a :class:`PackedWeight8` to float32 weights ``q * w_sf``
+    outside the kernel (the n-D input path, and the tests' round trip).
+    ``k`` trims the 8-row padding."""
+    w = _decode_u8s(wp).to(torch.float32) * wp.w_sf
+    return w if k is None else w[:k]
+
+
+def pack_weight_int(w_q: torch.Tensor, w_sf, bits: int,
+                    checks: list | None = None):
+    """Pack term-revealed float weights into narrow integers.
+
+    ``w_q`` holds exact multiples of ``w_sf``; with the weight scale
+    ``max|w| / 2**(bits-1)`` magnitudes reach ``2**(bits-1)``, so int8
+    covers grids up to 7 bits and int16 up to 15.  Returns ``(int8 or int16
+    tensor, w_sf)``; an all-zero tensor (``w_sf == 0``) packs to zeros with
+    scale 1.  Raises on overflow, now or at :func:`flush_pack_checks`.
+    """
+    dtype, name, limit = ((torch.int8, "int8", 127) if bits <= 7
+                          else (torch.int16, "int16", 32767))
+    zero, safe_sf = _safe_scale(w_sf, w_q.device)
+    q = torch.where(zero, torch.zeros((), device=w_q.device),
+                    torch.round(w_q / safe_sf))
+    _grid_check(q.abs().max(), limit, bits, f"overflows {name}", checks)
+    return q.to(dtype), safe_sf
+
+
+def _mode(bf16: bool, int8: bool) -> str:
+    return "int8" if int8 else ("bf16" if bf16 else "f32")
+
+
+def _check(x: torch.Tensor, w, bits: int, bf16: bool, int8: bool, w_sf,
            quantize_x: bool) -> None:
-    if bf16 or int8:
-        raise NotImplementedError(
-            "term_matmul: the bf16 and int8 modes are not ported yet "
-            "(ROADMAP B3)")
+    """The JAX package's argument checks, with the same messages."""
+    if x.ndim != 2:
+        raise ValueError(f"term_matmul takes x (M, K), got {tuple(x.shape)}")
+    K = x.shape[1]
+    if isinstance(w, PackedWeight8):
+        if w_sf is not None:
+            raise ValueError("PackedWeight8 carries its own w_sf")
+        if int8:
+            raise ValueError(
+                "int8 mode is for <= 7-bit grids (pack_weight_int); "
+                "PackedWeight8 exists for 8-bit grids")
+        K2 = w.lo.shape[0]
+        if K2 < K or K2 - K >= 8:
+            raise ValueError(
+                f"packed weight rows {K2} do not cover x K {K} "
+                "(pack_weight_u8s pads to the next multiple of 8)")
+    else:
+        if w.ndim != 2 or w.shape[0] != K:
+            raise ValueError(f"term_matmul takes x (M, K) and w (K, N), got "
+                             f"{tuple(x.shape)} and {tuple(w.shape)}")
+        w_is_int = not (w.dtype.is_floating_point or w.dtype.is_complex)
+        if w_is_int and w.dtype not in (torch.int8, torch.int16):
+            raise ValueError(
+                f"integer weights must be int8 or int16, got {w.dtype}")
+        if w_is_int and w_sf is None:
+            raise ValueError("integer weights require w_sf")
+        if not w_is_int and w_sf is not None:
+            raise ValueError("w_sf is only meaningful for integer weights")
+        if int8:
+            if bf16:
+                raise ValueError("int8 and bf16 modes are mutually exclusive")
+            if w.dtype != torch.int8:
+                raise ValueError("int8 mode requires int8-packed weights")
+            if bits > 7:
+                raise ValueError(
+                    f"int8 mode needs bits <= 7 (magnitudes < 128), got {bits}")
+    if not quantize_x and int8:
+        raise ValueError("int8 mode requires quantized activations")
+
+
+def _scales(x: torch.Tensor, w, sf, w_sf, mode: str, quantize_x: bool):
+    """(sf, epilogue scale) as float32 0-d tensors: ``sf`` is 1 for raw
+    input; the epilogue is ``w_sf`` in the f32 mode, ``sf * w_sf``
+    otherwise (the TPU kernel's ``sf_arr``)."""
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    sf_s = as_scale(sf, x.device) if quantize_x else one
+    if isinstance(w, PackedWeight8):
+        wsf_s = as_scale(w.w_sf, x.device)
+    else:
+        wsf_s = as_scale(w_sf, x.device) if w_sf is not None else one
+    return sf_s, (wsf_s if mode == "f32" else sf_s * wsf_s)
+
+
+def term_matmul_ref(x: torch.Tensor, w, sf, bits: int = 8,
+                    num_keep_terms: int = 8, bf16: bool = False,
+                    int8: bool = False, w_sf=None,
+                    quantize_x: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`term_matmul`, every mode, with the
+    kernel's scale association.  The int8 mode multiplies the integers in
+    float64 (exact: ``|acc| <= 127 * 127 * K``), so it is bit-exact on any
+    device."""
+    _check(x, w, bits, bf16, int8, w_sf, quantize_x)
+    mode = _mode(bf16, int8)
+    sf_s, epi = _scales(x, w, sf, w_sf, mode, quantize_x)
     if not quantize_x:
-        raise NotImplementedError(
-            "term_matmul: quantize_x=False (raw-input mode) is not ported "
-            "yet (ROADMAP B4)")
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            "term_matmul: packed 9-bit weights are not ported yet "
-            "(ROADMAP B4)")
-    if not w.dtype.is_floating_point:
-        raise NotImplementedError(
-            "term_matmul: integer weights are not ported yet (ROADMAP B3)")
-    if w_sf is not None:
-        raise ValueError("w_sf is only meaningful for integer weights")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"term_matmul takes x (M, K) and w (K, N), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+        xa = x.to(torch.float32)
+    elif mode == "f32":
+        xa = tr_quantize_ref(x, sf_s, bits, 1, num_keep_terms)
+    else:  # the signed integer quantized values; sf goes to the epilogue
+        xa = tr_quantize_int_ref(x, sf_s, bits, num_keep_terms).to(
+            torch.float32)
+    if isinstance(w, PackedWeight8):
+        wa = _decode_u8s(w)[:x.shape[1]].to(torch.float32)
+    else:
+        wa = w.to(torch.float32)
+    if mode == "int8":
+        acc = torch.matmul(xa.to(torch.float64),
+                           wa.to(torch.float64)).to(torch.float32)
+    else:
+        if mode == "bf16":
+            xa = xa.to(torch.bfloat16).to(torch.float32)
+            wa = wa.to(torch.bfloat16).to(torch.float32)
+        acc = torch.matmul(xa, wa)
+    return acc * epi
+
+
+def _weight_format(w) -> str | None:
+    """'packed8', or the name of ``w``'s dtype in _FORMATS (None if the
+    kernel does not take it)."""
+    if isinstance(w, PackedWeight8):
+        return "packed8"
+    return _DTYPE_FORMATS.get(w.dtype)
+
+
+def _variant_name(mode: str, fmt: str, quantize_x: bool) -> str:
+    return (mode + ("" if quantize_x else "_raw")
+            + ("" if fmt == "f32" else "_" + fmt))
+
+
+# Every combination the checks admit: the launch counter's key (mode,
+# "_raw" for raw input, the weight format unless float32) -> (mode, weight
+# format, quantize_x).
+VARIANTS = {_variant_name(m, f, q): (m, f, q)
+            for m in ("f32", "bf16") for q in (True, False) for f in _FORMATS}
+VARIANTS["int8_int8"] = ("int8", "int8", True)
+
+
+def variant(bf16: bool = False, int8: bool = False, w=None,
+            quantize_x: bool = True) -> str:
+    """The launch counter's key of a call: ``f32``, ``f32_raw_packed8``,
+    ``bf16_int16``, ``int8_int8``, ..."""
+    fmt = "f32" if w is None else (_weight_format(w) or "f32")
+    return _variant_name(_mode(bf16, int8), fmt, quantize_x)
 
 
 def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
@@ -68,39 +302,63 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
 
     Keeps the JAX signature.  ``interpret``, ``bm``, ``bk``, ``bn``,
     ``pipeline`` and ``bsub`` only tune TPU tiles and are ignored.
-    Returns (M, N) float32.
+    ``w``: (K, N) float32 or bfloat16 weights, int8/int16 with ``w_sf``,
+    or a :class:`PackedWeight8`.  ``sf`` is read from device memory by the
+    kernel (no host sync) and ignored for raw input.  Returns (M, N)
+    float32.
     """
     del interpret, bm, bk, bn, pipeline, bsub
-    _check(x, w, bf16, int8, w_sf, quantize_x)
     if not x.is_cuda:
-        return term_matmul_ref(x, w, sf, bits, num_keep_terms)
-
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"term_matmul kernel takes float32, got {x.dtype} "
-                        f"and {w.dtype}")
-    if w.device != x.device:
-        raise ValueError(f"x is on {x.device}, w on {w.device}")
-    if not 1 <= bits <= MAX_BITS:
+        return term_matmul_ref(x, w, sf, bits, num_keep_terms, bf16, int8,
+                               w_sf, quantize_x)
+    _check(x, w, bits, bf16, int8, w_sf, quantize_x)
+    packed = isinstance(w, PackedWeight8)
+    wt = w.lo if packed else w
+    fmt = _weight_format(w)
+    if fmt is None:
+        raise TypeError(f"term_matmul kernel takes float32, bfloat16, int8, "
+                        f"int16 or packed weights, got {wt.dtype}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"term_matmul kernel takes float32 x, got {x.dtype}")
+    if wt.device != x.device or (packed and w.signs.device != x.device):
+        raise ValueError(f"x is on {x.device}, w on {wt.device}")
+    if packed and (w.lo.dtype != torch.int8 or w.signs.dtype != torch.int8
+                   or w.signs.shape != (w.lo.shape[0] // 8, w.lo.shape[1])
+                   or w.lo.shape[0] % 8):
+        raise ValueError("PackedWeight8 needs int8 lo (K8, N) and int8 signs "
+                         "(K8 // 8, N) with K8 a multiple of 8")
+    if quantize_x and not 1 <= bits <= MAX_BITS:
         raise ValueError(f"term_matmul kernel takes 1 <= bits <= {MAX_BITS}, "
                          f"got {bits}")
     M, K = x.shape
-    N = w.shape[1]
-    if max(M, N, K) >= 2**31 or -(-M // 64) > 65535:
+    N = wt.shape[1]
+    if max(M, N, K) >= 2**31 or -(-M // _TILE) > 65535:
         raise ValueError(f"term_matmul kernel: shape {(M, K, N)} too large")
-    x, w = x.contiguous(), w.contiguous()
-    sf = as_scale(sf, x.device).contiguous()
+    mode = _mode(bf16, int8)
+    x, wt = x.contiguous(), wt.contiguous()
+    signs = w.signs.contiguous() if packed else None
+    sf_t = as_scale(sf, x.device).contiguous() if quantize_x else None
+    wsf = w.w_sf if packed else w_sf
+    wsf_t = as_scale(wsf, x.device).contiguous() if wsf is not None else None
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel():
         splits, k_per_split = _split_k(M, N, K, x.device)
-        ws = (torch.empty((splits, M, N), dtype=torch.float32,
-                          device=x.device) if splits > 1 else None)
-        _build.check(_build.load().tq_term_matmul_f32(
-            x.data_ptr(), w.data_ptr(), sf.data_ptr(), out.data_ptr(),
-            ws.data_ptr() if ws is not None else None, M, N, K, bits,
-            min(num_keep_terms, MAX_BITS + 1), 1.0, splits, k_per_split,
+        ws = (torch.empty((splits, M, N), device=x.device,
+                          dtype=torch.int32 if mode == "int8"
+                          else torch.float32)
+              if splits > 1 else None)
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        _build.check(_build.load().tq_term_matmul(
+            x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
+            out.data_ptr(), ptr(ws), M, N, K, bits,
+            min(num_keep_terms, MAX_BITS + 1), _MODES[mode], _FORMATS[fmt],
+            int(quantize_x), splits, k_per_split,
             torch.cuda.current_stream(x.device).cuda_stream),
-            "tq_term_matmul_f32")
-        term_matmul.launches["f32"] += 1
+            "tq_term_matmul")
+        term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
     return out
 
 
@@ -115,4 +373,4 @@ def _split_k(M: int, N: int, K: int, device) -> tuple[int, int]:
     return max(1, -(-K // k_per_split)), k_per_split
 
 
-term_matmul.launches = {"f32": 0}
+term_matmul.launches = dict.fromkeys(VARIANTS, 0)

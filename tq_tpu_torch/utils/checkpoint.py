@@ -3,8 +3,11 @@
 Port of the npz half of ``tq_tpu.utils.checkpoint``, in the same file
 format, so a checkpoint written by either package loads in the other:
 every tree of arrays round-trips through a flat ``.npz`` keyed by
-'/'-joined paths (no pickled code).  Leaves come back as numpy arrays;
-:func:`tq_tpu_torch.utils.params.params_from_jax` puts them on a device.
+'/'-joined paths (no pickled code).  A packed-weight container
+(:class:`~tq_tpu_torch.kernels.term_matmul.PackedWeight8`) keeps its type
+through a ``'#nt'`` marker leaf holding the class name.  Leaves come back
+as numpy arrays; :func:`tq_tpu_torch.utils.params.params_from_jax` puts
+them on a device.
 """
 
 from __future__ import annotations
@@ -23,11 +26,26 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _namedtuple_class(name: str):
+    """The NamedTuple node types a checkpoint may hold, resolved by name
+    (no pickled code)."""
+    if name == "PackedWeight8":
+        from tq_tpu_torch.kernels.term_matmul import PackedWeight8
+
+        return PackedWeight8
+    raise KeyError(f"unknown checkpointed namedtuple type {name!r}")
+
+
 def flatten_tree(tree, prefix=""):
     """Tree -> {'path/to/leaf': np.ndarray}.  Lists use numeric keys; a
-    None leaf is kept as a '#none' marker."""
+    None leaf is kept as a '#none' marker and a NamedTuple node as a
+    '#nt' leaf naming its class."""
     out = {}
-    if isinstance(tree, dict):
+    if hasattr(tree, "_fields"):  # NamedTuple node
+        out[f"{prefix}#nt"] = np.asarray(type(tree).__name__)
+        for k in tree._fields:
+            out.update(flatten_tree(getattr(tree, k), f"{prefix}{k}/"))
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             out.update(flatten_tree(v, f"{prefix}{k}/"))
     elif isinstance(tree, (list, tuple)):
@@ -42,8 +60,8 @@ def flatten_tree(tree, prefix=""):
 
 def unflatten_tree(flat: dict):
     """Inverse of :func:`flatten_tree` (dicts whose keys are 0..n-1 come
-    back as lists).  Checkpoints holding a packed-weight container ('#nt'
-    marker) need the serving slice and raise ``KeyError``."""
+    back as lists, '#nt' nodes as their NamedTuple class; an unknown class
+    name raises ``KeyError``)."""
     root: dict = {}
     for path, val in flat.items():
         if path.endswith("#none"):
@@ -59,8 +77,8 @@ def unflatten_tree(flat: dict):
             return node
         node = {k: listify(v) for k, v in node.items()}
         if "#nt" in node:
-            raise KeyError(f"unknown checkpointed namedtuple type "
-                           f"{str(node['#nt'])!r}")
+            cls = _namedtuple_class(str(node.pop("#nt")))
+            return cls(**node)
         if node and all(k.isdigit() for k in node):
             idxs = sorted(int(k) for k in node)
             if idxs == list(range(len(idxs))):
