@@ -39,11 +39,32 @@ non-zero without printing a result:
    100 tokens each; every kernel of the path must launch;
 8. the same serving models on the card and on the CPU: equal calibrated
    scales, equal packs, and teacher-forced log-probs over 16 sampled
-   tokens, held as in phase 4; tokens/s of the sampler.
+   tokens, held as in phase 4; tokens/s of the sampler;
+9. ``cnn_kernels``: ``tr_quantize`` at the ResNet-18 shapes, bit for bit
+   against its plain version: the element-wise body on a (64, 56, 56, 64)
+   activation in float32 and bfloat16 (and their int32 variants; the bf16
+   body also at every q and budget for bits 1..9), the grouped body on
+   every converted conv's HWIO weight (g=8, axis 2); ``tr_scale_copy``
+   (B1's copy ceiling) equal to ``x * sf``; each timed beside its bound;
+10. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
+    wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
+    ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
+    int8-packed UQ model (wb=db=7, g=1, wt=7, dt=5); held layer by layer
+    against the CPU plain path (the quantized input exact and the output
+    within LAYER_RTOL on the same input; boundary flips counted), the
+    logits within LOGIT_RTOL of the CPU's and of the JAX package's
+    (``EXPECTED_CNN``), every int8 conv equal to its int64 plain version;
+    images/s of each variant and of the unquantized forward at batch 64;
+11. ``cnn_sweep``: ``evals/cnn.py``'s ``run_sweep('resnet18')`` over the
+    published grid (15 settings, 512 synthetic images, batch 64): tmacs,
+    avg_terms and params equal to ``results/resnet18-results.json``, the
+    flagship setting's 19 calibrated scales equal to the JAX package's
+    (or near-ties on the card's histogram).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.
+device; imports nothing of JAX.  ``--only mlp|lstm|cnn`` runs the build
+and those groups of phases only (phases 2-5, 6-8, 9-11).
 """
 
 from __future__ import annotations
@@ -116,6 +137,65 @@ EXPECTED_LSTM_SWEEPS = {
     },
 }
 
+# TR ResNet-18 at 224x224 on resnet_checkpoint(CNN_SEED)'s weights.  The
+# flagship program (the JAX package's entry(): wb=9, g=8, wt=12, db=9,
+# dt=3, every sf 0.05, batch 16 of numpy normals from seed 0) and one
+# published-grid sweep setting's 19 calibrated scales (the first synthetic
+# batch of 64), from the JAX package on the CPU, printed by
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_port_cnn --expected``.
+CNN_SEED = 0
+FLAGSHIP = dict(tr=(9, 8, 12), db=9, dt=3, sf=0.05, batch=16, image=224)
+EXPECTED_CNN = {
+    "flagship": {
+        "top1": [991, 991, 991, 991, 991, 991, 991, 991, 991, 991, 991, 991,
+                 991, 991, 991, 991],
+        "top2_margin": [1.2176122665405273, 1.355565071105957,
+                        1.2299017906188965, 1.2586431503295898,
+                        1.2158474922180176, 1.3083209991455078,
+                        1.2134041786193848, 1.2625923156738281,
+                        1.30244779586792, 1.364241600036621,
+                        1.3159265518188477, 1.3355636596679688,
+                        1.2823171615600586, 1.2724499702453613,
+                        1.2248883247375488, 1.270796775817871],
+        "row_max": [7.910977840423584, 7.998993396759033, 7.91911506652832,
+                    7.915836334228516, 7.897219181060791, 8.021514892578125,
+                    7.901100158691406, 7.932398796081543, 7.895548343658447,
+                    7.926361083984375, 8.003985404968262, 8.0343599319458,
+                    7.976423740386963, 7.962591648101807, 7.905799388885498,
+                    7.94594669342041],
+        "first": [-1.9204952716827393, 2.0567221641540527, -3.1713931560516357,
+                  -3.13493013381958, 1.4566460847854614, -5.257798194885254,
+                  -3.3258249759674072, -2.313128709793091],
+        "mean": 0.007910105726507027,
+        "std": 2.24322252458872,
+        "max_abs": 8.0343599319458,
+    },
+    "sweep_sf": {
+        "setting": [9, 8, 12, 9, 3],
+        "sf": {
+            "layer1.0.conv1": 0.024425998330116272,
+            "layer1.0.conv2": 0.024425998330116272,
+            "layer1.1.conv1": 0.024425998330116272,
+            "layer1.1.conv2": 0.024425998330116272,
+            "layer2.0.conv1": 0.024425998330116272,
+            "layer2.0.conv2": 0.024425998330116272,
+            "layer2.0.downsample.0": 0.024425998330116272,
+            "layer2.1.conv1": 0.024425998330116272,
+            "layer2.1.conv2": 0.024425998330116272,
+            "layer3.0.conv1": 0.024425998330116272,
+            "layer3.0.conv2": 0.024425998330116272,
+            "layer3.0.downsample.0": 0.024425998330116272,
+            "layer3.1.conv1": 0.024425998330116272,
+            "layer3.1.conv2": 0.024425998330116272,
+            "layer4.0.conv1": 0.04885198920965195,
+            "layer4.0.conv2": 0.024425998330116272,
+            "layer4.0.downsample.0": 0.04885198920965195,
+            "layer4.1.conv1": 0.04885198920965195,
+            "layer4.1.conv2": 0.04885198920965195,
+        },
+    },
+}
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
 # bytes/s and float32 FLOP/s outside the tensor cores.  The bounds are
 # stated against them, beside the card's name and power limit.
@@ -128,9 +208,17 @@ KERNELS = {
     "tr_quantize_elementwise": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:192"),
+    "tr_quantize_elementwise_bf16": dict(
+        route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
+        replaces="tq_tpu/kernels/tr_quantize.py:192"),
     "tr_quantize_grouped": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:205"),
+    # No user path runs B5 (the JAX package calls it from bench.py alone):
+    # it is B1's copy ceiling, held and timed in phase cnn_kernels.
+    "tr_scale_copy": dict(
+        route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
+        replaces="tq_tpu/kernels/tr_quantize.py:246", on_main_path=False),
     "term_matmul_f32": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
@@ -206,6 +294,36 @@ def lstm_checkpoint(path, seed: int = LSTM_SEED, vocab: int = 33278,
             "b_ih": uniform((4 * nhid,), k),
             "b_hh": uniform((4 * nhid,), k)})
     params["decoder"] = {"b": np.zeros(vocab, np.float32)}
+    save_params(path, params)
+
+
+def resnet_checkpoint(path, seed: int = CNN_SEED) -> None:
+    """Save random ResNet-18 weights made with numpy from ``seed``, in
+    ``resnet.init``'s distributions (Kaiming-normal fan-out HWIO convs, BN
+    at scale 1, bias 0, mean 0, var 1, uniform ``fc``), with the port's
+    ``save_params``: the same file loads in both packages."""
+    from tq_tpu_torch.models.resnet import conv_specs, dense_specs
+    from tq_tpu_torch.utils.checkpoint import save_params
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for s in conv_specs():
+        std = np.sqrt(2.0 / (s.kh * s.kw * s.out_ch // s.groups))
+        params[s.name] = {"w": (rng.normal(size=(
+            s.kh, s.kw, s.in_ch // s.groups, s.out_ch)) * std).astype(
+                np.float32)}
+        bn = (s.name[:-1] + "1" if s.name.endswith("downsample.0")
+              else s.name.replace("conv", "bn"))
+        params[bn] = {"scale": np.ones(s.out_ch, np.float32),
+                      "bias": np.zeros(s.out_ch, np.float32),
+                      "mean": np.zeros(s.out_ch, np.float32),
+                      "var": np.ones(s.out_ch, np.float32)}
+    for name, fan_in, fan_out in dense_specs():
+        bound = 1.0 / np.sqrt(fan_in)
+        params[name] = {
+            "w": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(
+                np.float32),
+            "b": rng.uniform(-bound, bound, fan_out).astype(np.float32)}
     save_params(path, params)
 
 
@@ -697,9 +815,10 @@ def phase_term_matmul_modes(torch):
 
 def _reset_counts():
     from tq_tpu_torch.kernels.term_matmul import term_matmul
-    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
-    for counts in (tr_quantize.launches, term_matmul.launches):
+    for counts in (tr_quantize.launches, term_matmul.launches,
+                   tr_scale_copy.launches):
         for k in counts:
             counts[k] = 0
 
@@ -707,10 +826,13 @@ def _reset_counts():
 def _read_counts() -> dict:
     """Launches per kernel row since the last reset."""
     from tq_tpu_torch.kernels.term_matmul import term_matmul
-    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
     out = {"tr_quantize_elementwise": tr_quantize.launches["elementwise"],
-           "tr_quantize_grouped": tr_quantize.launches["grouped"]}
+           "tr_quantize_elementwise_bf16":
+               tr_quantize.launches["elementwise_bf16"],
+           "tr_quantize_grouped": tr_quantize.launches["grouped"],
+           "tr_scale_copy": tr_scale_copy.launches["scale_copy"]}
     for row, variant in TERM_MATMUL_ROWS.items():
         out[row] = term_matmul.launches[variant]
     out["term_matmul_other"] = sum(
@@ -949,11 +1071,450 @@ def phase_serving_compare(torch, ckpt: Path, tokens: dict, card: str,
           "results": results})
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def _exact(torch, name, got, want):
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"{name}: {bad} of {want.numel()} values differ from the "
+             "plain version")
+
+
+def phase_cnn_kernels(torch):
+    """The tr_quantize bodies and tr_scale_copy at the ResNet-18 shapes:
+    B1 on a layer1 activation (64, 56, 56, 64) in float32 and bfloat16
+    (and the int32 variants), B2 on every converted conv's HWIO weight
+    (g=8 along axis 2), B5 on the B1 input; bit for bit against the plain
+    versions, timed by CUDA-graph replay beside the bound."""
+    from tq_tpu_torch.kernels.tr_quantize import (max_hese_terms, tr_quantize,
+                                                  tr_quantize_int,
+                                                  tr_quantize_int_ref,
+                                                  tr_quantize_ref,
+                                                  tr_scale_copy,
+                                                  tr_scale_copy_ref)
+    from tq_tpu_torch.layers.common import weight_scale
+    from tq_tpu_torch.models.resnet import conv_specs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # The bf16 input: every q and budget for bits 1..9 at the (bf16-rounded)
+    # rounding boundaries.
+    n_cases = 0
+    sf = torch.tensor(0.0371, device=dev)
+    for bits in range(1, 10):
+        x = _boundary_inputs(torch, bits, 0.0371, dev).to(torch.bfloat16)
+        for budget in range(0, max_hese_terms(bits) + 2):
+            for mode in ("largest", "serial"):
+                _exact(torch, f"bf16 bits={bits} k={budget} {mode}",
+                       tr_quantize(x, sf, bits, 1, budget, keep_mode=mode),
+                       tr_quantize_ref(x, sf, bits, 1, budget,
+                                       keep_mode=mode))
+                _exact(torch, f"bf16 int bits={bits} k={budget} {mode}",
+                       tr_quantize_int(x, sf, bits, budget, keep_mode=mode),
+                       tr_quantize_int_ref(x, sf, bits, budget,
+                                           keep_mode=mode))
+                n_cases += 2
+
+    x = torch.randn(64, 56, 56, 64, generator=gen, device=dev) * 2
+    xb = x.to(torch.bfloat16)
+    sf = torch.tensor(0.05, device=dev)
+    n = x.numel()
+    rows = {}
+
+    def row(name, kernel, plain, nbytes, library=None):
+        out, ref = kernel(), plain()
+        _exact(torch, f"{name} {list(x.shape)}", out, ref)
+        b, by = bound_ms(nbytes, 6 * n)
+        rows[name] = dict(shape=list(x.shape), bits=9, terms=3,
+                          max_abs_err=float((out.float() - ref.float())
+                                            .abs().max()),
+                          **timings(torch, kernel, plain, library),
+                          bound_ms=b, bound_by=by)
+
+    row("tr_quantize_elementwise", lambda: tr_quantize(x, sf, 9, 1, 3),
+        lambda: tr_quantize_ref(x, sf, 9, 1, 3), 8 * n)
+    row("tr_quantize_elementwise_int", lambda: tr_quantize_int(x, sf, 9, 3),
+        lambda: tr_quantize_int_ref(x, sf, 9, 3), 8 * n)
+    row("tr_quantize_elementwise_bf16", lambda: tr_quantize(xb, sf, 9, 1, 3),
+        lambda: tr_quantize_ref(xb, sf, 9, 1, 3), 4 * n)
+    row("tr_quantize_elementwise_bf16_int",
+        lambda: tr_quantize_int(xb, sf, 9, 3),
+        lambda: tr_quantize_int_ref(xb, sf, 9, 3), 6 * n)
+    row("tr_scale_copy", lambda: tr_scale_copy(x, sf),
+        lambda: tr_scale_copy_ref(x, sf), 8 * n,
+        library=lambda: torch.mul(x, sf))
+    for name in ("tr_quantize_elementwise", "tr_quantize_elementwise_bf16"):
+        rows[name]["copy_ceiling_ms"] = rows["tr_scale_copy"]["ms"]
+    rows["tr_quantize_elementwise"]["int_out"] = rows.pop(
+        "tr_quantize_elementwise_int")
+    rows["tr_quantize_elementwise_bf16"]["int_out"] = rows.pop(
+        "tr_quantize_elementwise_bf16_int")
+
+    # B2 on every converted conv's weight shape, at the flagship's (9, 8, 12)
+    # and a published-grid TR row, both keep modes.
+    g_cases = 0
+    weights = {}
+    for spec in conv_specs()[1:]:
+        shape = (spec.kh, spec.kw, spec.in_ch, spec.out_ch)
+        if shape not in weights:
+            weights[shape] = torch.randn(*shape, generator=gen, device=dev) \
+                * (2.0 / (spec.kh * spec.kw * spec.out_ch)) ** 0.5
+        w = weights[shape]
+        wsf = weight_scale(w, 9)
+        for wt in (12, 16):
+            for mode in ("largest", "serial"):
+                _exact(torch, f"grouped {shape} wt={wt} {mode}",
+                       tr_quantize(w, wsf, 9, 8, wt, 2, mode),
+                       tr_quantize_ref(w, wsf, 9, 8, wt, 2, mode))
+                g_cases += 1
+    w = weights[(3, 3, 512, 512)]
+    wsf = weight_scale(w, 9)
+    nw = w.numel()
+    b, by = bound_ms(8 * nw, 6 * nw)
+    rows["tr_quantize_grouped"] = dict(
+        shape=[3, 3, 512, 512], group_size=8, axis=2, bits=9, terms=12,
+        cases=g_cases, max_abs_err=0.0,
+        **timings(torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2),
+                  lambda: tr_quantize_ref(w, wsf, 9, 8, 12, 2)),
+        # The wrapper's copy that moves axis 2 last, inside ms.
+        transpose_ms=device_ms(torch,
+                               lambda: torch.movedim(w, 2, -1).contiguous()),
+        bound_ms=b, bound_by=by)
+    emit({"phase": "cnn_kernels", "ok": True, "bf16_cases": n_cases,
+          "results": rows})
+    return rows
+
+
+# --------------------------------------------------------------- phase 10
+
+
+def _record_convs(torch, model, qp, qc, qs, x):
+    """(logits, {name: (input, stride, padding)} of each converted conv) of
+    the float32 eval forward."""
+    from tq_tpu_torch.layers.qctx import QuantCtx
+
+    seen = {}
+
+    class Recorder(QuantCtx):
+        def conv(self, name, params, x, stride=(1, 1), padding="SAME",
+                 groups=1):
+            if name in self.cfg:
+                seen[name] = (x, stride, padding)
+            return super().conv(name, params, x, stride, padding, groups)
+
+    logits = model.apply(qp, x, Recorder(cfg=qc, state=qs))
+    return logits, seen
+
+
+def _with_sf(torch, qstate, sf: float):
+    return {k: {**v, "sf": torch.tensor(sf, device=v["sf"].device)}
+            for k, v in qstate.items()}
+
+
+def _images_per_s(torch, fn, batch: int, reps: int = 5) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return batch * reps / (time.perf_counter() - t0)
+
+
+# Tolerances of the flagship.  Each converted conv's output on the same
+# input, relative to max |y|: float32 sums in another order (cuDNN against
+# the CPU's convolution).  The logits relative to max |logit|: end to end,
+# a quantized input that flips at a rounding boundary of |x| / sf spreads
+# to every later layer in its receptive field.  On an NVIDIA H100 80GB HBM3
+# (700 W) the logits came within 3.4e-3 of the CPU plain path's; the limit
+# leaves room for 3x that.
+LOGIT_RTOL = 1e-2
+LAYER_RTOL = 1e-5
+
+
+def phase_flagship(torch, ckpt: Path):
+    """The JAX package's entry() program (TR ResNet-18, wb=9, g=8, wt=12,
+    db=9, dt=3, every sf 0.05) at 224x224 on the card, through the port's
+    entry points; then its bf16 serving mode and the int8-packed UQ model
+    (wb=db=7, g=1, wt=7, dt=5).  Held against the CPU plain path layer by
+    layer and against the JAX package's numbers (EXPECTED_CNN)."""
+    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply, pack_cnn,
+                                      static_conv_layer_settings)
+    from tq_tpu_torch.evals.cnn import load_params
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_quantize_int
+    from tq_tpu_torch.layers.conv import (int8_conv2d, int8_conv2d_ref,
+                                          tr_conv_apply)
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.ops.term_reveal import uniform_quantize
+
+    f = FLAGSHIP
+    x_np = np.random.default_rng(0).normal(
+        size=(f["batch"], f["image"], f["image"], 3)).astype(np.float32)
+    tr_settings = static_conv_layer_settings(resnet.conv_specs(), *f["tr"])
+    uq_settings = static_conv_layer_settings(resnet.conv_specs(), 7, 1, 7)
+
+    # The main path, counted: convert, the float32 program, the bf16
+    # serving mode, the int8-packed UQ model.
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, params = load_params("resnet18", str(ckpt), device="cuda")
+    qp, qc, qs = convert_cnn(resnet, params, tr_settings, f["db"], f["dt"])
+    qs = _with_sf(torch, qs, f["sf"])
+    x = torch.as_tensor(x_np, device="cuda")
+    logits, _ = make_cnn_apply(resnet, qc, track=False)(qp, qs, x)
+    logits_bf16, _ = make_cnn_apply(resnet, qc, track=False,
+                                    compute_dtype=torch.bfloat16)(qp, qs, x)
+    uqp, uqc, uqs = convert_cnn(resnet, params, uq_settings, 7, 5)
+    uqs = _with_sf(torch, uqs, f["sf"])
+    packed = pack_cnn(uqp, uqc)
+    logits_int8, _ = make_cnn_apply(resnet, uqc, track=False)(packed, uqs, x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_elementwise_bf16",
+                                 "tr_quantize_grouped"], "ResNet flagship")
+    for name, t in (("f32", logits), ("bf16", logits_bf16),
+                    ("int8", logits_int8)):
+        if t.shape != (f["batch"], 1000) or not bool(torch.isfinite(t).all()):
+            fail(f"flagship {name}: logits of shape {tuple(t.shape)}, or "
+                 "not finite")
+
+    # The same program through the CPU plain path.
+    _, params_c = load_params("resnet18", str(ckpt), device="cpu")
+    qp_c, _, qs_c = convert_cnn(resnet, params_c, tr_settings, f["db"],
+                                f["dt"])
+    qs_c = _with_sf(torch, qs_c, f["sf"])
+    for name in qc:
+        if not torch.equal(qp[name]["w"].cpu(), qp_c[name]["w"]):
+            fail(f"flagship {name}: converted weights differ card vs cpu")
+    logits_g, seen_g = _record_convs(torch, resnet, qp, qc, qs, x)
+    logits_c, seen_c = _record_convs(torch, resnet, qp_c, qc, qs_c,
+                                     torch.from_numpy(x_np))
+    if not torch.equal(logits_g, logits):
+        fail("flagship: the recorded forward differs from the model's")
+    first = next(iter(qc))  # its input differs only by float32 rounding
+    layer_err, flips, first_gap = {}, {}, 0.0
+    for name, tr in qc.items():
+        xg, stride, padding = seen_g[name]
+        xc = seen_c[name][0]
+        # Same input (the CPU's): the quantized input exactly, the output
+        # within LAYER_RTOL.
+        _exact(torch, f"flagship {name} quantized input",
+               tr_quantize(xc.cuda(), qs[name]["sf"], tr.data_bits, 1,
+                           tr.data_terms).cpu(),
+               tr_quantize(xc, qs_c[name]["sf"], tr.data_bits, 1,
+                           tr.data_terms))
+        yg, _ = tr_conv_apply(qp[name], tr, qs[name], xc.cuda(), False,
+                              stride, padding)
+        yc, _ = tr_conv_apply(qp_c[name], tr, qs_c[name], xc, False, stride,
+                              padding)
+        err = float((yg.cpu() - yc).abs().max() / yc.abs().max())
+        if err > LAYER_RTOL:
+            fail(f"flagship {name}: output differs by {err} (relative) on "
+                 "the same input")
+        layer_err[name] = err
+        # End to end: the quantized inputs differ only where the two
+        # inputs lie on two sides of a rounding boundary of |x| / sf.  The
+        # first converted conv's inputs differ by float32 rounding alone
+        # (the stem is unquantized), so each of its flips must sit within
+        # that rounding of a .5 boundary; later layers see earlier flips.
+        xg = xg.cpu()
+        differ = tr_quantize(xg, qs_c[name]["sf"], tr.data_bits, 1,
+                             tr.data_terms) != tr_quantize(
+            xc, qs_c[name]["sf"], tr.data_bits, 1, tr.data_terms)
+        qa, _ = uniform_quantize(xg[differ], qs_c[name]["sf"], tr.data_bits)
+        qb, _ = uniform_quantize(xc[differ], qs_c[name]["sf"], tr.data_bits)
+        if bool((qa == qb).any()):
+            fail(f"flagship {name}: a quantized input differs card vs cpu "
+                 "away from a rounding boundary")
+        flips[name] = int(differ.sum())
+        if name == first and flips[name]:
+            r = xc[differ].double().abs() / f["sf"]
+            first_gap = float(((r - r.floor() - 0.5).abs() / r).max())
+            if first_gap > 1e-5:
+                fail(f"flagship {name}: a boundary flip {first_gap} "
+                     "(relative) away from the .5 boundary")
+    scale = float(logits_c.abs().max())
+    logit_err = float((logits.cpu() - logits_c).abs().max()) / scale
+    if logit_err > LOGIT_RTOL:
+        fail(f"flagship: logits differ card vs cpu by {logit_err} of "
+             f"max |logit| ({sum(flips.values())} boundary flips: {flips})")
+
+    # Against the JAX package's numbers.
+    exp = EXPECTED_CNN["flagship"]
+    lg = logits.cpu().double()
+    jax_err = max(
+        abs(float(lg.mean()) - exp["mean"]),
+        abs(float(lg.std(correction=0)) - exp["std"]),
+        abs(float(lg.abs().max()) - exp["max_abs"]),
+        float((lg.max(1).values - torch.tensor(exp["row_max"])).abs().max()),
+        float((lg[0, :8] - torch.tensor(exp["first"])).abs().max()))
+    jax_err /= exp["max_abs"]
+    if jax_err > LOGIT_RTOL:
+        fail(f"flagship: logit statistics differ from the JAX package's by "
+             f"{jax_err} of max |logit|")
+    top1 = lg.argmax(1).tolist()
+    for i, (a, b, m) in enumerate(zip(top1, exp["top1"], exp["top2_margin"])):
+        if a != b and m > 2 * LOGIT_RTOL * exp["max_abs"]:
+            fail(f"flagship image {i}: top-1 {a}, the JAX package's {b} "
+                 f"(margin {m})")
+
+    # The int8 conv on the card against its int64 plain version, on the
+    # first image's int8 activations of every converted conv.
+    _, seen_i = _record_convs(torch, resnet, packed, uqc, uqs, x[:1])
+    for name, tr in uqc.items():
+        xi_f, stride, padding = seen_i[name]
+        xi = tr_quantize_int(xi_f, uqs[name]["sf"], tr.data_bits,
+                             tr.data_terms).to(torch.int8)
+        got = int8_conv2d(xi, packed[name]["w"], stride, padding)
+        ref = int8_conv2d_ref(xi.cpu(), packed[name]["w"].cpu(), stride,
+                              padding)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got.cpu().long(), ref):
+            fail(f"flagship int8 {name}: the int8 conv differs from its "
+                 "int64 plain version")
+    logits_uq, _ = make_cnn_apply(resnet, uqc, track=False)(uqp, uqs, x)
+
+    def agreement(a, b):
+        return dict(top1_agree=int((a.argmax(1) == b.argmax(1)).sum()),
+                    max_abs_diff_rel=float((a.float() - b.float()).abs().max()
+                                           / b.abs().max()))
+
+    # Throughput at batch 64.
+    x64 = torch.randn(64, f["image"], f["image"], 3, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(1))
+    f32_fwd = make_cnn_apply(resnet, qc, track=False)
+    bf16_fwd = make_cnn_apply(resnet, qc, track=False,
+                              compute_dtype=torch.bfloat16)
+    int8_fwd = make_cnn_apply(resnet, uqc, track=False)
+    images_per_s = {
+        "fp32_unquantized": _images_per_s(
+            torch, lambda: resnet.apply(params, x64), 64),
+        "tr_f32": _images_per_s(torch, lambda: f32_fwd(qp, qs, x64), 64),
+        "tr_bf16": _images_per_s(torch, lambda: bf16_fwd(qp, qs, x64), 64),
+        "uq_int8": _images_per_s(torch, lambda: int8_fwd(packed, uqs, x64),
+                                 64)}
+    emit({"phase": "flagship", "ok": True, "seconds": seconds,
+          "batch": f["batch"], "image": f["image"], "launches": launches,
+          "layer_max_rel_err": max(layer_err.values()),
+          "boundary_flips": sum(flips.values()),
+          "flips_by_layer": {k: v for k, v in flips.items() if v},
+          "first_layer_flip_max_rel_dist": first_gap,
+          "logit_max_rel_err_vs_cpu": logit_err,
+          "logit_stat_max_rel_err_vs_jax": jax_err, "top1": top1,
+          "bf16_vs_f32": agreement(logits_bf16, logits),
+          "int8_vs_uq_f32": agreement(logits_int8, logits_uq),
+          "images_per_s_batch64": images_per_s})
+    return launches
+
+
+# --------------------------------------------------------------- phase 11
+
+
+def _mse_at(torch, hist, sf: float, bits: int, terms: int) -> float:
+    """The scale search's objective at one scale, in float64."""
+    from tq_tpu_torch.layers.quantize import (_tr_elementwise_vals,
+                                              calibration_grids)
+
+    x_grid, _ = calibration_grids(device=hist.device)
+    xh = _tr_elementwise_vals(x_grid, torch.tensor(sf, device=hist.device),
+                              bits, terms)
+    return float((hist.double() * (x_grid - xh).double() ** 2).sum())
+
+
+def phase_cnn_sweep(torch, ckpt: Path):
+    """evals/cnn.py's run_sweep('resnet18') with the published grid (15
+    settings, 512 synthetic images, batch 64) on the card: tmacs,
+    avg_terms and params equal to results/resnet18-results.json, and the
+    flagship setting's 19 calibrated scales equal to the JAX package's (or
+    near-ties on the card's histogram)."""
+    from tq_tpu_torch.data.imagenet import find_imagenet_val
+    from tq_tpu_torch.evals import cnn as cnn_eval
+
+    if find_imagenet_val() is not None:
+        fail("EXPECTED_CNN holds the synthetic batches' numbers; unset "
+             "TQ_DATA_DIR")
+    published = json.loads((ROOT / "results" / "resnet18-results.json")
+                           .read_text())
+    grid = cnn_eval.PUBLISHED_GRIDS["resnet18"]
+    finalize = cnn_eval.finalize_cnn
+    calibrated = []
+
+    def capture(qstate, qcfg):  # the scales each setting calibrates
+        out = finalize(qstate, qcfg)
+        calibrated.append((qcfg, out))
+        return out
+
+    _reset_counts()
+    cnn_eval.finalize_cnn = capture
+    try:
+        t0 = time.perf_counter()
+        got = cnn_eval.run_sweep("resnet18", checkpoint=str(ckpt),
+                                 batch_size=64, n_synth=512, verbose=False,
+                                 device="cuda", **grid)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cnn_eval.finalize_cnn = finalize
+    launches = _read_counts()
+    for key, cols in got.items():
+        for col in ("tmacs", "avg_terms", "params"):
+            if cols[col] != published[key][col]:
+                fail(f"resnet18 sweep {key} {col}: {cols[col]} != "
+                     f"published {published[key][col]}")
+    exp = EXPECTED_CNN["sweep_sf"]
+    wb, gs, wt, db, dt = exp["setting"]
+    match = [st for qcfg, st in calibrated if all(
+        (t.weight_bits, t.group_size, t.weight_terms, t.data_bits,
+         t.data_terms) == (wb, gs, wt, db, dt) for t in qcfg.values())]
+    if len(match) != 1:
+        fail(f"setting {exp['setting']} calibrated {len(match)} times")
+    near_ties = {}
+    for name, want in exp["sf"].items():
+        have = float(match[0][name]["sf"])
+        if have != want:
+            hist = match[0][name]["hist"]
+            ea, eb = (_mse_at(torch, hist, v, db, dt) for v in (have, want))
+            if abs(ea - eb) > 1e-6 * max(ea, eb):
+                fail(f"resnet18 sweep {name}: calibrated sf {have} != the "
+                     f"JAX package's {want} (errors {ea}, {eb})")
+            near_ties[name] = dict(card=have, jax=want, err_card=ea,
+                                   err_jax=eb)
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped"], "ResNet sweep")
+    t1 = time.perf_counter()
+    list(cnn_eval._batches("resnet18", None, 64, 512))
+    data_seconds = time.perf_counter() - t1
+    emit({"phase": "cnn_sweep", "ok": True, "seconds": seconds,
+          "settings": sum(len(v["accs"]) for v in got.values()),
+          "data_seconds_per_setting": data_seconds,
+          "sf_equal": len(exp["sf"]) - len(near_ties),
+          "sf_near_ties": near_ties, "launches": launches,
+          "accs": {k: v["accs"] for k, v in got.items()}})
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 
-def main() -> None:
+GROUPS = ("mlp", "lstm", "cnn")
+
+
+def main(argv=None) -> None:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="run the build and these groups of phases only "
+                         "(default: all; the kernels line then lists only "
+                         "their rows)")
+    groups = set(ap.parse_args(argv).only)
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU only")
@@ -969,33 +1530,53 @@ def main() -> None:
     t0 = time.perf_counter()
     smi = phase_build(torch)
     card = torch.cuda.get_device_name(0)
-    kernel_results = phase_kernels(torch)
-    kernel_results.update(phase_term_matmul_modes(torch))
-    by_path = {"mnist_mlp": phase_main_path(torch)}
-    phase_fixed_linear(torch)
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Path(tmp) / "lstm_seeded.npz"
-        lstm_checkpoint(ckpt)
-        by_path["lstm_sweep"] = phase_lstm_sweep(torch, ckpt)
-        by_path["lstm_generation"], tokens = phase_generation(torch, ckpt)
-        phase_serving_compare(torch, ckpt, tokens, card, smi)
+    kernel_results, by_path = {}, {}
+    if "mlp" in groups:
+        kernel_results.update(phase_kernels(torch))
+        kernel_results.update(phase_term_matmul_modes(torch))
+        by_path["mnist_mlp"] = phase_main_path(torch)
+        phase_fixed_linear(torch)
+    if "lstm" in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "lstm_seeded.npz"
+            lstm_checkpoint(ckpt)
+            by_path["lstm_sweep"] = phase_lstm_sweep(torch, ckpt)
+            by_path["lstm_generation"], tokens = phase_generation(torch,
+                                                                  ckpt)
+            phase_serving_compare(torch, ckpt, tokens, card, smi)
+    if "cnn" in groups:
+        cnn = phase_cnn_kernels(torch)
+        for name in ("tr_quantize_elementwise", "tr_quantize_grouped"):
+            kernel_results.setdefault(name, {})["resnet_shape"] = cnn[name]
+        for name in ("tr_quantize_elementwise_bf16", "tr_scale_copy"):
+            kernel_results[name] = cnn[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "resnet_seeded.npz"
+            resnet_checkpoint(ckpt)
+            by_path["resnet_flagship"] = phase_flagship(torch, ckpt)
+            by_path["resnet_sweep"] = phase_cnn_sweep(torch, ckpt)
 
     lines = []
     for name, meta in KERNELS.items():
-        r = kernel_results[name]
+        r = kernel_results.get(name, {})
+        if "ms" not in r:  # a row of a group left out by --only
+            continue
         per_path = {p: counts.get(name, 0) for p, counts in by_path.items()}
-        lines.append({"name": name, **meta,
+        lines.append({"on_main_path": True, "name": name, **meta,
                       "launches": sum(per_path.values()),
                       "launches_by_path": per_path,
                       **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "eager_ms")},
+                      **({"resnet_shape": r["resnet_shape"]}
+                         if "resnet_shape" in r else {}),
                       "match": True})
-    emit({"kernels": lines, "card": smi,
+    emit({"kernels": lines, "card": smi, "groups": sorted(groups),
           "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
+
 
 if __name__ == "__main__":
     main()

@@ -524,8 +524,23 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="export"):
         tgen.generate_tr(_np_params(), VOCAB, words=2, export_path="x",
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        teval._load_checkpoint(tmp_path / "lstm.pt")
+    # Torch checkpoints load now (utils/torch_import), as in the JAX package.
+    p = _np_params()
+    sd = {"encoder.weight": torch.from_numpy(p["encoder"]["w"]),
+          "decoder.weight": torch.from_numpy(p["encoder"]["w"]),
+          "decoder.bias": torch.from_numpy(p["decoder"]["b"])}
+    for i, layer in enumerate(p["rnn"]):
+        for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh")):
+            sd[f"rnn.{theirs}_l{i}"] = torch.from_numpy(layer[ours].T.copy())
+        for ours, theirs in (("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            sd[f"rnn.{theirs}_l{i}"] = torch.from_numpy(layer[ours])
+    torch.save(sd, tmp_path / "lstm.pt")
+    got, meta = teval._load_checkpoint(tmp_path / "lstm.pt", VOCAB,
+                                       with_meta=True)
+    assert meta == {}
+    _assert_tree_equal(params_from_jax(got, "cpu"),
+                       jeval._load_checkpoint(tmp_path / "lstm.pt", VOCAB))
+    _assert_tree_equal(params_from_jax(got, "cpu"), _jax(p))
 
 
 def test_generate_main_writes_words_on_cpu(tmp_path, monkeypatch):

@@ -158,7 +158,13 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(rng):
     torch.testing.assert_close(tk.tr_quantize_int(x, 0.05, 8, 3),
                                tk.tr_quantize_int_ref(x, 0.05, 8, 3),
                                rtol=0, atol=0)
-    assert tk.tr_quantize.launches == {"elementwise": 0, "grouped": 0}
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(tk.tr_quantize(xb, 0.05, 8, 1, 3),
+                       tk.tr_quantize_ref(xb, 0.05, 8, 1, 3))
+    assert torch.equal(tk.tr_scale_copy(x, 0.05), x * 0.05)
+    assert tk.tr_quantize.launches == {"elementwise": 0,
+                                       "elementwise_bf16": 0, "grouped": 0}
+    assert tk.tr_scale_copy.launches == {"scale_copy": 0}
 
 
 def test_rejects_bad_arguments(rng):

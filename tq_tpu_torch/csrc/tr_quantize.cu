@@ -1,7 +1,10 @@
-// Term-reveal fake quantization on Hopper: the two bodies of tr_quantize.
+// Term-reveal fake quantization on Hopper: the two bodies of tr_quantize,
+// and the scale-only copy it is measured against.
 //
-// Replaces the Pallas kernel tq_tpu/kernels/tr_quantize.py::tr_quantize
-// (element-wise body _elementwise_body, grouped body _grouped_body).
+// Replaces the Pallas kernels tq_tpu/kernels/tr_quantize.py::tr_quantize
+// (element-wise body _elementwise_body, grouped body _grouped_body) and
+// ::tr_scale_copy (the element-wise kernel's grid with a body that only
+// scales: the copy ceiling of the element-wise body).
 //
 // Bound on the card: memory.  Each element is read once (4 B) and written
 // once (4 B) and costs a few dozen integer operations, far below the
@@ -14,6 +17,18 @@
 // loads are strided by g floats between neighbouring threads (uncoalesced);
 // at the weight shapes it runs on (conversion, once per tensor) that costs
 // little, and a warp-per-group layout is left to later work.
+//
+// The element-wise body also takes bfloat16 input (the serving mode's
+// activations): the magnitude is quantized in float32 from the exact
+// widening of the input, the kept integer rounds to bfloat16 (RNE), and
+// its product with sf rounds to bfloat16 again, as the JAX package's
+// sign * acc.astype(bfloat16) * sf followed by the cast to bfloat16.  It
+// moves half the bytes of the float32 body but measures no faster on the
+// H100 (PERF.md): one element per thread on a grid-stride loop, not the
+// bytes, limits both, and a plain copy on this grid (tr_scale_copy) is
+// slower than PyTorch's own vectorized multiply.
+
+#include <cuda_bf16.h>
 
 #include "tr_common.cuh"
 
@@ -31,9 +46,29 @@ __device__ __forceinline__ float max_q(int bits) {
   return static_cast<float>((1u << bits) - 1u);
 }
 
-// group_size == 1: out[i] = sign * value(kept terms of q[i]) * sf, or the
-// signed integer value itself when int_out is set.
-__global__ void tr_elementwise_kernel(const float* __restrict__ x,
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// sign(x) * v * sf stored as In: float32 as is; bfloat16 with v rounded to
+// bfloat16 before the product and the product rounded after it.
+__device__ __forceinline__ void store_dequantized(float* out, int64_t i,
+                                                  float x, int32_t v,
+                                                  float sf) {
+  out[i] = tq::dequantize(x, v, sf);
+}
+__device__ __forceinline__ void store_dequantized(__nv_bfloat16* out,
+                                                  int64_t i, float x,
+                                                  int32_t v, float sf) {
+  const float s = __bfloat162float(__float2bfloat16_rn(static_cast<float>(v)));
+  out[i] = __float2bfloat16_rn(__fmul_rn(x < 0.f ? -s : s, sf));
+}
+
+// group_size == 1: out[i] = sign * value(kept terms of q[i]) * sf (in the
+// input's type), or the signed integer value itself when int_out is set.
+template <typename In>
+__global__ void tr_elementwise_kernel(const In* __restrict__ x,
                                       const float* __restrict__ sf_ptr,
                                       void* __restrict__ out, int64_t n,
                                       int bits, int budget, int serial,
@@ -42,14 +77,24 @@ __global__ void tr_elementwise_kernel(const float* __restrict__ x,
   const float maxq = max_q(bits);
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float v = x[i];
+    const float v = widen(x[i]);
     const int32_t val = tq::keep_terms(tq::quantize(v, sf, maxq), budget,
                                        serial != 0);
     if (int_out)
       static_cast<int32_t*>(out)[i] = v < 0.f ? -val : val;
     else
-      static_cast<float*>(out)[i] = tq::dequantize(v, val, sf);
+      store_dequantized(static_cast<In*>(out), i, v, val, sf);
   }
+}
+
+// tr_scale_copy: out[i] = x[i] * sf, on the element-wise body's grid.
+__global__ void tr_scale_copy_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ sf_ptr,
+                                     float* __restrict__ out, int64_t n) {
+  const float sf = *sf_ptr;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    out[i] = __fmul_rn(x[i], sf);
 }
 
 // group_size > 1: x is (n_groups, g) contiguous (the wrapper moved the
@@ -101,12 +146,24 @@ __global__ void tr_grouped_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-extern "C" int tq_tr_quantize_elementwise(const float* x, const float* sf,
+extern "C" int tq_tr_quantize_elementwise(const void* x, const float* sf,
                                           void* out, int64_t n, int bits,
                                           int budget, int serial, int int_out,
-                                          cudaStream_t stream) {
-  tr_elementwise_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-      x, sf, out, n, bits, budget, serial, int_out);
+                                          int in_bf16, cudaStream_t stream) {
+  if (in_bf16)
+    tr_elementwise_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), sf, out, n, bits, budget,
+        serial, int_out);
+  else
+    tr_elementwise_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
+        static_cast<const float*>(x), sf, out, n, bits, budget, serial,
+        int_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tq_tr_scale_copy(const float* x, const float* sf, float* out,
+                                int64_t n, cudaStream_t stream) {
+  tr_scale_copy_kernel<<<blocks_for(n), kThreads, 0, stream>>>(x, sf, out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,16 +1,16 @@
-"""Deterministic synthetic stand-ins for MNIST and Wikitext-2 (no
-downloads).
+"""Deterministic synthetic stand-ins for MNIST, ImageNet and Wikitext-2
+(no downloads).
 
-Numpy copies of ``tq_tpu.data.synthetic.synthetic_mnist`` and
-``synthetic_tokens``: the same seed gives byte-identical arrays, so the
-two packages evaluate on the same data.
+Numpy copies of ``tq_tpu.data.synthetic``'s ``synthetic_mnist``,
+``synthetic_imagenet_batch`` and ``synthetic_tokens``: the same seed gives
+byte-identical arrays, so the two packages evaluate on the same data.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_mnist", "synthetic_tokens"]
+__all__ = ["synthetic_mnist", "synthetic_imagenet_batch", "synthetic_tokens"]
 
 
 def synthetic_mnist(num_train: int = 60000, num_test: int = 10000,
@@ -37,6 +37,14 @@ def synthetic_mnist(num_train: int = 60000, num_test: int = 10000,
         return x[:, None, :, :], y
 
     return make(num_train, seed + 1), make(num_test, seed + 2)
+
+
+def synthetic_imagenet_batch(batch: int, size: int = 224, seed: int = 0):
+    """Normalized NHWC float32 image batch with int32 labels in [0, 1000)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (batch, size, size, 3)).astype(np.float32)
+    y = rng.integers(0, 1000, size=batch).astype(np.int32)
+    return x, y
 
 
 def synthetic_tokens(vocab: int = 33278, length: int = 200000,

@@ -1,0 +1,221 @@
+"""ImageNet CNN UQ/TR sweep on the card.
+
+Port of ``tq_tpu.evals.cnn``.  Per setting: per-layer settings -> convert
+-> profile -> a calibration pass on 5% of the eval set -> MSE scale search
+-> full eval.  Output schema as ``results/<arch>-results.json``:
+``{quant, tr-data2, ...} x {accs, tmacs, avg_terms, params}``, flushed
+after every setting; a partial file resumes.
+
+Grids (``--grid``): ``published`` (default), the grids the published
+results files were made with; ``committed``, the reference repository's
+committed script.  Without real ImageNet the batches are deterministic
+synthetic ones (accs are then meaningless; tmacs, avg_terms and params
+still reproduce the published files).  Runs on ``--device cuda`` by
+default, on the one device (no mesh), and raises if there is no CUDA
+device; ``--device cpu`` runs the plain versions of the kernels.  Only
+ResNet-18 is ported; the other archs raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from tq_tpu_torch.convert import (convert_cnn, finalize_cnn, make_cnn_apply,
+                                  static_conv_layer_settings)
+from tq_tpu_torch.profilers import cnn_cost, param_count
+from tq_tpu_torch.utils.device import resolve_device
+from tq_tpu_torch.utils.params import params_from_jax
+
+__all__ = ["ARCHS", "COMMITTED_GRID", "PUBLISHED_GRIDS", "get_model",
+           "load_params", "eval_setting", "run_sweep", "main"]
+
+ARCHS = ("alexnet", "vgg16_bn", "resnet18", "mobilenet_v2", "efficientnet_b0")
+
+# The committed reference script's sweep.
+COMMITTED_GRID = dict(
+    uq_bits=(6, 7, 8, 9), uq_wt=9, uq_db=9, uq_dt=9,
+    tr_data_terms=(2, 3, 4), tr_weight_terms=(12, 16, 20, 24),
+)
+
+# The grids of the published results files (resnet18/vgg16_bn: UQ wb in
+# {5..9} with wt=wb at dt'=8, TR wt in {8..16} at dt in {2, 3}).
+PUBLISHED_GRIDS = {
+    "resnet18": dict(
+        uq_bits=(5, 6, 7, 8, 9), uq_wt="wb", uq_db=9, uq_dt=8,
+        tr_data_terms=(2, 3), tr_weight_terms=(8, 10, 12, 14, 16),
+    ),
+    "vgg16_bn": dict(
+        uq_bits=(5, 6, 7, 8, 9), uq_wt="wb", uq_db=9, uq_dt=8,
+        tr_data_terms=(2, 3), tr_weight_terms=(8, 10, 12, 14, 16),
+    ),
+    "mobilenet_v2": dict(COMMITTED_GRID),
+    "efficientnet_b0": dict(COMMITTED_GRID),
+    "alexnet": dict(COMMITTED_GRID),
+}
+
+
+def get_model(arch: str):
+    if arch == "resnet18":
+        from tq_tpu_torch.models import resnet
+
+        return resnet
+    if arch in ARCHS:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP A.8, the CNN zoo); "
+            "resnet18 is")
+    raise ValueError(f"unknown arch {arch!r}; choose from {ARCHS}")
+
+
+def load_params(arch: str, checkpoint: str | None, seed: int = 0,
+                device="cpu"):
+    """(model module, parameters on ``device``): a ``.npz`` or torch
+    ``.pt`` checkpoint if given, else a random init from a torch generator
+    seeded ``seed`` (not the JAX package's init values)."""
+    m = get_model(arch)
+    if checkpoint:
+        path = Path(checkpoint)
+        if path.suffix == ".npz":
+            from tq_tpu_torch.utils.checkpoint import load_params as load_npz
+
+            return m, params_from_jax(load_npz(path), device)
+        from tq_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+        return m, params_from_jax(load_torch_checkpoint(path), device)
+    return m, m.init(torch.Generator().manual_seed(seed), device=device)
+
+
+def _batches(arch: str, data_dir, batch_size: int, n_synth: int):
+    """Yield (x, y) NHWC val batches; synthetic without real data."""
+    from tq_tpu_torch.data.imagenet import find_imagenet_val, iter_imagenet_val
+    from tq_tpu_torch.data.synthetic import synthetic_imagenet_batch
+
+    root = find_imagenet_val(data_dir)
+    if root is not None:
+        yield from iter_imagenet_val(root, batch_size, 224,
+                                     "efficientnet" in arch)
+        return
+    for i in range(n_synth // batch_size):
+        yield synthetic_imagenet_batch(batch_size, 224, seed=i)
+
+
+def eval_setting(m, params, wb: int, gs: int, wt: int, db: int, dt: int,
+                 arch: str, data_dir=None, batch_size: int = 64,
+                 calib_pct: float = 0.05, n_synth: int = 512):
+    """One (wb, gs, wt, db, dt) setting on the parameters' device ->
+    (acc %, tmacs, avg_terms, params)."""
+    device = params["conv1"]["w"].device
+    specs = m.conv_specs()
+    settings = static_conv_layer_settings(specs, wb, gs, wt)
+    tmacs, avg_terms = cnn_cost(specs, settings, db, dt)
+    n_params = param_count(params)
+
+    qparams, qcfg, qstate = convert_cnn(m, params, settings, db, dt)
+
+    batches = list(_batches(arch, data_dir, batch_size, n_synth))
+    total = sum(len(y) for _, y in batches)
+    n_calib = max(1, round(calib_pct * total))
+
+    track_fwd = make_cnn_apply(m, qcfg, track=True)
+    seen = 0
+    for x, y in batches:
+        x = torch.as_tensor(x, device=device)
+        _, qstate = track_fwd(qparams, qstate, x)
+        seen += len(y)
+        if seen >= n_calib:
+            break
+    qstate = finalize_cnn(qstate, qcfg)
+
+    eval_fwd = make_cnn_apply(m, qcfg, track=False)
+    # Counted on the device; one fetch at the end.
+    correct = torch.zeros((), dtype=torch.int64, device=device)
+    for x, y in batches:
+        x, y = (torch.as_tensor(a, device=device) for a in (x, y))
+        logits, _ = eval_fwd(qparams, qstate, x)
+        correct += (logits.argmax(-1) == y).sum()
+    return 100.0 * int(correct) / total, tmacs, avg_terms, n_params
+
+
+def run_sweep(arch: str, checkpoint: str | None = None,
+              data_dir: str | None = None, out_file: str | None = None,
+              batch_size: int = 64, n_synth: int = 512,
+              uq_bits=(6, 7, 8, 9), uq_wt=9, uq_db=9, uq_dt=9,
+              tr_data_terms=(2, 3, 4), tr_weight_terms=(12, 16, 20, 24),
+              verbose: bool = True, device="cuda"):
+    """The UQ rows, then the TR rows (wb=9, g=8, db=9) of every data term
+    count; returns the results dict, skipping what a partial ``out_file``
+    already holds."""
+    device = resolve_device(device)
+    m, params = load_params(arch, checkpoint, device=device)
+    results = {key: {"accs": [], "tmacs": [], "avg_terms": [], "params": []}
+               for key in ["quant"] + [f"tr-data{d}" for d in tr_data_terms]}
+    done = {key: 0 for key in results}
+    if out_file and Path(out_file).exists():
+        prior = json.loads(Path(out_file).read_text())
+        for key in results:
+            if key in prior and prior[key]["accs"]:
+                results[key] = prior[key]
+                done[key] = len(prior[key]["accs"])
+
+    def record(key, res):
+        acc, tmacs, avg_terms, n_params = res
+        results[key]["accs"].append(acc)
+        results[key]["tmacs"].append(float(tmacs))
+        results[key]["avg_terms"].append(avg_terms)
+        results[key]["params"].append(float(n_params))
+        if verbose:
+            print(key, acc, tmacs, avg_terms, n_params, flush=True)
+        if out_file:
+            Path(out_file).parent.mkdir(parents=True, exist_ok=True)
+            with open(out_file, "w") as fp:
+                json.dump(results, fp)
+
+    kw = dict(arch=arch, data_dir=data_dir, batch_size=batch_size,
+              n_synth=n_synth)
+    for i, wb in enumerate(uq_bits):
+        if i < done["quant"]:
+            continue
+        wt = wb if uq_wt == "wb" else uq_wt
+        record("quant", eval_setting(m, params, wb, 1, wt, uq_db, uq_dt, **kw))
+    for dt in tr_data_terms:
+        for j, wt in enumerate(tr_weight_terms):
+            if j < done[f"tr-data{dt}"]:
+                continue
+            record(f"tr-data{dt}",
+                   eval_setting(m, params, 9, 8, wt, 9, dt, **kw))
+    return results
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="ImageNet CNN UQ/TR sweep")
+    ap.add_argument("-a", "--arch", default="resnet18", choices=ARCHS)
+    ap.add_argument("--val-dir", default=None,
+                    help="dir containing imagenet/val (synthetic if absent)")
+    ap.add_argument("--checkpoint", default=None,
+                    help=".pt state_dict or .npz params")
+    ap.add_argument("-b", "--batch-size", type=int, default=64)
+    ap.add_argument("--n-synth", type=int, default=512)
+    ap.add_argument("--out-file", default=None)
+    ap.add_argument("--grid", default="published",
+                    choices=["published", "committed"],
+                    help="sweep settings: the published results files' "
+                         "grids (default) or the committed script's")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu' for the plain versions")
+    a = ap.parse_args(argv)
+    # cuDNN convolutions default to TF32, which alone misses the float32
+    # reference by orders of magnitude: full float32 everywhere.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = a.out_file or f"results/{a.arch}-results.json"
+    grid = (PUBLISHED_GRIDS[a.arch] if a.grid == "published"
+            else COMMITTED_GRID)
+    run_sweep(a.arch, a.checkpoint, a.val_dir, out, a.batch_size, a.n_synth,
+              device=a.device, **grid)
+
+
+if __name__ == "__main__":
+    main()

@@ -198,7 +198,7 @@ def main(argv=None):
 
     corpus, source = load_corpus(a.data)
     vocab = len(corpus.dictionary.idx2word)
-    params, meta = _load_checkpoint(a.checkpoint, with_meta=True)
+    params, meta = _load_checkpoint(a.checkpoint, vocab, with_meta=True)
     meta_model = meta.get("model")
     cell = a.cell or (meta_model if meta_model in CELLS else None)
     if a.tr is not None:

@@ -32,6 +32,7 @@ from tq_tpu_torch.profilers import dense_param_bits, dense_term_macs
 from tq_tpu_torch.utils.checkpoint import load_params
 from tq_tpu_torch.utils.device import resolve_device
 from tq_tpu_torch.utils.params import params_from_jax
+from tq_tpu_torch.utils.torch_import import load_torch_checkpoint
 
 __all__ = ["evaluate_setting", "run_sweep", "main", "EVAL_BATCH", "BPTT"]
 
@@ -120,14 +121,21 @@ def _not_ported_model(model: str) -> None:
             "the Transformer LM is not ported yet (ROADMAP slice 4)")
 
 
-def _load_checkpoint(path, with_meta: bool = False):
-    """A ``.npz`` checkpoint as a tree of numpy arrays (and its meta)."""
+def _load_checkpoint(path, vocab: int, with_meta: bool = False):
+    """A ``.npz`` checkpoint, or a torch ``.pt``/``.pth`` state_dict of the
+    reference word LM (``encoder``, ``rnn``, tied ``decoder``), as a tree
+    of numpy arrays (and its meta; a torch checkpoint has none)."""
     p = Path(path)
-    if p.suffix != ".npz":
-        raise NotImplementedError(
-            f"{p}: only .npz checkpoints load; torch checkpoints need "
-            "utils/torch_import, which is not ported yet (ROADMAP queue A)")
-    return load_params(p, with_meta=with_meta)
+    if p.suffix == ".npz":
+        return load_params(p, with_meta=with_meta)
+    tree = load_torch_checkpoint(p)
+    enc = tree["encoder"]["w"]  # the embedding, transposed as a linear
+    if enc.shape[0] != vocab:
+        enc = np.ascontiguousarray(enc.T)
+    params = {"encoder": {"w": enc},
+              "rnn": tree["rnn"],
+              "decoder": {"b": tree["decoder"]["b"]}}  # tied
+    return (params, {}) if with_meta else params
 
 
 def run_sweep(wb, wt, db, dt, gs, out_file=None, checkpoint=None,
@@ -144,7 +152,8 @@ def run_sweep(wb, wt, db, dt, gs, out_file=None, checkpoint=None,
     if verbose:
         print(f"corpus source: {source}; vocab={vocab}; device: {device}")
     if checkpoint:
-        params = params_from_jax(_load_checkpoint(checkpoint), device)
+        params = params_from_jax(_load_checkpoint(checkpoint, vocab),
+                                 device)
     else:
         params = lstm_lm.init(torch.Generator().manual_seed(0), vocab=vocab,
                               cell=model, device=device)

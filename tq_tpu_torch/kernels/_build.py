@@ -39,8 +39,10 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # name -> argtypes; every entry point returns a cudaError_t as int.
 SIGNATURES = {
-    # x, sf, out, n, bits, budget, serial, int_out, stream
-    "tq_tr_quantize_elementwise": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
+    # x, sf, out, n, bits, budget, serial, int_out, in_bf16, stream
+    "tq_tr_quantize_elementwise": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P],
+    # x, sf, out, n, stream
+    "tq_tr_scale_copy": [_P, _P, _P, _I64, _P],
     # x, sf, out, n_groups, group_size, bits, budget, serial, stream
     "tq_tr_quantize_grouped": [_P, _P, _P, _I64, _I, _I, _I, _I, _P],
     # x, w, signs, sf, w_sf, out, ws, M, N, K, bits, budget, mode, wfmt,

@@ -8,6 +8,13 @@ exactly :func:`tq_tpu_torch.ops.term_reveal.term_reveal`:
   and raises on what the kernel does not take;
 * on a CPU tensor it runs :func:`tr_quantize_ref`, the plain version.
 
+The element-wise body also takes bfloat16 input (the serving mode's
+activations): it quantizes in float32 and returns bfloat16, with the kept
+integer and its product with ``sf`` each rounded to bfloat16, as the JAX
+package's element-wise term reveal of a bfloat16 tensor followed by the
+cast to bfloat16.  :func:`tr_scale_copy` is the element-wise body's grid
+with a body that only scales: the copy ceiling it is timed against.
+
 The helpers below are the loop-free int32 bit-mask math of the TPU
 kernel's element-wise body, as tensor ops; the plain version uses them and
 the CUDA kernels repeat them per thread (``csrc/tr_common.cuh``).
@@ -21,7 +28,8 @@ from tq_tpu_torch.kernels import _build
 from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
 
 __all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
-           "tr_quantize_int_ref", "max_hese_terms", "MAX_BITS"]
+           "tr_quantize_int_ref", "tr_scale_copy", "tr_scale_copy_ref",
+           "max_hese_terms", "MAX_BITS"]
 
 _KEEP_MODES = ("largest", "serial")
 MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
@@ -110,7 +118,10 @@ def _check_keep_mode(keep_mode: str) -> None:
 
 
 def _kept(x: torch.Tensor, sf, bits: int, budget: int, keep_mode: str):
-    """(int32 magnitude of the kept terms, sign) per element."""
+    """(int32 magnitude of the kept terms, sign) per element; a bfloat16
+    ``x`` is quantized from its exact float32 widening."""
+    if x.dtype == torch.bfloat16:
+        x = x.to(torch.float32)
     q, sign = uniform_quantize(x, sf, bits)
     select = _topk_value if keep_mode == "largest" else _bottomk_value
     return select(q, bits, budget), sign
@@ -125,15 +136,19 @@ def tr_quantize_ref(x: torch.Tensor, sf, bits: int, group_size: int = 1,
         return term_reveal(x, sf, bits, group_size, num_keep_terms, axis,
                            keep_mode)
     acc, sign = _kept(x, sf, bits, num_keep_terms, keep_mode)
-    return sign * acc.to(x.dtype) * as_scale(sf, x.device)
+    sf = as_scale(sf, x.device)
+    if x.dtype == torch.bfloat16:
+        kept = acc.to(torch.bfloat16).to(torch.float32)
+        return (sign * kept * sf).to(torch.bfloat16)
+    return sign * acc.to(x.dtype) * sf
 
 
-def _kernel_scale(x: torch.Tensor, sf, bits: int,
-                  keep_mode: str) -> torch.Tensor:
+def _kernel_scale(x: torch.Tensor, sf, bits: int, keep_mode: str,
+                  dtypes=(torch.float32,)) -> torch.Tensor:
     """Check what both kernels take; ``sf`` as a float32 scalar on the card."""
     _check_keep_mode(keep_mode)
-    if x.dtype != torch.float32:
-        raise TypeError(f"tr_quantize kernel takes float32, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"tr_quantize kernel takes {dtypes}, got {x.dtype}")
     if not 1 <= bits <= MAX_BITS:
         raise ValueError(f"tr_quantize kernel takes 1 <= bits <= {MAX_BITS},"
                          f" got {bits}")
@@ -141,7 +156,9 @@ def _kernel_scale(x: torch.Tensor, sf, bits: int,
 
 
 def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool):
-    sf = _kernel_scale(x, sf, bits, keep_mode)
+    sf = _kernel_scale(x, sf, bits, keep_mode,
+                       (torch.float32, torch.bfloat16))
+    in_bf16 = x.dtype == torch.bfloat16
     xc = x.contiguous()
     out = torch.empty(x.shape, dtype=torch.int32 if int_out else x.dtype,
                       device=x.device)
@@ -149,9 +166,11 @@ def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool):
         _build.check(_build.load().tq_tr_quantize_elementwise(
             xc.data_ptr(), sf.data_ptr(), out.data_ptr(), xc.numel(), bits,
             min(budget, _BUDGET_CAP), int(keep_mode == "serial"),
-            int(int_out), torch.cuda.current_stream(x.device).cuda_stream),
+            int(int_out), int(in_bf16),
+            torch.cuda.current_stream(x.device).cuda_stream),
             "tq_tr_quantize_elementwise")
-        tr_quantize.launches["elementwise"] += 1
+        tr_quantize.launches["elementwise_bf16" if in_bf16
+                             else "elementwise"] += 1
     return out
 
 
@@ -205,7 +224,8 @@ def tr_quantize(x: torch.Tensor, sf, bits: int, group_size: int = 1,
                            keep_mode)
 
 
-tr_quantize.launches = {"elementwise": 0, "grouped": 0}
+tr_quantize.launches = {"elementwise": 0, "elementwise_bf16": 0,
+                        "grouped": 0}
 
 
 def tr_quantize_int_ref(x: torch.Tensor, sf, bits: int, num_keep_terms: int,
@@ -226,3 +246,31 @@ def tr_quantize_int(x: torch.Tensor, sf, bits: int, num_keep_terms: int,
         return tr_quantize_int_ref(x, sf, bits, num_keep_terms, keep_mode)
     return _launch_elementwise(x, sf, bits, num_keep_terms, keep_mode,
                                int_out=True)
+
+
+def tr_scale_copy_ref(x: torch.Tensor, sf) -> torch.Tensor:
+    """Plain PyTorch version of :func:`tr_scale_copy`: ``x * sf``."""
+    return x * as_scale(sf, x.device)
+
+
+def tr_scale_copy(x: torch.Tensor, sf) -> torch.Tensor:
+    """``x * sf`` through the element-wise kernel's grid and loads: the
+    same-run copy ceiling of :func:`tr_quantize`'s element-wise body
+    (float32 only)."""
+    if not x.is_cuda:
+        return tr_scale_copy_ref(x, sf)
+    if x.dtype != torch.float32:
+        raise TypeError(f"tr_scale_copy kernel takes float32, got {x.dtype}")
+    sf = as_scale(sf, x.device).contiguous()
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    if xc.numel():
+        _build.check(_build.load().tq_tr_scale_copy(
+            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), xc.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream),
+            "tq_tr_scale_copy")
+        tr_scale_copy.launches["scale_copy"] += 1
+    return out
+
+
+tr_scale_copy.launches = {"scale_copy": 0}

@@ -34,6 +34,8 @@ __all__ = [
     "compressed_hese_bits",
     "dense_param_bits",
     "model_cost",
+    "cnn_cost",
+    "param_count",
 ]
 
 
@@ -131,3 +133,36 @@ def model_cost(layers: Iterable[tuple[LayerCost, TRParams]],
                     weights[lc.name], scales[lc.name], tr.weight_terms,
                     tr.weight_bits, merge_hack=merge_hack)
     return tmacs, pbits
+
+
+def cnn_cost(specs, settings, data_bits: int,
+             data_terms: int) -> tuple[int, float]:
+    """(tmacs, avg_terms) of a converted CNN at batch 1: tmacs by the conv
+    formula (the stem and grouped convs count zero), ``avg_terms`` the
+    mean ``wt / g`` over every conv but the stem (exempt layers
+    included)."""
+    tmacs = 0
+    for spec, (wb, gs, wt) in zip(specs, settings):
+        tr = TRParams(wb, gs, wt, data_bits, data_terms)
+        tmacs += conv2d_term_macs(spec.out_elems, spec.in_ch, spec.kh,
+                                  spec.kw, tr, spec.groups)
+    alphas = [wt / gs for (_, gs, wt) in settings[1:]]
+    return tmacs, sum(alphas) / len(alphas)
+
+
+_BUFFER_KEYS = frozenset({"mean", "var", "w_sf", "hist", "sf"})
+
+
+def param_count(params) -> int:
+    """Learnable parameter elements, as torch's ``sum(p.numel() for p in
+    model.parameters())``: leaves under a BN running-stat key ('mean',
+    'var') or a conversion product ('w_sf', 'hist', 'sf') are buffers and
+    do not count."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for k, v in params.items()
+                   if k not in _BUFFER_KEYS)
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    if params is None:
+        return 0
+    return int(np.prod(tuple(params.shape)))

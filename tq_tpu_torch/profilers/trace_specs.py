@@ -1,0 +1,81 @@
+"""Layer spec tables recovered by running a model's forward on shapes only.
+
+Port of the protocol half of ``tq_tpu.profilers.trace_specs``.  A
+:class:`SpecRecorder` stands in for the QuantCtx during one forward on
+``device="meta"`` tensors (the counterpart of ``jax.eval_shape``: shapes
+propagate, nothing is computed) and records one
+:class:`~tq_tpu_torch.models.cnn_common.ConvSpec` per ``ctx.conv`` call and
+one (name, in, out) per ``ctx.dense`` call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tq_tpu_torch.layers.conv import conv2d
+from tq_tpu_torch.models.cnn_common import ConvSpec
+
+__all__ = ["SpecRecorder", "trace_conv_specs", "trace_dense_specs",
+           "specs_for"]
+
+
+class SpecRecorder:
+    """Duck-typed QuantCtx that records layer shapes instead of quantizing.
+
+    ``is_se`` uses the reference's name rule (``'se' in name``), for
+    ungrouped convs only: the substring also fires on ``_depthwise_conv``,
+    where it changes nothing (grouped convs are exempt already).
+    """
+
+    def __init__(self):
+        self.conv_specs: list[ConvSpec] = []
+        self.dense_specs: list[tuple[str, int, int]] = []
+
+    def conv(self, name, params, x, stride=(1, 1), padding="SAME", groups=1):
+        y = conv2d(x, params["w"].to(x.dtype), stride, padding, groups)
+        s = stride[0] if isinstance(stride, (tuple, list)) else stride
+        kh, kw, in_ch_pg, out_ch = params["w"].shape
+        self.conv_specs.append(ConvSpec(
+            name, in_ch=in_ch_pg * groups, out_ch=out_ch, kh=kh, kw=kw,
+            stride=int(s), groups=groups, out_h=int(y.shape[1]),
+            out_w=int(y.shape[2]), is_se="se" in name and groups == 1))
+        if params.get("b") is not None:
+            y = y + params["b"].to(y.dtype)
+        return y
+
+    def dense(self, name, params, x):
+        self.dense_specs.append((name, int(params["w"].shape[0]),
+                                 int(params["w"].shape[1])))
+        return torch.matmul(x, params["w"]) + params["b"]
+
+
+def _record(model_mod, image: int | None, batch: int) -> SpecRecorder:
+    if image is None:
+        image = getattr(model_mod, "IMAGE_SIZE", 224)
+    params = model_mod.init(torch.Generator(), device="meta")
+    x = torch.empty(batch, image, image, 3, device="meta")
+    rec = SpecRecorder()
+    model_mod.apply(params, x, rec)
+    return rec
+
+
+def trace_conv_specs(model_mod, image: int | None = None,
+                     batch: int = 1) -> list[ConvSpec]:
+    """Ordered ConvSpec list recovered from ``model_mod.apply`` itself
+    (equal to a hand-written ``conv_specs()``)."""
+    return _record(model_mod, image, batch).conv_specs
+
+
+def trace_dense_specs(model_mod, image: int | None = None,
+                      batch: int = 1) -> list[tuple[str, int, int]]:
+    """(name, in_features, out_features) per dense site, by tracing."""
+    return _record(model_mod, image, batch).dense_specs
+
+
+def specs_for(model_mod, image: int | None = None) -> list[ConvSpec]:
+    """Conv specs of a model module: its hand table if it has one, else
+    traced."""
+    if hasattr(model_mod, "conv_specs"):
+        return (model_mod.conv_specs(image) if image
+                else model_mod.conv_specs())
+    return trace_conv_specs(model_mod, image)
