@@ -25,10 +25,13 @@ non-zero without printing a result:
    log-probs of the rows without a flip within atol=1e-4;
 5. ``term_matmul``'s other modes (raw input, int8/int16/bf16-stored and
    9-bit packed weights, the bf16 and int8 modes): every combination the
-   checks admit against ``term_matmul_ref`` on the card at ragged shapes
-   and at the LSTM serving shapes (the int8 mode bit for bit, the rest
-   within rtol=1e-5, atol=1e-4*max|ref|), timed beside bound, plain
-   version and library call at the serving shapes;
+   checks admit against ``term_matmul_ref`` on the card at ragged shapes,
+   at the LSTM serving shapes and at small M on the weight-streaming
+   kernel (M in {1, 2, STREAM_MAX_M}, N = 2 mod 16, K off a multiple of
+   8, unaligned weight data; the int8 mode bit for bit, the rest within
+   rtol=1e-5, atol=1e-4*max|ref|); the M = 1 serving rows timed warm and
+   cold (weight copies past the L2) beside bound, plain version, library
+   call and the tiled kernel; both kernels timed at M in CROSSOVER_M;
 6. the LSTM LM at full width (650/650/33278, ``lstm_checkpoint``'s seeded
    weights): the README ``lstm-quant`` sweep and one TR setting through
    ``run_sweep`` on the card; tmacs and param_bits equal to the JAX
@@ -64,7 +67,8 @@ non-zero without printing a result:
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only mlp|lstm|cnn`` runs the build
-and those groups of phases only (phases 2-5, 6-8, 9-11).
+and those groups of phases only (phases 2-5, 6-8, 9-11); ``--breakdown``
+runs the build and ``phase_stream_breakdown`` only (no result line).
 """
 
 from __future__ import annotations
@@ -361,17 +365,22 @@ def eager_ms(torch, fn, iters: int = 200, warmup: int = 10) -> float:
 
 def device_ms(torch, fn, calls: int = 20, replays: int = 10) -> float:
     """Device time per call of ``fn()``: ``calls`` calls captured in one
-    CUDA graph and replayed, so no host time between launches counts."""
+    CUDA graph and replayed, so no host time between launches counts.
+    ``fn`` may be a list of functions, called in turn (at least once each):
+    each on its own copy of the operands, so that together they exceed
+    the L2 cache and every call finds its operands in HBM (cold)."""
+    fns = fn if isinstance(fn, list) else [fn]
+    calls = max(calls, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream
-        for _ in range(3):
-            fn()
+        for f in fns * (3 if len(fns) == 1 else 1):
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -527,7 +536,7 @@ def phase_kernels(torch):
     # term_matmul f32 at the fixed-linear eval shapes, plus a ragged one.
     per_shape = {}
     for M, K, N in [(128, 784, 512), (128, 512, 512), (128, 512, 10),
-                    (77, 300, 45)]:
+                    (77, 300, 45), (350, 650, 2600)]:
         x = randn(M, K).relu()
         w = randn(K, N, scale=0.05)
         sf = torch.tensor(0.2, device=dev)
@@ -565,7 +574,8 @@ def phase_main_path(torch):
     from tq_tpu_torch.kernels.term_matmul import term_matmul
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize
 
-    for counts in (tr_quantize.launches, term_matmul.launches):
+    for counts in (tr_quantize.launches, term_matmul.launches,
+                   term_matmul.kernel_launches):
         for k in counts:
             counts[k] = 0
     t0 = time.perf_counter()
@@ -599,7 +609,9 @@ def phase_main_path(torch):
     emit({"phase": "main_path", "ok": True, "seconds": seconds,
           "sweep_seconds": sweep_seconds, "data_seconds": data_seconds,
           "settings": sum(len(e["accs"]) for e in EXPECTED_SWEEPS.values()),
-          "launches": launches, "results": got})
+          "launches": launches,
+          "term_matmul_launches_by_kernel": dict(term_matmul.kernel_launches),
+          "results": got})
     return launches
 
 
@@ -723,27 +735,68 @@ def _weight_bytes(fmt: str, K: int, N: int) -> int:
     return {"f32": 4, "bf16": 2, "int16": 2, "int8": 1}[fmt] * K * N
 
 
+# Together past the 50 MB L2 cache: the cold timings rotate over copies
+# of the weights adding up to at least this many bytes.
+COLD_BYTES = 150e6
+# M of the crossover table, timed on both kernels.
+CROSSOVER_M = (1, 2, 4, 8, 16)
+
+
+def _copy_weight(w):
+    from tq_tpu_torch.kernels.term_matmul import PackedWeight8
+
+    if isinstance(w, PackedWeight8):
+        return PackedWeight8(w.lo.clone(), w.signs.clone(), w.w_sf)
+    return w.clone()
+
+
+def _offset_weight(torch, w):
+    """``w`` as a contiguous view whose data starts one element past a
+    16-byte boundary (every row of every format then starts unaligned)."""
+    from tq_tpu_torch.kernels.term_matmul import PackedWeight8
+
+    def shift(t):
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+
+    if isinstance(w, PackedWeight8):
+        return PackedWeight8(shift(w.lo), shift(w.signs), w.w_sf)
+    return shift(w)
+
+
 def phase_term_matmul_modes(torch):
-    from tq_tpu_torch.kernels.term_matmul import (VARIANTS, term_matmul,
+    from tq_tpu_torch.kernels.term_matmul import (STREAM_MAX_M, VARIANTS,
+                                                  launch, term_matmul,
                                                   term_matmul_ref)
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
+    T = STREAM_MAX_M
     # Ragged shapes (M, N off the 64-tile, K off a multiple of 8) and the
     # LSTM serving shapes: the recurrent (1, 650, 2600) and the decoder
-    # (1, 650, 33278) at one token, and a 350-row chunk.
+    # (1, 650, 33278) at one token, and a 350-row chunk; then small M on
+    # the weight-streaming kernel: N = 2 mod 16 (rows start at every even
+    # byte offset), K off a multiple of 8, M in {1, 2, T}.
     shapes = [(3, 37, 19), (77, 300, 45), (1, 650, 2600), (350, 650, 2600),
-              (1, 650, VOCAB)]
+              (1, 650, VOCAB), (1, 19, 34), (2, 19, 34), (T, 19, 34),
+              (2, 650, VOCAB), (T, 650, VOCAB), (T + 1, 650, 2600)]
     weights = {}
     cases, max_err = 0, {}
+    kernel_before = dict(term_matmul.kernel_launches)
+    want_stream = 0
     for variant, (mode, fmt, quantize_x) in VARIANTS.items():
         bits, terms = (7, 3) if mode == "int8" else (8, 3)
-        for M, K, N in shapes:
+        for M, K, N, offset in [(*sh, False) for sh in shapes] + [
+                (1, 19, 34, True), (1, 650, VOCAB, True)]:
             key = (fmt, K, N)
             if key not in weights:
                 weights[key] = _tm_weights(torch, fmt, K, N, gen, dev)
             w, w_sf, _ = weights[key]
+            if offset:  # data not 16-byte aligned
+                w = _offset_weight(torch, w)
             x = torch.randn(M, K, generator=gen, device=dev)
             sf = torch.tensor(0.03, device=dev)
             kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
@@ -762,8 +815,19 @@ def phase_term_matmul_modes(torch):
                      f"(max |ref| {scale})")
             max_err[variant] = max(max_err.get(variant, 0.0), err)
             cases += 1
+            want_stream += M <= T
+    by_kernel = {k: term_matmul.kernel_launches[k] - kernel_before[k]
+                 for k in kernel_before}
+    if by_kernel["stream"] != want_stream:
+        fail(f"term_matmul: {by_kernel['stream']} launches of the "
+             f"streaming kernel for {want_stream} cases with M <= {T}")
 
-    # Time the rows of the serving path at its shapes.
+    def call(w, x, sf, bits, terms, kw, kernel=None):
+        return lambda: launch(x, w, sf, bits, terms, kernel=kernel, **kw)
+
+    # Time the rows of the serving path at their M = 1 shapes: warm (the
+    # same weights every call) and cold (copies past the L2), beside the
+    # bound, the plain version, torch.matmul and the tiled kernel.
     results = {}
     for row, variant in TERM_MATMUL_ROWS.items():
         if row == "term_matmul_f32":
@@ -789,25 +853,130 @@ def phase_term_matmul_modes(torch):
             else:
                 xa = x
                 wa = wv * (w.w_sf if fmt == "packed8" else w_sf)
-            b, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N) + 4 * M * N,
+            wbytes = _weight_bytes(fmt, K, N)
+            b, by = bound_ms(4 * M * K + wbytes + 4 * M * N,
                              2 * M * K * N, PEAK_OPS[mode])
+            copies = [w] + [_copy_weight(w)
+                            for _ in range(max(1, int(-(-COLD_BYTES //
+                                                       wbytes)) - 1))]
+            t = timings(torch, call(w, x, sf, bits, terms, kw),
+                        lambda: term_matmul_ref(x, w, sf, bits, terms, **kw),
+                        lambda: torch.matmul(xa, wa))
+            cold = device_ms(torch, [call(c, x, sf, bits, terms, kw)
+                                     for c in copies])
             per_shape[f"{M}x{K}x{N}"] = dict(
-                **timings(torch, lambda: term_matmul(x, w, sf, bits, terms,
-                                                     **kw),
-                          lambda: term_matmul_ref(x, w, sf, bits, terms,
-                                                  **kw),
-                          lambda: torch.matmul(xa, wa)),
-                bound_ms=b, bound_by=by)
+                **t, cold_ms=cold, cold_copies=len(copies),
+                tiled_ms=device_ms(torch, call(w, x, sf, bits, terms, kw,
+                                                "tiled")),
+                tiled_cold_ms=device_ms(torch, [
+                    call(c, x, sf, bits, terms, kw, "tiled")
+                    for c in copies]),
+                bound_ms=b, bound_by=by, bound_share_cold=b / cold)
+            del copies
         head = per_shape[f"1x650x{VOCAB}"]
         results[row] = dict(shape=[1, 650, VOCAB], variant=variant,
                             per_shape=per_shape, max_abs_err=max_err[variant],
                             **{k: head[k] for k in (
-                                "ms", "eager_ms", "plain_ms", "library_ms",
-                                "bound_ms", "bound_by")})
+                                "ms", "cold_ms", "tiled_ms", "eager_ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "bound_share_cold")})
+
+    # The crossover: both kernels (warm) at M in CROSSOVER_M on the
+    # decoder and recurrent widths, for the six decoder variants.
+    crossover, faster_up_to = {}, {}
+    for N in (VOCAB, 2600):
+        K = 650
+        up_to = max(CROSSOVER_M)
+        for row, variant in TERM_MATMUL_ROWS.items():
+            if row == "term_matmul_f32":
+                continue
+            mode, fmt, quantize_x = VARIANTS[variant]
+            w, w_sf, _ = weights[(fmt, K, N)]
+            bits, terms = (7, 3) if mode == "int8" else (8, 3)
+            kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
+                      quantize_x=quantize_x)
+            sf = torch.tensor(0.03, device=dev)
+            table = {}
+            for M in CROSSOVER_M:
+                x = torch.randn(M, K, generator=gen, device=dev)
+                table[M] = {k: device_ms(torch, call(w, x, sf, bits, terms,
+                                                    kw, k))
+                            for k in ("stream", "tiled")}
+            crossover.setdefault(f"{K}x{N}", {})[variant] = table
+            faster = 0  # the largest M up to which the stream kernel wins
+            for M in CROSSOVER_M:
+                if table[M]["stream"] >= table[M]["tiled"]:
+                    break
+                faster = M
+            up_to = min(up_to, faster)
+        faster_up_to[f"{K}x{N}"] = up_to
     emit({"phase": "term_matmul_modes", "ok": True, "cases": cases,
-          "variants": len(VARIANTS), "max_abs_err": max_err,
-          "results": results})
+          "variants": len(VARIANTS), "stream_max_m": T,
+          "launches_by_kernel": by_kernel, "max_abs_err": max_err,
+          "results": results, "crossover_ms": crossover,
+          "stream_faster_up_to_m": faster_up_to})
     return results
+
+
+def phase_stream_breakdown(torch):
+    """Where the weight-streaming kernel's time goes (``--breakdown``):
+    one strip (a single block) at K = 8, 32, 96 and 650 gives the block's
+    fixed chain and the cost of each further group of 8 rows a warp
+    takes; the decoder shape over K splits 4..8 (warm and cold) checks
+    the plan's choice.  Beside a trivial kernel's time per graph node."""
+    from tq_tpu_torch.kernels import term_matmul as tm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    one = torch.zeros(1, device=dev)
+    plan = tm.plan
+
+    def with_splits(S):
+        def forced(M, N, K, fmt, mode, sms, kernel=None):
+            p = plan(M, N, K, fmt, mode, sms, kernel)
+            if p.kernel != "stream" or S is None:
+                return p
+            groups = -(-K // 8)
+            kps = -(-groups // S) * 8
+            s = -(-K // kps)
+            return p._replace(splits=s, k_per_split=kps,
+                              grid=(p.grid[0] // p.splits * s, *p.grid[1:]))
+        return forced
+
+    rows = {}
+    for variant in ("f32_raw_int8", "f32_raw_packed8"):
+        mode, fmt, quantize_x = tm.VARIANTS[variant]
+        cases = [(K, 496, [1]) for K in (8, 32, 96, 650)]
+        cases.append((650, VOCAB, [None, 4, 5, 6, 7, 8]))
+        for K, N, splits in cases:
+            w, w_sf, _ = _tm_weights(torch, fmt, K, N, gen, dev)
+            x = torch.randn(1, K, generator=gen, device=dev)
+            kw = dict(w_sf=w_sf, quantize_x=quantize_x)
+            wbytes = _weight_bytes(fmt, K, N)
+            copies = [w] + [_copy_weight(w) for _ in range(
+                min(399, max(1, int(-(-COLD_BYTES // wbytes)) - 1)))]
+            got = {}
+            for S in splits:
+                tm.plan = with_splits(S)
+                try:
+                    warm = device_ms(torch, lambda: tm.launch(x, w, 1.0,
+                                                              **kw))
+                    cold = device_ms(torch, [
+                        (lambda c: lambda: tm.launch(x, c, 1.0, **kw))(c)
+                        for c in copies])
+                finally:
+                    tm.plan = plan
+                key = "plan" if S is None else f"splits_{S}"
+                got[key] = dict(ms=warm, cold_ms=cold)
+            rows[f"{variant} 1x{K}x{N}"] = got
+            del copies
+    emit({"phase": "stream_breakdown", "ok": True,
+          "trivial_kernel_ms": device_ms(torch, lambda: one.add_(1)),
+          "plan_splits_decoder": {
+              f: tm.plan(1, VOCAB, 650, f, "f32", torch.cuda.
+                         get_device_properties(0).multi_processor_count)
+              .splits for f in ("int8", "packed8")},
+          "results": rows})
 
 
 # ---------------------------------------------------------------- phase 6
@@ -818,7 +987,7 @@ def _reset_counts():
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
     for counts in (tr_quantize.launches, term_matmul.launches,
-                   tr_scale_copy.launches):
+                   term_matmul.kernel_launches, tr_scale_copy.launches):
         for k in counts:
             counts[k] = 0
 
@@ -838,6 +1007,8 @@ def _read_counts() -> dict:
     out["term_matmul_other"] = sum(
         n for k, n in term_matmul.launches.items()
         if k not in TERM_MATMUL_ROWS.values())
+    for kernel, n in term_matmul.kernel_launches.items():
+        out[f"term_matmul_kernel_{kernel}"] = n
     return out
 
 
@@ -930,7 +1101,8 @@ def phase_generation(torch, ckpt: Path):
         "tr_quantize_elementwise", "tr_quantize_grouped",
         "term_matmul_raw_packed8", "term_matmul_raw_int16",
         "term_matmul_raw_int8", "term_matmul_bf16_int16",
-        "term_matmul_bf16_packed8", "term_matmul_int8"], "generation")
+        "term_matmul_bf16_packed8", "term_matmul_int8",
+        "term_matmul_kernel_stream"], "generation")
     emit({"phase": "generation", "ok": True, "seconds": total,
           "config_seconds": seconds, "words": GEN_WORDS,
           "launches": launches,
@@ -1514,7 +1686,11 @@ def main(argv=None) -> None:
                     help="run the build and these groups of phases only "
                          "(default: all; the kernels line then lists only "
                          "their rows)")
-    groups = set(ap.parse_args(argv).only)
+    ap.add_argument("--breakdown", action="store_true",
+                    help="run the build and the streaming kernel's time "
+                         "breakdown only (no result line)")
+    args = ap.parse_args(argv)
+    groups = set(args.only)
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the GPU only")
@@ -1530,6 +1706,9 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     smi = phase_build(torch)
     card = torch.cuda.get_device_name(0)
+    if args.breakdown:
+        phase_stream_breakdown(torch)
+        return
     kernel_results, by_path = {}, {}
     if "mlp" in groups:
         kernel_results.update(phase_kernels(torch))
@@ -1568,8 +1747,9 @@ def main(argv=None) -> None:
                       **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "eager_ms")},
-                      **({"resnet_shape": r["resnet_shape"]}
-                         if "resnet_shape" in r else {}),
+                      **{k: r[k] for k in ("cold_ms", "tiled_ms",
+                                           "bound_share_cold", "per_shape",
+                                           "resnet_shape") if k in r},
                       "match": True})
     emit({"kernels": lines, "card": smi, "groups": sorted(groups),
           "seconds": time.perf_counter() - t0})

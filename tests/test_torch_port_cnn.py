@@ -503,7 +503,8 @@ def test_torch_checkpoint_loads_like_jax(tmp_path, tparams):
                        f"{name}.running_var": p["var"],
                        f"{name}.num_batches_tracked": torch.tensor(0)})
     torch.save(sd, tmp_path / "resnet18.pt")
-    m, got = teval.load_params("resnet18", str(tmp_path / "resnet18.pt"))
+    m, got = teval.load_params("resnet18", str(tmp_path / "resnet18.pt"),
+                               device="cpu")
     want = jtorch_import.load_torch_checkpoint(tmp_path / "resnet18.pt")
     assert m is tres and got.keys() == tparams.keys() == want.keys()
     for name in tparams:

@@ -72,7 +72,7 @@ def _weights(rng, fmt: str, K: int, N: int):
 FORMATS = ("f32", "bf16", "int8", "int16", "packed8")
 
 
-@pytest.mark.parametrize("M,K,N", [(5, 37, 19), (70, 130, 66)])
+@pytest.mark.parametrize("M,K,N", [(5, 37, 19), (70, 130, 66), (1, 37, 34)])
 @pytest.mark.parametrize("mode,fmt,quantize_x", [
     (m, f, q) for m in ("f32", "bf16") for f in FORMATS for q in (True, False)
 ] + [("int8", "int8", True)])
@@ -106,6 +106,84 @@ def test_cpu_tensor_counts_no_launch(rng):
     assert set(tm.term_matmul.launches) == set(tm.VARIANTS)
     assert len(tm.VARIANTS) == 21
     assert not any(tm.term_matmul.launches.values())
+    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled"}
+    assert not any(tm.term_matmul.kernel_launches.values())
+
+
+def test_launch_refuses_cpu_tensors():
+    """The kernel path never falls back to the plain version."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tm.launch(torch.zeros(1, 8), torch.zeros(8, 3), 0.1, 6, 2)
+
+
+# Shapes of the plan tests: the LSTM serving shapes at M = 1, 2, 8 and 16,
+# the eval shapes (M = 128, 350), ragged ones (N = 34 = 2 mod 16, K off a
+# multiple of 8), a K past the kernel's 512-row activation chunk, K = 0.
+PLAN_SHAPES = [(1, 650, 33278), (1, 650, 2600), (2, 650, 33278),
+               (8, 650, 2600), (16, 650, 33278), (1, 19, 34), (2, 37, 34),
+               (3, 1, 5), (1, 5000, 300), (128, 784, 512), (350, 650, 2600),
+               (77, 300, 45), (4, 0, 9)]
+MODES_OF = {"f32": ("f32", "bf16"), "bf16": ("f32", "bf16"),
+            "int8": ("f32", "bf16", "int8"), "int16": ("f32", "bf16"),
+            "packed8": ("f32", "bf16")}
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
+def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
+    for mode in MODES_OF[fmt]:
+        for sms in (132, 114, 16):
+            p = tm.plan(M, N, K, fmt, mode, sms)
+            assert p.kernel == ("stream" if M <= tm.STREAM_MAX_M
+                                else "tiled")
+            ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
+                      for s in range(p.splits)]  # the kernels' K ranges
+            assert len(ranges) == p.splits >= 1
+            assert ranges[0][0] == 0 and ranges[-1][1] == K
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(e > b for b, e in ranges) or K == 0
+            if p.kernel == "stream":
+                cols = 31 * 16 // {"f32": 4, "bf16": 2, "int16": 2}.get(
+                    fmt, 1)
+                assert p.row_tile in (1, 2, 4, 8)
+                assert p.row_tile >= min(M, 8)
+                assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
+                assert p.grid == (-(-N // cols) * p.splits,
+                                  -(-M // p.row_tile), 1)
+                assert p.ws_shape is None and p.ws_dtype is None
+            else:
+                assert p.k_per_split % 16 == 0
+                assert p.grid == (-(-N // 64), -(-M // 64), p.splits)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 650, 33278), (1, 650, 2600),
+                                   (128, 784, 512), (350, 650, 2600)])
+@pytest.mark.parametrize("kernel", ["stream", "tiled"])
+def test_plan_workspace_only_for_tiled_split_k(M, K, N, kernel):
+    """The tiled kernel's split K sums partials in a (splits, M, N)
+    workspace, int32 in the int8 mode (exact); the streaming kernel sums
+    them in its cluster's shared memory and takes none."""
+    for mode in ("f32", "bf16", "int8"):
+        p = tm.plan(M, N, K, "int8", mode, 132, kernel=kernel)
+        assert p.kernel == kernel
+        if kernel == "stream" or p.splits == 1:
+            assert p.ws_shape is None and p.ws_dtype is None
+        else:
+            assert p.ws_shape == (p.splits, M, N)
+            assert p.ws_dtype == (torch.int32 if mode == "int8"
+                                  else torch.float32)
+
+
+def test_plan_fills_the_card_at_the_serving_shapes():
+    """About two blocks per SM at the decoder shape; the recurrent shape's
+    few strips take the largest cluster."""
+    for fmt in FORMATS:
+        p = tm.plan(1, 33278, 650, fmt, "f32", 132)
+        assert p.grid[0] * p.grid[1] >= 2 * 132
+    p = tm.plan(1, 2600, 650, "packed8", "f32", 132)
+    assert p.splits == 8 and p.k_per_split == 88 and p.grid == (48, 1, 1)
+    with pytest.raises(ValueError, match="kernel must be"):
+        tm.plan(1, 8, 8, "f32", "f32", 132, kernel="wide")
 
 
 def test_variant_names():

@@ -71,11 +71,13 @@ def get_model(arch: str):
 
 
 def load_params(arch: str, checkpoint: str | None, seed: int = 0,
-                device="cpu"):
+                device="cuda"):
     """(model module, parameters on ``device``): a ``.npz`` or torch
     ``.pt`` checkpoint if given, else a random init from a torch generator
-    seeded ``seed`` (not the JAX package's init values)."""
+    seeded ``seed`` (not the JAX package's init values).  Raises for
+    ``cuda`` without a CUDA device."""
     m = get_model(arch)
+    device = resolve_device(device)
     if checkpoint:
         path = Path(checkpoint)
         if path.suffix == ".npz":

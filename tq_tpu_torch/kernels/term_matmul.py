@@ -19,7 +19,8 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
 :func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
 * On a CUDA tensor :func:`term_matmul` launches ``csrc/term_matmul.cu``
-  and raises on what the kernel does not take.
+  (the weight-streaming kernel for small M, the tiled one above; see
+  :func:`plan`) and raises on what the kernels do not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 
 The packing functions are plain tensor code (no kernel) on the weights'
@@ -29,6 +30,7 @@ device-to-host copy per model (:func:`flush_pack_checks`).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,14 +40,26 @@ from tq_tpu_torch.kernels.tr_quantize import (MAX_BITS, tr_quantize_int_ref,
                                               tr_quantize_ref)
 from tq_tpu_torch.ops.term_reveal import as_scale
 
-__all__ = ["term_matmul", "term_matmul_ref", "pack_weight_int",
-           "pack_weight_u8s", "unpack_weight_u8s", "flush_pack_checks",
-           "PackedWeight8", "VARIANTS", "variant"]
+__all__ = ["term_matmul", "term_matmul_ref", "launch", "plan", "Plan",
+           "STREAM_MAX_M", "pack_weight_int", "pack_weight_u8s",
+           "unpack_weight_u8s", "flush_pack_checks", "PackedWeight8",
+           "VARIANTS", "variant"]
 
-_TILE, _K_STEP = 64, 16  # the kernel's output tile and K step (kBM/kBN, kBK)
-# The kernel's codes for the multiply-accumulate mode and weight format.
+# M up to which term_matmul takes the weight-streaming kernel: the
+# crossover with the tiled kernel measured on the card (PERF.md).
+STREAM_MAX_M = 8
+
+_TILE, _K_STEP = 64, 16  # the tiled kernel's output tile and K step
+# The streaming kernel's lanes owning columns (of 16 bytes each), K rows
+# per step, most rows of x a block and most blocks in a cluster.
+_STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
+    31, 8, 8, 8
+# The kernel's codes for the multiply-accumulate mode, weight format and
+# kernel.
 _MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
+_FORMAT_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int16": 2, "packed8": 1}
+_KERNELS = {"tiled": 0, "stream": 1}
 _DTYPE_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.int8: "int8", torch.int16: "int16"}
 
@@ -305,12 +319,27 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     ``w``: (K, N) float32 or bfloat16 weights, int8/int16 with ``w_sf``,
     or a :class:`PackedWeight8`.  ``sf`` is read from device memory by the
     kernel (no host sync) and ignored for raw input.  Returns (M, N)
-    float32.
+    float32.  On the card, M <= :data:`STREAM_MAX_M` takes the
+    weight-streaming kernel and larger M the tiled one (:func:`plan`).
     """
     del interpret, bm, bk, bn, pipeline, bsub
     if not x.is_cuda:
         return term_matmul_ref(x, w, sf, bits, num_keep_terms, bf16, int8,
                                w_sf, quantize_x)
+    return launch(x, w, sf, bits, num_keep_terms, bf16, int8, w_sf,
+                  quantize_x)
+
+
+def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
+           bf16: bool = False, int8: bool = False, w_sf=None,
+           quantize_x: bool = True, kernel: str | None = None
+           ) -> torch.Tensor:
+    """:func:`term_matmul` on CUDA tensors: check, plan, launch, count.
+
+    ``kernel`` ("stream" or "tiled") overrides the route by M, to time one
+    kernel at a shape the route gives the other; :func:`term_matmul`
+    never passes it.  Raises on what the kernels do not take.
+    """
     _check(x, w, bits, bf16, int8, w_sf, quantize_x)
     packed = isinstance(w, PackedWeight8)
     wt = w.lo if packed else w
@@ -318,6 +347,9 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     if fmt is None:
         raise TypeError(f"term_matmul kernel takes float32, bfloat16, int8, "
                         f"int16 or packed weights, got {wt.dtype}")
+    if not x.is_cuda:
+        raise ValueError(f"term_matmul kernel takes CUDA tensors, x is on "
+                         f"{x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"term_matmul kernel takes float32 x, got {x.dtype}")
     if wt.device != x.device or (packed and w.signs.device != x.device):
@@ -332,45 +364,117 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
                          f"got {bits}")
     M, K = x.shape
     N = wt.shape[1]
-    if max(M, N, K) >= 2**31 or -(-M // _TILE) > 65535:
-        raise ValueError(f"term_matmul kernel: shape {(M, K, N)} too large")
     mode = _mode(bf16, int8)
+    p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), kernel)
+    if max(M, N, K) >= 2**31 or max(p.grid[1:]) > 65535:
+        raise ValueError(f"term_matmul kernel: shape {(M, K, N)} too large")
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    if not out.numel():
+        return out
     x, wt = x.contiguous(), wt.contiguous()
     signs = w.signs.contiguous() if packed else None
-    sf_t = as_scale(sf, x.device).contiguous() if quantize_x else None
+    sf_t = as_scale(sf, x.device) if quantize_x else None
     wsf = w.w_sf if packed else w_sf
-    wsf_t = as_scale(wsf, x.device).contiguous() if wsf is not None else None
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if out.numel():
-        splits, k_per_split = _split_k(M, N, K, x.device)
-        ws = (torch.empty((splits, M, N), device=x.device,
-                          dtype=torch.int32 if mode == "int8"
-                          else torch.float32)
-              if splits > 1 else None)
+    wsf_t = as_scale(wsf, x.device) if wsf is not None else None
+    ws = (torch.empty(p.ws_shape, dtype=p.ws_dtype, device=x.device)
+          if p.ws_shape is not None else None)
 
-        def ptr(t):
-            return t.data_ptr() if t is not None else None
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
 
-        _build.check(_build.load().tq_term_matmul(
-            x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
-            out.data_ptr(), ptr(ws), M, N, K, bits,
-            min(num_keep_terms, MAX_BITS + 1), _MODES[mode], _FORMATS[fmt],
-            int(quantize_x), splits, k_per_split,
-            torch.cuda.current_stream(x.device).cuda_stream),
-            "tq_term_matmul")
-        term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
+    _build.check(_build.load().tq_term_matmul(
+        x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
+        out.data_ptr(), ptr(ws), M, N, K, bits,
+        min(num_keep_terms, MAX_BITS + 1), _MODES[mode], _FORMATS[fmt],
+        int(quantize_x), p.splits, p.k_per_split, _KERNELS[p.kernel],
+        p.row_tile, torch.cuda.current_stream(x.device).cuda_stream),
+        "tq_term_matmul")
+    term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
+    term_matmul.kernel_launches[p.kernel] += 1
     return out
 
 
-def _split_k(M: int, N: int, K: int, device) -> tuple[int, int]:
-    """(splits, k_per_split): split K so that the kernel's 64x64 output
-    tiles give about two blocks per SM; a multiple of the K step (16)."""
-    tiles = -(-M // _TILE) * -(-N // _TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class Plan(NamedTuple):
+    """How :func:`term_matmul` launches at one shape (see :func:`plan`)."""
+
+    kernel: str                  # "stream" or "tiled"
+    grid: tuple[int, int, int]   # blocks along x, y, z
+    row_tile: int                # rows of x a block takes
+    splits: int                  # K splits (cluster blocks or blockIdx.z)
+    k_per_split: int             # K rows a split takes (the last: the rest)
+    ws_shape: tuple[int, int, int] | None  # tiled split-K workspace
+    ws_dtype: torch.dtype | None
+
+
+@functools.lru_cache(maxsize=1024)  # pure: computed once per shape
+def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
+         kernel: str | None = None) -> Plan:
+    """The kernel, grid, K splits and workspace for an (M, K) x (K, N)
+    product in weight format ``fmt`` and mode ``mode`` on a card of
+    ``sms`` SMs.  ``kernel`` None routes by M alone: the weight-streaming
+    kernel for M <= STREAM_MAX_M, the tiled kernel above.
+
+    * stream: a block per strip of 31 lanes x 16 bytes of columns and per
+      row group of ``row_tile`` (1, 2, 4 or 8) rows of x; K split in
+      multiples of 8 rows over a cluster of up to 8 blocks, as evenly
+      over the SMs as one wave allows (:func:`_stream_splits`); no
+      workspace.
+    * tiled: a block per 64x64 output tile; K split in multiples of the K
+      step over ``blockIdx.z``, enough for about two blocks per SM, the
+      partials in a (splits, M, N) workspace (int32 in the int8 mode,
+      float32 otherwise) when there is more than one split.
+    """
+    kernel = kernel or ("stream" if M <= STREAM_MAX_M else "tiled")
+    if kernel == "stream":
+        cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
+        strips = -(-N // cols)
+        row_tile = min(_STREAM_MAX_ROWS, 1 << max(0, M - 1).bit_length())
+        row_groups = -(-M // row_tile)
+        groups = max(1, -(-K // _STREAM_GROUP))
+        # Blocks a SM: the kernel's launch bounds (128 threads; 4 blocks
+        # up to 2 rows of x, 2 above).
+        splits = _stream_splits(max(1, strips * row_groups), groups, sms,
+                                4 if row_tile <= 2 else 2)
+        k_per_split = -(-groups // splits) * _STREAM_GROUP
+        splits = max(1, -(-K // k_per_split))
+        return Plan("stream", (strips * splits, row_groups, 1), row_tile,
+                    splits, k_per_split, None, None)
+    if kernel != "tiled":
+        raise ValueError(f"kernel must be 'stream' or 'tiled', got {kernel!r}")
+    tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
     k_steps = -(-K // _K_STEP)
-    splits = max(1, min(k_steps, -(-2 * sms // tiles)))
+    splits = max(1, min(k_steps, -(-2 * sms // max(1, tiles_m * tiles_n))))
     k_per_split = max(1, -(-k_steps // splits)) * _K_STEP
-    return max(1, -(-K // k_per_split)), k_per_split
+    splits = max(1, -(-K // k_per_split))
+    ws = splits > 1
+    return Plan("tiled", (tiles_n, tiles_m, splits), _TILE, splits,
+                k_per_split, (splits, M, N) if ws else None,
+                (torch.int32 if mode == "int8" else torch.float32)
+                if ws else None)
+
+
+def _stream_splits(blocks: int, groups: int, sms: int, per_sm: int) -> int:
+    """K splits of the streaming kernel for ``blocks`` (strip, row group)
+    pairs: the split, up to 8 and up to ``groups`` of 8 rows, whose
+    blocks fit on the card in one wave (``per_sm`` a SM, as the launch
+    bounds allow) and spread most evenly over the SMs (blocks / (sms *
+    the most on one SM)); the larger split on a tie."""
+    best, best_share = 1, 0.0
+    for s in range(1, min(_STREAM_MAX_SPLITS, groups) + 1):
+        n = blocks * s
+        if n > sms * per_sm and s > 1:
+            break
+        share = n / (sms * -(-n // sms))
+        if share >= best_share:
+            best, best_share = s, share
+    return best
 
 
 term_matmul.launches = dict.fromkeys(VARIANTS, 0)
+# Launches per kernel, whichever variant.
+term_matmul.kernel_launches = dict.fromkeys(_KERNELS, 0)

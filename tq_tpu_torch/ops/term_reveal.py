@@ -28,7 +28,11 @@ __all__ = ["as_scale", "uniform_quantize", "term_reveal",
 
 
 def as_scale(sf, device) -> torch.Tensor:
-    """``sf`` as a float32 0-d tensor on ``device``."""
+    """``sf`` as a float32 0-d tensor on ``device``: ``sf`` itself when it
+    is one (no new tensor on a kernel's per-call path)."""
+    if (isinstance(sf, torch.Tensor) and sf.dtype == torch.float32
+            and sf.dim() == 0 and sf.device == device):
+        return sf
     return torch.as_tensor(sf, dtype=torch.float32, device=device).reshape(())
 
 
