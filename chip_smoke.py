@@ -67,8 +67,7 @@ non-zero without printing a result:
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only mlp|lstm|cnn`` runs the build
-and those groups of phases only (phases 2-5, 6-8, 9-11); ``--breakdown``
-runs the build and ``phase_stream_breakdown`` only (no result line).
+and those groups of phases only (phases 2-5, 6-8, 9-11).
 """
 
 from __future__ import annotations
@@ -918,67 +917,6 @@ def phase_term_matmul_modes(torch):
     return results
 
 
-def phase_stream_breakdown(torch):
-    """Where the weight-streaming kernel's time goes (``--breakdown``):
-    one strip (a single block) at K = 8, 32, 96 and 650 gives the block's
-    fixed chain and the cost of each further group of 8 rows a warp
-    takes; the decoder shape over K splits 4..8 (warm and cold) checks
-    the plan's choice.  Beside a trivial kernel's time per graph node."""
-    from tq_tpu_torch.kernels import term_matmul as tm
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    one = torch.zeros(1, device=dev)
-    plan = tm.plan
-
-    def with_splits(S):
-        def forced(M, N, K, fmt, mode, sms, kernel=None):
-            p = plan(M, N, K, fmt, mode, sms, kernel)
-            if p.kernel != "stream" or S is None:
-                return p
-            groups = -(-K // 8)
-            kps = -(-groups // S) * 8
-            s = -(-K // kps)
-            return p._replace(splits=s, k_per_split=kps,
-                              grid=(p.grid[0] // p.splits * s, *p.grid[1:]))
-        return forced
-
-    rows = {}
-    for variant in ("f32_raw_int8", "f32_raw_packed8"):
-        mode, fmt, quantize_x = tm.VARIANTS[variant]
-        cases = [(K, 496, [1]) for K in (8, 32, 96, 650)]
-        cases.append((650, VOCAB, [None, 4, 5, 6, 7, 8]))
-        for K, N, splits in cases:
-            w, w_sf, _ = _tm_weights(torch, fmt, K, N, gen, dev)
-            x = torch.randn(1, K, generator=gen, device=dev)
-            kw = dict(w_sf=w_sf, quantize_x=quantize_x)
-            wbytes = _weight_bytes(fmt, K, N)
-            copies = [w] + [_copy_weight(w) for _ in range(
-                min(399, max(1, int(-(-COLD_BYTES // wbytes)) - 1)))]
-            got = {}
-            for S in splits:
-                tm.plan = with_splits(S)
-                try:
-                    warm = device_ms(torch, lambda: tm.launch(x, w, 1.0,
-                                                              **kw))
-                    cold = device_ms(torch, [
-                        (lambda c: lambda: tm.launch(x, c, 1.0, **kw))(c)
-                        for c in copies])
-                finally:
-                    tm.plan = plan
-                key = "plan" if S is None else f"splits_{S}"
-                got[key] = dict(ms=warm, cold_ms=cold)
-            rows[f"{variant} 1x{K}x{N}"] = got
-            del copies
-    emit({"phase": "stream_breakdown", "ok": True,
-          "trivial_kernel_ms": device_ms(torch, lambda: one.add_(1)),
-          "plan_splits_decoder": {
-              f: tm.plan(1, VOCAB, 650, f, "f32", torch.cuda.
-                         get_device_properties(0).multi_processor_count)
-              .splits for f in ("int8", "packed8")},
-          "results": rows})
-
-
 # ---------------------------------------------------------------- phase 6
 
 
@@ -1686,9 +1624,6 @@ def main(argv=None) -> None:
                     help="run the build and these groups of phases only "
                          "(default: all; the kernels line then lists only "
                          "their rows)")
-    ap.add_argument("--breakdown", action="store_true",
-                    help="run the build and the streaming kernel's time "
-                         "breakdown only (no result line)")
     args = ap.parse_args(argv)
     groups = set(args.only)
 
@@ -1706,9 +1641,6 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     smi = phase_build(torch)
     card = torch.cuda.get_device_name(0)
-    if args.breakdown:
-        phase_stream_breakdown(torch)
-        return
     kernel_results, by_path = {}, {}
     if "mlp" in groups:
         kernel_results.update(phase_kernels(torch))

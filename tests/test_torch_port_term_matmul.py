@@ -145,8 +145,7 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
             if p.kernel == "stream":
                 cols = 31 * 16 // {"f32": 4, "bf16": 2, "int16": 2}.get(
                     fmt, 1)
-                assert p.row_tile in (1, 2, 4, 8)
-                assert p.row_tile >= min(M, 8)
+                assert p.row_tile == (1 if M <= 1 else 8)
                 assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
                 assert p.grid == (-(-N // cols) * p.splits,
                                   -(-M // p.row_tile), 1)

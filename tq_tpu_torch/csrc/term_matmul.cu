@@ -53,9 +53,9 @@
 // lane 31 only loads, so a strip is 31 lanes wide.  Bytes are widened
 // without int-to-float conversions: a byte or half word is placed under
 // the exponent of 2^23 (__byte_perm) and 2^23 subtracted; the pack's sign
-// is XOR-ed into bit 31.  The activation rows (<= 8 rows a block, larger
-// M takes several row groups) are term-revealed once per block into
-// shared memory.  Where the strips are too few to fill the card, K is
+// is XOR-ed into bit 31.  The activation rows (1 row a block for M = 1,
+// else 8, rows past M masked to zero; larger M takes several row groups)
+// are term-revealed once per block into shared memory.  Where the strips are too few to fill the card, K is
 // split over the blocks of a thread-block cluster (up to 8): each block
 // stores the partial sums of each slice of the strip into the shared
 // memory of the block that owns the slice (distributed shared memory),
@@ -415,7 +415,7 @@ __device__ __forceinline__ void load_group(const char* row, int64_t row_bytes,
 // current one; a chunk's first group is in flight while the block
 // term-reveals the chunk's activations.
 template <int MODE, int F, int MT>
-__global__ void __launch_bounds__(kSThreads, MT <= 2 ? 4 : 2)
+__global__ void __launch_bounds__(kSThreads, MT == 1 ? 4 : 2)
 term_matmul_stream_kernel(const float* __restrict__ x,
                           const char* __restrict__ w,
                           const char* __restrict__ signs,
@@ -633,8 +633,6 @@ bool launch_kernel(const Args& a, cudaStream_t stream) {
     if (a.splits < 1 || a.splits > 8 || a.k_per_split % kSGroup) return false;
     switch (a.row_tile) {
       case 1: launch_stream<MODE, F, 1>(a, stream); return true;
-      case 2: launch_stream<MODE, F, 2>(a, stream); return true;
-      case 4: launch_stream<MODE, F, 4>(a, stream); return true;
       case 8: launch_stream<MODE, F, 8>(a, stream); return true;
       default: return false;
     }
@@ -672,8 +670,8 @@ bool launch_format(int wfmt, const Args& a, cudaStream_t stream) {
 // k_per_split rows (a multiple of 16); ws: (splits, M, N) float32 (int32
 // in the int8 mode) scratch, unused (may be null) when splits == 1;
 // row_tile unused.  Streaming: K split over a cluster of `splits` <= 8
-// blocks of k_per_split rows (a multiple of 8), row_tile (1, 2, 4 or 8)
-// rows of x a block; ws unused.  Only the combinations term_matmul admits
+// blocks of k_per_split rows (a multiple of 8), row_tile (1 or 8) rows of
+// x a block; ws unused.  Only the combinations term_matmul admits
 // launch: the int8 mode takes int8 weights and quantized activations;
 // anything else returns cudaErrorInvalidValue.
 extern "C" int tq_term_matmul(const float* x, const void* w,

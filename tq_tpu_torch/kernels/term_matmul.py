@@ -420,7 +420,8 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
     kernel for M <= STREAM_MAX_M, the tiled kernel above.
 
     * stream: a block per strip of 31 lanes x 16 bytes of columns and per
-      row group of ``row_tile`` (1, 2, 4 or 8) rows of x; K split in
+      row group of ``row_tile`` rows of x (1 for M = 1, else 8 with the
+      rows past M masked: only generation's M = 1 is a workload); K split in
       multiples of 8 rows over a cluster of up to 8 blocks, as evenly
       over the SMs as one wave allows (:func:`_stream_splits`); no
       workspace.
@@ -433,13 +434,13 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
     if kernel == "stream":
         cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
         strips = -(-N // cols)
-        row_tile = min(_STREAM_MAX_ROWS, 1 << max(0, M - 1).bit_length())
+        row_tile = 1 if M <= 1 else _STREAM_MAX_ROWS
         row_groups = -(-M // row_tile)
         groups = max(1, -(-K // _STREAM_GROUP))
         # Blocks a SM: the kernel's launch bounds (128 threads; 4 blocks
-        # up to 2 rows of x, 2 above).
+        # for one row of x, 2 for 8).
         splits = _stream_splits(max(1, strips * row_groups), groups, sms,
-                                4 if row_tile <= 2 else 2)
+                                4 if row_tile == 1 else 2)
         k_per_split = -(-groups // splits) * _STREAM_GROUP
         splits = max(1, -(-K // k_per_split))
         return Plan("stream", (strips * splits, row_groups, 1), row_tile,
