@@ -10,14 +10,17 @@ non-zero without printing a result:
    and turn TF32 off;
 2. hold every kernel body against its plain PyTorch version on the card:
    ``tr_quantize`` (element-wise and grouped) bit for bit, ``term_matmul``
-   (f32) within rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another
-   order); time each (CUDA events), beside its bound and the plain
-   version's time;
+   (f32 mode on float32 weights, quantized and raw input, at M > 8: the
+   tensor-core kernel, and the tiled kernel it replaced) within
+   rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
+   each (CUDA events), beside its bound, the plain version's time and
+   ``torch.matmul``;
 3. the main path: the two README MNIST MLP sweeps (UQ ``mnist-quant`` and
    TR ``mnist-tr``) and one ``--fixed-linear`` setting through
    ``run_sweep`` on the card, on ``pretrained/mnist_mlp.npz``; accs,
-   tmacs and param_bits must equal the JAX package's (``EXPECTED_SWEEPS``)
-   and every kernel must have launched;
+   tmacs and param_bits must equal the JAX package's (``EXPECTED_SWEEPS``),
+   every kernel must have launched and the tiled ``term_matmul`` kernel
+   never;
 4. the ``--fixed-linear`` setting on the card and through the CPU plain
    path on the same 512 test samples: equal calibrated scales, equal
    quantized layer inputs (but for float32-sum-order boundary flips,
@@ -28,7 +31,8 @@ non-zero without printing a result:
    checks admit against ``term_matmul_ref`` on the card at ragged shapes,
    at the LSTM serving shapes and at small M on the weight-streaming
    kernel (M in {1, 2, STREAM_MAX_M}, N = 2 mod 16, K off a multiple of
-   8, unaligned weight data; the int8 mode bit for bit, the rest within
+   8, unaligned weight data; the f32 mode on float32 weights at M > 8 on
+   the tensor-core kernel; the int8 mode bit for bit, the rest within
    rtol=1e-5, atol=1e-4*max|ref|); the M = 1 serving rows timed warm and
    cold (weight copies past the L2) beside bound, plain version, library
    call and the tiled kernel; both kernels timed at M in CROSSOVER_M;
@@ -205,6 +209,7 @@ EXPECTED_CNN = {
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67.0e12
 BF16_FLOP_PER_S = 989e12   # dense tensor-core rate
+TF32_FLOP_PER_S = 495e12
 INT8_OP_PER_S = 1979e12
 
 KERNELS = {
@@ -222,9 +227,17 @@ KERNELS = {
     "tr_scale_copy": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:246", on_main_path=False),
-    "term_matmul_f32": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+    # term_matmul's f32 mode on float32 weights at M > STREAM_MAX_M (the
+    # MLP eval), on the tensor cores.
+    "term_matmul_kernel_mma": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
+    # Every other variant at M > STREAM_MAX_M; no path runs one.  Held in
+    # phase term_matmul_modes, timed in phase kernels beside the mma
+    # kernel on the f32 mode.
+    "term_matmul_kernel_tiled": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
     "term_matmul_raw_packed8": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:151"),
@@ -244,9 +257,9 @@ KERNELS = {
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:253"),
 }
-# Kernel row -> term_matmul's launch-counter key (its VARIANTS).
+# Kernel row -> term_matmul's launch-counter key (its VARIANTS): the
+# serving rows, on the streaming kernel at M = 1.
 TERM_MATMUL_ROWS = {
-    "term_matmul_f32": "f32",
     "term_matmul_raw_packed8": "f32_raw_packed8",
     "term_matmul_raw_int16": "f32_raw_int16",
     "term_matmul_raw_int8": "f32_raw_int8",
@@ -424,6 +437,8 @@ def phase_build(torch):
     smi = nvidia_smi_line()
     emit({"phase": "build", "ok": True, "seconds": seconds,
           "compiled": not cached, "library": _build.library_path().name,
+          # each nvcc (started together) and the link, seconds from start
+          "compile_seconds": dict(_build.compile_seconds),
           "nvidia_smi": smi,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -447,7 +462,9 @@ def _boundary_inputs(torch, bits: int, sf: float, dev):
 
 
 def phase_kernels(torch):
-    from tq_tpu_torch.kernels.term_matmul import term_matmul, term_matmul_ref
+    from tq_tpu_torch.kernels import term_matmul as tm_mod
+    from tq_tpu_torch.kernels.term_matmul import (launch, term_matmul,
+                                                  term_matmul_ref)
     from tq_tpu_torch.kernels.tr_quantize import (max_hese_terms, tr_quantize,
                                                   tr_quantize_int,
                                                   tr_quantize_int_ref,
@@ -532,34 +549,90 @@ def phase_kernels(torch):
                   lambda: tr_quantize_ref(w1, sf, 4, 16, 6, 0)),
         bound_ms=b, bound_by=by)
 
-    # term_matmul f32 at the fixed-linear eval shapes, plus a ragged one.
+    # term_matmul f32 on float32 weights at M > STREAM_MAX_M, on the mma
+    # kernel (the route), beside the tiled kernel it replaced, the raw
+    # input (f32 - f32_raw is the term-reveal's cost) and torch.matmul:
+    # the fixed-linear eval shapes at batch 128 and at the last batch of
+    # 16, a ragged one, the LSTM chunk (350 rows), and the smallest M the
+    # kernel takes with x rows of 2,600 bytes (no 16-byte copies).
     per_shape = {}
+    tiled = {}
     for M, K, N in [(128, 784, 512), (128, 512, 512), (128, 512, 10),
-                    (77, 300, 45), (350, 650, 2600)]:
+                    (77, 300, 45), (350, 650, 2600), (16, 784, 512),
+                    (16, 512, 10), (9, 650, 2600)]:
         x = randn(M, K).relu()
         w = randn(K, N, scale=0.05)
         sf = torch.tensor(0.2, device=dev)
-        out = term_matmul(x, w, sf, 4, 2)
-        ref = term_matmul_ref(x, w, sf, 4, 2)
-        torch.cuda.synchronize()
-        scale = float(ref.abs().max())
-        if not torch.allclose(out, ref, rtol=1e-5, atol=1e-4 * scale):
-            fail(f"term_matmul {(M, K, N)}: max |diff| "
-                 f"{float((out - ref).abs().max())} (max |ref| {scale})")
+        errs, refs = {}, {}
+        for qx in (True, False):
+            before = term_matmul.kernel_launches["mma"]
+            out = term_matmul(x, w, sf, 4, 2, quantize_x=qx)
+            ref = term_matmul_ref(x, w, sf, 4, 2, quantize_x=qx)
+            torch.cuda.synchronize()
+            if term_matmul.kernel_launches["mma"] != before + 1:
+                fail(f"term_matmul {(M, K, N)} did not take the mma kernel")
+            scale = float(ref.abs().max())
+            errs[qx], refs[qx] = float((out - ref).abs().max()), ref
+            if not torch.allclose(out, ref, rtol=1e-5, atol=1e-4 * scale):
+                fail(f"term_matmul mma {(M, K, N)} quantize_x={qx}: max "
+                     f"|diff| {errs[qx]} (max |ref| {scale})")
         xq = tr_quantize_ref(x, sf, 4, 1, 2)  # the library call's input
-        b, by = bound_ms(4 * (M * K + K * N + M * N), 2 * M * K * N)
+        nbytes = 4 * (M * K + K * N + M * N)
+        flops = 2 * M * K * N
+        b, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)  # 3xTF32
+        t = timings(torch, lambda: launch(x, w, sf, 4, 2),
+                    lambda: term_matmul_ref(x, w, sf, 4, 2),
+                    lambda: torch.matmul(xq, w))
+        raw_ms = device_ms(torch, lambda: launch(x, w, sf, 4, 2,
+                                                 quantize_x=False))
+        tiled_out = launch(x, w, sf, 4, 2, kernel="tiled")
+        torch.cuda.synchronize()
+        tiled_err = float((tiled_out - refs[True]).abs().max())
+        scale = float(refs[True].abs().max())
+        if not torch.allclose(tiled_out, refs[True], rtol=1e-5,
+                              atol=1e-4 * scale):
+            fail(f"term_matmul tiled {(M, K, N)}: max |diff| {tiled_err}")
+        tiled_ms = device_ms(torch, lambda: launch(x, w, sf, 4, 2,
+                                                   kernel="tiled"))
+        p = tm_mod.plan(M, N, K, "f32", "f32",
+                        tm_mod._sm_count(dev.index or 0), None,
+                        tm_mod._mma_clusters(dev.index or 0))
         per_shape[f"{M}x{K}x{N}"] = dict(
-            max_abs_err=float((out - ref).abs().max()),
-            **timings(torch, lambda: term_matmul(x, w, sf, 4, 2),
-                      lambda: term_matmul_ref(x, w, sf, 4, 2),
-                      lambda: torch.matmul(xq, w)),
-            bound_ms=b, bound_by=by)
+            splits=p.splits, k_per_split=p.k_per_split,
+            max_abs_err=errs[True], raw_max_abs_err=errs[False], **t,
+            raw_ms=raw_ms, reveal_share=(t["ms"] - raw_ms) / t["ms"],
+            tiled_ms=tiled_ms, tiled_max_abs_err=tiled_err,
+            bound_ms=b, bound_by=by,
+            bound_fp32_ms=bound_ms(nbytes, flops)[0])
+        if (M, K, N) == (128, 784, 512):
+            bt, bty = bound_ms(nbytes, flops)
+            tiled = dict(
+                shape=[M, K, N], max_abs_err=tiled_err, ms=tiled_ms,
+                eager_ms=eager_ms(torch, lambda: launch(
+                    x, w, sf, 4, 2, kernel="tiled")),
+                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                bound_ms=bt, bound_by=bty)
+    # x whose data starts one float past a 16-byte boundary: 4-byte loads.
+    x = randn(128 * 784 + 1).relu()[1:].view(128, 784)
+    w = randn(784, 512, scale=0.05)
+    sf = torch.tensor(0.2, device=dev)
+    ref = term_matmul_ref(x, w, sf, 4, 2)
+    out = term_matmul(x, w, sf, 4, 2)
+    torch.cuda.synchronize()
+    if not torch.allclose(out, ref, rtol=1e-5,
+                          atol=1e-4 * float(ref.abs().max())):
+        fail("term_matmul mma with unaligned x: max |diff| "
+             f"{float((out - ref).abs().max())}")
     head = per_shape["128x784x512"]
-    results["term_matmul_f32"] = dict(
+    results["term_matmul_kernel_mma"] = dict(
         shape=[128, 784, 512], per_shape=per_shape,
-        max_abs_err=max(v["max_abs_err"] for v in per_shape.values()),
+        clusters_at_once=list(tm_mod._mma_clusters(dev.index or 0)),
+        max_abs_err=max(max(v["max_abs_err"], v["raw_max_abs_err"])
+                        for v in per_shape.values()),
         **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
-                                "bound_ms", "bound_by")})
+                                "bound_ms", "bound_by", "bound_fp32_ms",
+                                "tiled_ms", "raw_ms", "reveal_share")})
+    results["term_matmul_kernel_tiled"] = tiled
     emit({"phase": "kernels", "ok": True, "results": results})
     return results
 
@@ -570,13 +643,8 @@ def phase_kernels(torch):
 def phase_main_path(torch):
     from tq_tpu_torch.data import load_mnist
     from tq_tpu_torch.evals.mlp import run_sweep
-    from tq_tpu_torch.kernels.term_matmul import term_matmul
-    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
 
-    for counts in (tr_quantize.launches, term_matmul.launches,
-                   term_matmul.kernel_launches):
-        for k in counts:
-            counts[k] = 0
+    _reset_counts()
     t0 = time.perf_counter()
     got, sweep_seconds = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -591,16 +659,17 @@ def phase_main_path(torch):
             torch.cuda.synchronize()
             sweep_seconds[name] = time.perf_counter() - t1
     seconds = time.perf_counter() - t0
-    launches = {"tr_quantize_elementwise": tr_quantize.launches["elementwise"],
-                "tr_quantize_grouped": tr_quantize.launches["grouped"],
-                "term_matmul_f32": term_matmul.launches["f32"]}
+    launches = _read_counts()
     for name, exp in EXPECTED_SWEEPS.items():
         for key in ("accs", "tmacs", "param_bits"):
             if got[name][key] != [float(v) for v in exp[key]]:
                 fail(f"{name} {key}: {got[name][key]} != JAX {exp[key]}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped",
+                                 "term_matmul_kernel_mma"], "main")
+    if launches["term_matmul_kernel_tiled"]:  # the f32 route at M > 8
+        fail(f"the main path launched the tiled kernel "
+             f"{launches['term_matmul_kernel_tiled']} times")
     # What each sweep spends making its synthetic test set, for scale.
     t1 = time.perf_counter()
     load_mnist()
@@ -608,9 +677,7 @@ def phase_main_path(torch):
     emit({"phase": "main_path", "ok": True, "seconds": seconds,
           "sweep_seconds": sweep_seconds, "data_seconds": data_seconds,
           "settings": sum(len(e["accs"]) for e in EXPECTED_SWEEPS.values()),
-          "launches": launches,
-          "term_matmul_launches_by_kernel": dict(term_matmul.kernel_launches),
-          "results": got})
+          "launches": launches, "results": got})
     return launches
 
 
@@ -785,7 +852,7 @@ def phase_term_matmul_modes(torch):
     weights = {}
     cases, max_err = 0, {}
     kernel_before = dict(term_matmul.kernel_launches)
-    want_stream = 0
+    want_stream = want_mma = 0
     for variant, (mode, fmt, quantize_x) in VARIANTS.items():
         bits, terms = (7, 3) if mode == "int8" else (8, 3)
         for M, K, N, offset in [(*sh, False) for sh in shapes] + [
@@ -815,11 +882,15 @@ def phase_term_matmul_modes(torch):
             max_err[variant] = max(max_err.get(variant, 0.0), err)
             cases += 1
             want_stream += M <= T
+            want_mma += M > T and (mode, fmt) == ("f32", "f32")
     by_kernel = {k: term_matmul.kernel_launches[k] - kernel_before[k]
                  for k in kernel_before}
     if by_kernel["stream"] != want_stream:
         fail(f"term_matmul: {by_kernel['stream']} launches of the "
              f"streaming kernel for {want_stream} cases with M <= {T}")
+    if by_kernel["mma"] != want_mma:
+        fail(f"term_matmul: {by_kernel['mma']} launches of the mma kernel "
+             f"for {want_mma} f32 cases on float32 weights with M > {T}")
 
     def call(w, x, sf, bits, terms, kw, kernel=None):
         return lambda: launch(x, w, sf, bits, terms, kernel=kernel, **kw)
@@ -829,8 +900,6 @@ def phase_term_matmul_modes(torch):
     # bound, the plain version, torch.matmul and the tiled kernel.
     results = {}
     for row, variant in TERM_MATMUL_ROWS.items():
-        if row == "term_matmul_f32":
-            continue
         mode, fmt, _ = VARIANTS[variant]
         row_shapes = [(1, 650, VOCAB)]
         if fmt == "packed8" and mode == "f32":
@@ -887,8 +956,6 @@ def phase_term_matmul_modes(torch):
         K = 650
         up_to = max(CROSSOVER_M)
         for row, variant in TERM_MATMUL_ROWS.items():
-            if row == "term_matmul_f32":
-                continue
             mode, fmt, quantize_x = VARIANTS[variant]
             w, w_sf, _ = weights[(fmt, K, N)]
             bits, terms = (7, 3) if mode == "int8" else (8, 3)
@@ -1681,7 +1748,10 @@ def main(argv=None) -> None:
                                            "library_ms", "eager_ms")},
                       **{k: r[k] for k in ("cold_ms", "tiled_ms",
                                            "bound_share_cold", "per_shape",
-                                           "resnet_shape") if k in r},
+                                           "resnet_shape", "bound_fp32_ms",
+                                           "raw_ms", "reveal_share",
+                                           "clusters_at_once")
+                         if k in r},
                       "match": True})
     emit({"kernels": lines, "card": smi, "groups": sorted(groups),
           "seconds": time.perf_counter() - t0})

@@ -106,7 +106,7 @@ def test_cpu_tensor_counts_no_launch(rng):
     assert set(tm.term_matmul.launches) == set(tm.VARIANTS)
     assert len(tm.VARIANTS) == 21
     assert not any(tm.term_matmul.launches.values())
-    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled"}
+    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled", "mma"}
     assert not any(tm.term_matmul.kernel_launches.values())
 
 
@@ -134,8 +134,9 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
     for mode in MODES_OF[fmt]:
         for sms in (132, 114, 16):
             p = tm.plan(M, N, K, fmt, mode, sms)
-            assert p.kernel == ("stream" if M <= tm.STREAM_MAX_M
-                                else "tiled")
+            assert p.kernel == (
+                "stream" if M <= tm.STREAM_MAX_M else
+                "mma" if (mode, fmt) == ("f32", "f32") else "tiled")
             ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
                       for s in range(p.splits)]  # the kernels' K ranges
             assert len(ranges) == p.splits >= 1
@@ -149,6 +150,11 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
                 assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
                 assert p.grid == (-(-N // cols) * p.splits,
                                   -(-M // p.row_tile), 1)
+                assert p.ws_shape is None and p.ws_dtype is None
+            elif p.kernel == "mma":
+                assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
+                assert p.row_tile == 32
+                assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
                 assert p.ws_shape is None and p.ws_dtype is None
             else:
                 assert p.k_per_split % 16 == 0
@@ -183,6 +189,107 @@ def test_plan_fills_the_card_at_the_serving_shapes():
     assert p.splits == 8 and p.k_per_split == 88 and p.grid == (48, 1, 1)
     with pytest.raises(ValueError, match="kernel must be"):
         tm.plan(1, 8, 8, "f32", "f32", 132, kernel="wide")
+
+
+@pytest.mark.parametrize("M,K,N,splits,k_per_split", [
+    (128, 784, 512, 8, 104), (128, 512, 512, 8, 64), (128, 512, 10, 8, 64),
+    (16, 784, 512, 8, 104), (16, 512, 10, 8, 64), (9, 650, 2600, 6, 112),
+    (350, 650, 2600, 1, 656)])
+def test_plan_mma_fills_one_wave(M, K, N, splits, k_per_split):
+    """The MLP's shapes take 8 K splits (16 tiles of 32 x 128 x 8 = 128
+    blocks at 128 x 784 x 512, within one of a 132-SM card's waves);
+    tiles that already fill the card take no split."""
+    p = tm.plan(M, N, K, "f32", "f32", 132)
+    assert (p.kernel, p.splits, p.k_per_split) == ("mma", splits,
+                                                   k_per_split)
+    tiles = -(-M // 32) * -(-N // 128)
+    assert tiles * p.splits <= max(132, tiles)
+    for mode, fmt in (("bf16", "f32"), ("f32", "bf16"), ("int8", "int8")):
+        with pytest.raises(ValueError, match="mma kernel takes"):
+            tm.plan(M, N, K, fmt, mode, 132, kernel="mma")
+
+
+@pytest.mark.parametrize("M,K,N,splits,k_per_split", [
+    (128, 784, 512, 6, 136), (16, 784, 512, 8, 104), (9, 650, 2600, 5, 136),
+    (350, 650, 2600, 1, 656)])
+def test_plan_mma_takes_the_largest_cluster_that_fits(M, K, N, splits,
+                                                      k_per_split):
+    """With the card's cluster occupancy (an H100 runs 15 clusters of 8
+    blocks of this kernel at once, 17 of 6, 22 of 5), the 16 tiles of
+    128 x 784 x 512 take clusters of 6, not 8 (a second wave)."""
+    h100 = (132, 66, 39, 30, 22, 17, 15, 15)
+    p = tm.plan(M, N, K, "f32", "f32", 132, clusters=h100)
+    assert (p.splits, p.k_per_split) == (splits, k_per_split)
+    assert -(-M // 32) * -(-N // 128) <= h100[p.splits - 1] or p.splits == 1
+
+
+def _tf32_rna(v: np.ndarray) -> np.ndarray:
+    """``cvt.rna.tf32.f32``: round float32 to 10 mantissa bits, ties away
+    from zero (the low 13 bits cleared)."""
+    u = v.astype(np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(v: np.ndarray):
+    hi = _tf32_rna(v)
+    return hi, _tf32_rna(v - hi)
+
+
+@pytest.mark.parametrize("quantize_x", [True, False])
+@pytest.mark.parametrize("M,K,N", [(128, 784, 512), (16, 512, 10),
+                                   (77, 300, 45)])
+def test_3xtf32_plan_within_the_f32_tolerance(rng, M, K, N, quantize_x):
+    """The tensor-core kernel's numerics, emulated: each operand split
+    into a TF32 high part and a TF32 remainder, ``lo_a @ hi_b + hi_a @ lo_b
+    + hi_a @ hi_b`` in float32.  It must stay within the tolerance that
+    chip_smoke.py holds the kernel to against the plain version (rtol
+    1e-5, atol 1e-4 * max|ref|) of the JAX package's term_matmul, where
+    one TF32 product alone does not."""
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    sf = np.float32(0.03)
+    want = np.asarray(jm.term_matmul(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.float32(sf), 8, 3, bm=64, bk=128,
+                                     bn=128, quantize_x=quantize_x))
+    xa = (tm.tr_quantize_ref(torch.from_numpy(x), torch.tensor(sf), 8, 1,
+                             3).numpy() if quantize_x else x)
+    a_hi, a_lo = _split_tf32(xa)
+    b_hi, b_lo = _split_tf32(w)
+    got = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    assert got.dtype == np.float32
+    tol = 1e-5 * np.abs(want) + 1e-4 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all()
+    assert (np.abs(a_hi @ b_hi - want) > tol).any()  # 1xTF32 misses
+
+
+def _fma32(a, b, c):
+    """float32 fma(a, b, c): the float64 product of two float32 values is
+    exact, and the residuals here are small, so one rounding to float32."""
+    return (a.astype(np.float64) * b.astype(np.float64)
+            + c.astype(np.float64)).astype(np.float32)
+
+
+@pytest.mark.parametrize("sf", [0.2, 0.03, 0.0371, 1e-3, 0.4152418375,
+                                37.5, 3e-7, 1.7e5])
+def test_quantize_division_by_reciprocal_matches_ieee(sf):
+    """The mma kernel's |x| / sf: y = |x| * rn(1/sf), then two corrections
+    y += r * (|x| - sf * y), equals the correctly rounded float32 division
+    (__fdiv_rn) on random quotients and at every rounding boundary
+    (q + 0.5) * sf and its float32 neighbours, q < 2^16."""
+    rng = np.random.default_rng(7)
+    b = np.float32(sf)
+    r = np.float32(1.0 / np.float64(b))
+    half = ((np.arange(2**16, dtype=np.float64) + 0.5) * b).astype(np.float32)
+    a = np.concatenate([
+        np.exp(rng.uniform(np.log(2.0**-40), np.log(2.0**40), 200_000)),
+        half, np.nextafter(half, np.float32(np.inf)),
+        np.nextafter(half, np.float32(0)), [0.0]]).astype(np.float32)
+    bb = np.full_like(a, b)
+    rr = np.full_like(a, r)
+    y = (a.astype(np.float64) * np.float64(r)).astype(np.float32)
+    for _ in range(2):
+        y = _fma32(rr, _fma32(-bb, y, a), y)
+    np.testing.assert_array_equal(y, a / bb)
 
 
 def test_variant_names():

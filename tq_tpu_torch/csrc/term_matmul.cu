@@ -25,11 +25,14 @@
 // weight, int8 at 1, int16 at 2, float32 at 4).  At the eval shapes
 // (M = 128..350) the f32 mode is operations bound on CUDA cores.
 //
-// Two kernels compute it; the wrapper picks one by M alone.
+// Two kernels here compute it; the wrapper picks one by M (plan() in
+// kernels/term_matmul.py).  At M > STREAM_MAX_M the f32 mode on float32
+// weights takes a third, on the tensor cores (csrc/term_matmul_mma.cu).
 //
-// The tiled kernel (M > the wrapper's STREAM_MAX_M): a plain tiled
-// shared-memory GEMM on CUDA cores, 64x64 output tiles, a K step of 16,
-// 256 threads each holding a 4x4 block of accumulators; the ragged M, N
+// The tiled kernel (every other variant at M > the wrapper's
+// STREAM_MAX_M): a plain tiled shared-memory GEMM on CUDA cores, 64x64
+// output tiles, a K step of 16, 256 threads each holding a 4x4 block of
+// accumulators; the ragged M, N
 // and K edges are masked here (packed weights have K8 >= K rows; the rows
 // past K meet no activation, as the TPU kernel's zero-padded x).  A small
 // M*N gives few output tiles, so K is split over blockIdx.z: each split
@@ -73,6 +76,7 @@
 
 #include <type_traits>
 
+#include "cluster_sum.cuh"
 #include "tr_common.cuh"
 
 namespace {
@@ -439,7 +443,7 @@ term_matmul_stream_kernel(const float* __restrict__ x,
       cooperative_groups::this_cluster();
   // Arrive now, wait before the first write to another block's shared
   // memory: every block of the cluster has started by then.
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  tq::cluster_arrive();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rank = blockIdx.x % splits, strip = blockIdx.x / splits;
   const int row0 = blockIdx.y * MT;
@@ -537,8 +541,8 @@ term_matmul_stream_kernel(const float* __restrict__ x,
   // The block's sums, warp by warp in order, one row of x at a time, each
   // sent to the block of the cluster that owns its slice of the strip
   // (rank r owns entries [r * L, (r + 1) * L) of the MT x SC partials).
-  const int L = (MT * SC + splits - 1) / splits;
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  const int L = tq::slice_len(MT * SC, splits);
+  tq::cluster_wait();
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -547,8 +551,7 @@ term_matmul_stream_kernel(const float* __restrict__ x,
     for (int col = threadIdx.x; col < SC; col += kSThreads) {
       T s = stage[col];
       for (int v = 1; v < kSWarps; ++v) s += stage[v * 32 * C + col];
-      const int e = m * SC + col, owner = e / L;
-      cluster.map_shared_rank(part, owner)[rank * L + e - owner * L] = s;
+      tq::cluster_send(cluster, part, m * SC + col, L, rank, s);
     }
     __syncthreads();
   }
@@ -561,8 +564,7 @@ term_matmul_stream_kernel(const float* __restrict__ x,
     const int gm = row0 + m;
     const int64_t gn = static_cast<int64_t>(strip) * SC + col;
     if (e >= MT * SC || gm >= M || gn >= N) continue;
-    T s = T(0);
-    for (int q = 0; q < splits; ++q) s += part[q * L + i];
+    const T s = tq::cluster_reduce(part, i, L, splits);
     out[static_cast<int64_t>(gm) * N + gn] =
         __fmul_rn(static_cast<float>(s), scale);
   }

@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 __all__ = ["load", "check", "library_path"]
@@ -49,6 +50,12 @@ SIGNATURES = {
     # quantize_x, splits, k_per_split, kernel, row_tile, stream
     "tq_term_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _P],
+    # x, w, sf, w_sf, out, M, N, K, bits, budget, quantize_x, splits,
+    # k_per_split, stream
+    "tq_term_matmul_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
+    # splits -> clusters of the mma kernel the card runs at once
+    "tq_term_matmul_mma_clusters": [_I],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -79,18 +86,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtq_kernels_{h.hexdigest()[:16]}.so"
 
 
+# Seconds each command of the last build took, by output file name.
+compile_seconds: dict[str, float] = {}
+
+
 def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands at once; raise with the output of any that fails."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    failed = []
-    for cmd, p in zip(cmds, procs):
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n(exit {p.returncode})\n{out}")
+    """Run the commands at once (each writes the file after its ``-o``);
+    note how long each took; raise with the output of any that fails."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log:
+        procs = [subprocess.Popen(c, stdout=log, stderr=subprocess.STDOUT)
+                 for c in cmds]
+        pending = dict(zip(procs, cmds))
+        while pending:
+            for p in [p for p in pending if p.poll() is not None]:
+                cmd = pending.pop(p)
+                compile_seconds[Path(cmd[cmd.index("-o") + 1]).name] = (
+                    time.perf_counter() - t0)
+            time.sleep(0.05)
+        log.seek(0)
+        out = log.read()
+    failed = [f"{' '.join(c)} (exit {p.returncode})"
+              for p, c in zip(procs, cmds) if p.returncode != 0]
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed) + "\n" + out)
 
 
 def _compile(out: Path) -> None:

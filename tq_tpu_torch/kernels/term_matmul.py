@@ -18,9 +18,12 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
 :func:`pack_weight_int`) or a :class:`PackedWeight8` (9 bits per weight,
 :func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
-* On a CUDA tensor :func:`term_matmul` launches ``csrc/term_matmul.cu``
-  (the weight-streaming kernel for small M, the tiled one above; see
-  :func:`plan`) and raises on what the kernels do not take.
+* On a CUDA tensor :func:`term_matmul` launches one of three kernels
+  (see :func:`plan`): the weight-streaming kernel of
+  ``csrc/term_matmul.cu`` for small M; above it, the f32 mode on float32
+  weights on the tensor cores (``csrc/term_matmul_mma.cu``) and every
+  other variant on the tiled kernel of ``csrc/term_matmul.cu``.  It
+  raises on what the kernels do not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 
 The packing functions are plain tensor code (no kernel) on the weights'
@@ -50,6 +53,9 @@ __all__ = ["term_matmul", "term_matmul_ref", "launch", "plan", "Plan",
 STREAM_MAX_M = 8
 
 _TILE, _K_STEP = 64, 16  # the tiled kernel's output tile and K step
+# The tensor-core kernel's output tile (rows, columns), its K splits'
+# multiple and most blocks in a cluster.
+_MMA_TILE, _MMA_K_STEP, _MMA_MAX_SPLITS = (32, 128), 8, 8
 # The streaming kernel's lanes owning columns (of 16 bytes each), K rows
 # per step, most rows of x a block and most blocks in a cluster.
 _STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
@@ -59,7 +65,8 @@ _STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
 _MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
 _FORMAT_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int16": 2, "packed8": 1}
-_KERNELS = {"tiled": 0, "stream": 1}
+# The kernel codes of tq_term_matmul; "mma" has its own entry point.
+_KERNELS = {"tiled": 0, "stream": 1, "mma": 2}
 _DTYPE_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.int8: "int8", torch.int16: "int16"}
 
@@ -320,7 +327,8 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     or a :class:`PackedWeight8`.  ``sf`` is read from device memory by the
     kernel (no host sync) and ignored for raw input.  Returns (M, N)
     float32.  On the card, M <= :data:`STREAM_MAX_M` takes the
-    weight-streaming kernel and larger M the tiled one (:func:`plan`).
+    weight-streaming kernel; larger M the tensor-core kernel in the f32
+    mode on float32 weights and the tiled one otherwise (:func:`plan`).
     """
     del interpret, bm, bk, bn, pipeline, bsub
     if not x.is_cuda:
@@ -336,8 +344,8 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
            ) -> torch.Tensor:
     """:func:`term_matmul` on CUDA tensors: check, plan, launch, count.
 
-    ``kernel`` ("stream" or "tiled") overrides the route by M, to time one
-    kernel at a shape the route gives the other; :func:`term_matmul`
+    ``kernel`` ("stream", "tiled" or "mma") overrides the route, to time
+    one kernel at a shape the route gives another; :func:`term_matmul`
     never passes it.  Raises on what the kernels do not take.
     """
     _check(x, w, bits, bf16, int8, w_sf, quantize_x)
@@ -365,7 +373,9 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     M, K = x.shape
     N = wt.shape[1]
     mode = _mode(bf16, int8)
-    p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), kernel)
+    clusters = (_mma_clusters(x.device.index)
+                if (mode, fmt) == ("f32", "f32") else None)
+    p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), kernel, clusters)
     if max(M, N, K) >= 2**31 or max(p.grid[1:]) > 65535:
         raise ValueError(f"term_matmul kernel: shape {(M, K, N)} too large")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
@@ -382,13 +392,19 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    _build.check(_build.load().tq_term_matmul(
-        x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
-        out.data_ptr(), ptr(ws), M, N, K, bits,
-        min(num_keep_terms, MAX_BITS + 1), _MODES[mode], _FORMATS[fmt],
-        int(quantize_x), p.splits, p.k_per_split, _KERNELS[p.kernel],
-        p.row_tile, torch.cuda.current_stream(x.device).cuda_stream),
-        "tq_term_matmul")
+    budget = min(num_keep_terms, MAX_BITS + 1)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if p.kernel == "mma":
+        _build.check(_build.load().tq_term_matmul_mma(
+            x.data_ptr(), wt.data_ptr(), ptr(sf_t), ptr(wsf_t),
+            out.data_ptr(), M, N, K, bits, budget, int(quantize_x),
+            p.splits, p.k_per_split, stream), "tq_term_matmul_mma")
+    else:
+        _build.check(_build.load().tq_term_matmul(
+            x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
+            out.data_ptr(), ptr(ws), M, N, K, bits, budget, _MODES[mode],
+            _FORMATS[fmt], int(quantize_x), p.splits, p.k_per_split,
+            _KERNELS[p.kernel], p.row_tile, stream), "tq_term_matmul")
     term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
     term_matmul.kernel_launches[p.kernel] += 1
     return out
@@ -399,10 +415,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _mma_clusters(index: int) -> tuple[int, ...]:
+    """How many clusters of s = 1 .. 8 blocks of the mma kernel the card
+    ``index`` runs at once (the occupancy API; ragged GPCs hold fewer
+    large clusters than the SM count suggests)."""
+    lib = _build.load()
+    with torch.cuda.device(index):
+        n = tuple(lib.tq_term_matmul_mma_clusters(s)
+                  for s in range(1, _MMA_MAX_SPLITS + 1))
+    for v in n:
+        if v < 0:
+            _build.check(-v, "tq_term_matmul_mma_clusters")
+    return n
+
+
 class Plan(NamedTuple):
     """How :func:`term_matmul` launches at one shape (see :func:`plan`)."""
 
-    kernel: str                  # "stream" or "tiled"
+    kernel: str                  # "stream", "tiled" or "mma"
     grid: tuple[int, int, int]   # blocks along x, y, z
     row_tile: int                # rows of x a block takes
     splits: int                  # K splits (cluster blocks or blockIdx.z)
@@ -413,11 +444,14 @@ class Plan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)  # pure: computed once per shape
 def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
-         kernel: str | None = None) -> Plan:
+         kernel: str | None = None,
+         clusters: tuple[int, ...] | None = None) -> Plan:
     """The kernel, grid, K splits and workspace for an (M, K) x (K, N)
     product in weight format ``fmt`` and mode ``mode`` on a card of
-    ``sms`` SMs.  ``kernel`` None routes by M alone: the weight-streaming
-    kernel for M <= STREAM_MAX_M, the tiled kernel above.
+    ``sms`` SMs.  ``kernel`` None routes by M, mode and format: the
+    weight-streaming kernel for M <= STREAM_MAX_M; above it the
+    tensor-core kernel for the f32 mode on float32 weights (quantized or
+    raw input) and the tiled kernel for every other variant.
 
     * stream: a block per strip of 31 lanes x 16 bytes of columns and per
       row group of ``row_tile`` rows of x (1 for M = 1, else 8 with the
@@ -429,8 +463,15 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
       step over ``blockIdx.z``, enough for about two blocks per SM, the
       partials in a (splits, M, N) workspace (int32 in the int8 mode,
       float32 otherwise) when there is more than one split.
+    * mma: a block per 32x128 output tile and K split in multiples of 8
+      rows over a cluster of up to 8 blocks: the largest cluster of which
+      the card runs one per tile at once (``clusters[s - 1]``: clusters of
+      s blocks it runs at once; by default ``sms // s``, one block an SM);
+      the partials meet in the cluster's shared memory, no workspace.
     """
-    kernel = kernel or ("stream" if M <= STREAM_MAX_M else "tiled")
+    if kernel is None:
+        kernel = ("stream" if M <= STREAM_MAX_M else
+                  "mma" if (mode, fmt) == ("f32", "f32") else "tiled")
     if kernel == "stream":
         cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
         strips = -(-N // cols)
@@ -445,9 +486,26 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
         splits = max(1, -(-K // k_per_split))
         return Plan("stream", (strips * splits, row_groups, 1), row_tile,
                     splits, k_per_split, None, None)
-    if kernel != "tiled":
-        raise ValueError(f"kernel must be 'stream' or 'tiled', got {kernel!r}")
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel must be 'stream', 'tiled' or 'mma', got "
+                         f"{kernel!r}")
     tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
+    if kernel == "mma":
+        if (mode, fmt) != ("f32", "f32"):
+            raise ValueError(f"the mma kernel takes the f32 mode on float32 "
+                             f"weights, got mode {mode!r}, weights {fmt!r}")
+        rows, cols = _MMA_TILE
+        tiles_n, tiles_m = -(-N // cols), -(-M // rows)
+        k_steps = -(-K // _MMA_K_STEP)
+        fits = clusters or tuple(sms // s
+                                 for s in range(1, _MMA_MAX_SPLITS + 1))
+        splits = max([1] + [s for s in range(1, min(_MMA_MAX_SPLITS,
+                                                    k_steps) + 1)
+                            if tiles_m * tiles_n <= fits[s - 1]])
+        k_per_split = max(1, -(-k_steps // splits)) * _MMA_K_STEP
+        splits = max(1, -(-K // k_per_split))
+        return Plan("mma", (tiles_n * splits, tiles_m, 1), rows, splits,
+                    k_per_split, None, None)
     k_steps = -(-K // _K_STEP)
     splits = max(1, min(k_steps, -(-2 * sms // max(1, tiles_m * tiles_n))))
     k_per_split = max(1, -(-k_steps // splits)) * _K_STEP
