@@ -9,7 +9,9 @@ non-zero without printing a result:
 1. build the CUDA kernels of ``tq_tpu_torch/csrc`` with ``nvcc`` (sm_90a)
    and turn TF32 off;
 2. hold every kernel body against its plain PyTorch version on the card:
-   ``tr_quantize`` (element-wise and grouped) bit for bit, ``term_matmul``
+   ``tr_quantize`` (element-wise and grouped) bit for bit (the element-wise
+   body also at every length 1-40 and at x 1-7 elements past a 16-byte
+   boundary, the output aligned or not), ``term_matmul``
    (f32 mode on float32 weights, quantized and raw input, at M > 8: the
    tensor-core kernel, and the tiled kernel it replaced) within
    rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
@@ -48,11 +50,12 @@ non-zero without printing a result:
    scales, equal packs, and teacher-forced log-probs over 16 sampled
    tokens, held as in phase 4; tokens/s of the sampler;
 9. ``cnn_kernels``: ``tr_quantize`` at the ResNet-18 shapes, bit for bit
-   against its plain version: the element-wise body on a (64, 56, 56, 64)
-   activation in float32 and bfloat16 (and their int32 variants; the bf16
-   body also at every q and budget for bits 1..9), the grouped body on
-   every converted conv's HWIO weight (g=8, axis 2); ``tr_scale_copy``
-   (B1's copy ceiling) equal to ``x * sf``; each timed beside its bound;
+   against its plain version: the element-wise body on the four
+   activation shapes at batch 64 (RESNET_ACTIVATIONS) in float32 and
+   bfloat16 (and their int32 variants; the bf16 body also at every q and
+   budget for bits 1..9), the grouped body on every converted conv's HWIO
+   weight (g=8, axis 2); ``tr_scale_copy`` (B1's copy ceiling) equal to
+   ``x * sf``; each timed beside its bound, B5 beside ``torch.mul``;
 10. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
     wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
     ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
@@ -211,6 +214,11 @@ FP32_FLOP_PER_S = 67.0e12
 BF16_FLOP_PER_S = 989e12   # dense tensor-core rate
 TF32_FLOP_PER_S = 495e12
 INT8_OP_PER_S = 1979e12
+
+# ResNet-18's activation shapes at batch 64 (NHWC): the inputs of layer1 to
+# layer4's convs, where the converted convs run B1.
+RESNET_ACTIVATIONS = [(64, 56, 56, 64), (64, 28, 28, 128), (64, 14, 14, 256),
+                      (64, 7, 7, 512)]
 
 KERNELS = {
     "tr_quantize_elementwise": dict(
@@ -461,6 +469,57 @@ def _boundary_inputs(torch, bits: int, sf: float, dev):
     return torch.cat([x, -x, x * 1.7 + 3 * sf])
 
 
+def _elementwise_edges(torch, exact, dev) -> dict:
+    """The element-wise grid's edges, bit for bit against the plain
+    version, for float32 and bfloat16 input, dequantized and int32 output,
+    both keep modes (bits 9, 3 terms): every length 1-40, and x starting
+    1-3 (float32) or 1-7 (bfloat16) elements past a 16-byte boundary with
+    the output aligned, as far past one (the vectors start after a head of
+    single elements), and one element further (no vectors)."""
+    from tq_tpu_torch.kernels import tr_quantize as tk
+
+    sf = torch.tensor(0.0371, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = _boundary_inputs(torch, 9, 0.0371, dev)
+    base = base[torch.randperm(base.numel(), generator=gen, device=dev)]
+    cases, routes = 0, {"vectors": 0, "head": 0, "singles": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        src = base.to(dtype)
+        per16 = 16 // src.element_size()
+        for int_out in (False, True):
+            odt = torch.int32 if int_out else dtype
+            out_per16 = 16 // (4 if int_out else src.element_size())
+            for mode in ("largest", "serial"):
+                def check(x, out, what):
+                    got = tk._launch_elementwise(x, sf, 9, 3, mode, int_out,
+                                                 out=out)
+                    p = tk._plan_for(x, got, 0, "waves")
+                    routes["singles" if p.vec == 1 else
+                           "head" if p.head else "vectors"] += 1
+                    want = (tk.tr_quantize_int_ref(x, sf, 9, 3, mode)
+                            if int_out else tk.tr_quantize_ref(
+                                x, sf, 9, 1, 3, keep_mode=mode))
+                    exact(f"elementwise {dtype} int_out={int_out} {mode} "
+                          f"{what}", got, want)
+
+                for n in range(1, 41):
+                    check(src[:n], None, f"length {n}")
+                for k in range(1, per16):
+                    for n in (40, 1029):
+                        x = src[k:k + n]
+                        check(x, None, f"x +{k}, length {n}, out aligned")
+                        for ko in (k % out_per16, k % out_per16 + 1):
+                            buf = torch.empty(n + out_per16 + 1, dtype=odt,
+                                              device=dev)
+                            check(x, buf[ko:ko + n],
+                                  f"x +{k}, length {n}, out +{ko}")
+                cases += 40 + (per16 - 1) * 2 * 3
+    for route, n in routes.items():
+        if n == 0:
+            fail(f"elementwise edges: no case took the {route} route")
+    return dict(cases=cases, routes=routes)
+
+
 def phase_kernels(torch):
     from tq_tpu_torch.kernels import term_matmul as tm_mod
     from tq_tpu_torch.kernels.term_matmul import (launch, term_matmul,
@@ -514,8 +573,10 @@ def phase_kernels(torch):
     ref = tr_quantize_ref(w1, sf, 6, 1, 6)
     n = w1.numel()
     b, by = bound_ms(8 * n, 6 * n)
+    edges = _elementwise_edges(torch, exact, dev)
     results["tr_quantize_elementwise"] = dict(
-        cases=n_cases, shape=[784, 512],
+        cases=n_cases + edges["cases"], edge_routes=edges["routes"],
+        shape=[784, 512],
         max_abs_err=float((out - ref).abs().max()),
         **timings(torch, lambda: tr_quantize(w1, sf, 6, 1, 6),
                   lambda: tr_quantize_ref(w1, sf, 6, 1, 6)),
@@ -1261,10 +1322,10 @@ def _exact(torch, name, got, want):
 
 def phase_cnn_kernels(torch):
     """The tr_quantize bodies and tr_scale_copy at the ResNet-18 shapes:
-    B1 on a layer1 activation (64, 56, 56, 64) in float32 and bfloat16
-    (and the int32 variants), B2 on every converted conv's HWIO weight
-    (g=8 along axis 2), B5 on the B1 input; bit for bit against the plain
-    versions, timed by CUDA-graph replay beside the bound."""
+    B1 on the four activation shapes in float32 and bfloat16 (and the int32
+    variants), B2 on every converted conv's HWIO weight (g=8 along axis 2),
+    B5 on the B1 input; bit for bit against the plain versions, timed by
+    CUDA-graph replay beside the bound."""
     from tq_tpu_torch.kernels.tr_quantize import (max_hese_terms, tr_quantize,
                                                   tr_quantize_int,
                                                   tr_quantize_int_ref,
@@ -1294,40 +1355,66 @@ def phase_cnn_kernels(torch):
                                            keep_mode=mode))
                 n_cases += 2
 
-    x = torch.randn(64, 56, 56, 64, generator=gen, device=dev) * 2
-    xb = x.to(torch.bfloat16)
+    # B1 (float32 and bfloat16 input, dequantized and int32 output) and B5
+    # on the four ResNet-18 activation shapes at batch 64; each bit for bit
+    # and timed beside its bound, B5 beside torch.mul.  The first shape
+    # (layer1) is the kernels line's row, with the eager, plain and library
+    # times.
     sf = torch.tensor(0.05, device=dev)
-    n = x.numel()
-    rows = {}
-
-    def row(name, kernel, plain, nbytes, library=None):
-        out, ref = kernel(), plain()
-        _exact(torch, f"{name} {list(x.shape)}", out, ref)
-        b, by = bound_ms(nbytes, 6 * n)
-        rows[name] = dict(shape=list(x.shape), bits=9, terms=3,
-                          max_abs_err=float((out.float() - ref.float())
-                                            .abs().max()),
-                          **timings(torch, kernel, plain, library),
-                          bound_ms=b, bound_by=by)
-
-    row("tr_quantize_elementwise", lambda: tr_quantize(x, sf, 9, 1, 3),
-        lambda: tr_quantize_ref(x, sf, 9, 1, 3), 8 * n)
-    row("tr_quantize_elementwise_int", lambda: tr_quantize_int(x, sf, 9, 3),
-        lambda: tr_quantize_int_ref(x, sf, 9, 3), 8 * n)
-    row("tr_quantize_elementwise_bf16", lambda: tr_quantize(xb, sf, 9, 1, 3),
-        lambda: tr_quantize_ref(xb, sf, 9, 1, 3), 4 * n)
-    row("tr_quantize_elementwise_bf16_int",
-        lambda: tr_quantize_int(xb, sf, 9, 3),
-        lambda: tr_quantize_int_ref(xb, sf, 9, 3), 6 * n)
-    row("tr_scale_copy", lambda: tr_scale_copy(x, sf),
-        lambda: tr_scale_copy_ref(x, sf), 8 * n,
-        library=lambda: torch.mul(x, sf))
+    rows, per_shape = {}, {}
+    for shape in RESNET_ACTIVATIONS:
+        x = torch.randn(*shape, generator=gen, device=dev) * 2
+        xb = x.to(torch.bfloat16)
+        n = x.numel()
+        cells = {}
+        for name, kernel, plain, nbytes in [
+                ("tr_quantize_elementwise",
+                 lambda: tr_quantize(x, sf, 9, 1, 3),
+                 lambda: tr_quantize_ref(x, sf, 9, 1, 3), 8 * n),
+                ("tr_quantize_elementwise_int",
+                 lambda: tr_quantize_int(x, sf, 9, 3),
+                 lambda: tr_quantize_int_ref(x, sf, 9, 3), 8 * n),
+                ("tr_quantize_elementwise_bf16",
+                 lambda: tr_quantize(xb, sf, 9, 1, 3),
+                 lambda: tr_quantize_ref(xb, sf, 9, 1, 3), 4 * n),
+                ("tr_quantize_elementwise_bf16_int",
+                 lambda: tr_quantize_int(xb, sf, 9, 3),
+                 lambda: tr_quantize_int_ref(xb, sf, 9, 3), 6 * n),
+                ("tr_scale_copy", lambda: tr_scale_copy(x, sf),
+                 lambda: tr_scale_copy_ref(x, sf), 8 * n)]:
+            out, ref = kernel(), plain()
+            _exact(torch, f"{name} {list(shape)}", out, ref)
+            b, by = bound_ms(nbytes, 6 * n)
+            cell = dict(shape=list(shape), bits=9, terms=3,
+                        max_abs_err=float((out.float() - ref.float())
+                                          .abs().max()),
+                        bound_ms=b, bound_by=by)
+            library = (lambda: torch.mul(x, sf)) if name == "tr_scale_copy" \
+                else None
+            if shape == RESNET_ACTIVATIONS[0]:
+                cell.update(timings(torch, kernel, plain, library))
+                rows[name] = cell
+            else:
+                cell.update(ms=device_ms(torch, kernel),
+                            library_ms=device_ms(torch, library)
+                            if library else None)
+            cells[name] = {k: cell[k] for k in ("ms", "library_ms",
+                                                "bound_ms", "bound_by",
+                                                "max_abs_err")}
+        per_shape["x".join(map(str, shape))] = cells
     for name in ("tr_quantize_elementwise", "tr_quantize_elementwise_bf16"):
         rows[name]["copy_ceiling_ms"] = rows["tr_scale_copy"]["ms"]
-    rows["tr_quantize_elementwise"]["int_out"] = rows.pop(
-        "tr_quantize_elementwise_int")
-    rows["tr_quantize_elementwise_bf16"]["int_out"] = rows.pop(
-        "tr_quantize_elementwise_bf16_int")
+        rows[name]["int_out"] = rows.pop(name + "_int")
+        rows[name]["per_shape"] = {
+            s: {"ms": c[name]["ms"], "int_out_ms": c[name + "_int"]["ms"],
+                "bound_ms": c[name]["bound_ms"],
+                "int_out_bound_ms": c[name + "_int"]["bound_ms"],
+                "copy_ceiling_ms": c["tr_scale_copy"]["ms"]}
+            for s, c in per_shape.items()}
+    rows["tr_scale_copy"]["per_shape"] = {
+        s: {k: c["tr_scale_copy"][k] for k in ("ms", "library_ms",
+                                               "bound_ms")}
+        for s, c in per_shape.items()}
 
     # B2 on every converted conv's weight shape, at the flagship's (9, 8, 12)
     # and a published-grid TR row, both keep modes.

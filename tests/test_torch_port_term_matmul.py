@@ -272,14 +272,19 @@ def _fma32(a, b, c):
 @pytest.mark.parametrize("sf", [0.2, 0.03, 0.0371, 1e-3, 0.4152418375,
                                 37.5, 3e-7, 1.7e5])
 def test_quantize_division_by_reciprocal_matches_ieee(sf):
-    """The mma kernel's |x| / sf: y = |x| * rn(1/sf), then two corrections
+    """The kernels' |x| / sf (tr_common.cuh::quantize_rcp, in the mma and
+    the element-wise kernels): y = |x| * rn(1/sf), then two corrections
     y += r * (|x| - sf * y), equals the correctly rounded float32 division
-    (__fdiv_rn) on random quotients and at every rounding boundary
-    (q + 0.5) * sf and its float32 neighbours, q < 2^16."""
+    (__fdiv_rn) on random quotients, at every rounding boundary
+    (q + 0.5) * sf and its float32 neighbours for q < 2^16, and at 200,000
+    sampled ones for q in [2^16, 2^24) (the element-wise kernel takes bits
+    up to 24)."""
     rng = np.random.default_rng(7)
     b = np.float32(sf)
     r = np.float32(1.0 / np.float64(b))
-    half = ((np.arange(2**16, dtype=np.float64) + 0.5) * b).astype(np.float32)
+    q = np.concatenate([np.arange(2**16, dtype=np.float64),
+                        rng.integers(2**16, 2**24, 200_000)])
+    half = ((q + 0.5) * b).astype(np.float32)
     a = np.concatenate([
         np.exp(rng.uniform(np.log(2.0**-40), np.log(2.0**40), 200_000)),
         half, np.nextafter(half, np.float32(np.inf)),

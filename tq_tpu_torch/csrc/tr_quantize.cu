@@ -6,95 +6,287 @@
 // ::tr_scale_copy (the element-wise kernel's grid with a body that only
 // scales: the copy ceiling of the element-wise body).
 //
-// Bound on the card: memory.  Each element is read once (4 B) and written
-// once (4 B) and costs a few dozen integer operations, far below the
-// H100's operations-per-byte balance, so the least time is bytes / HBM
-// rate.  Design: one thread per element (element-wise) or per group
-// (grouped), a grid-stride loop, no shared memory.  The grouped body keeps
-// its g <= 32 term masks in registers and walks the planes with the
-// reference kernel's greedy merge, so the TPU kernel's lower-triangular
-// matmul for the within-plane rank is not needed.  The grouped body's
-// loads are strided by g floats between neighbouring threads (uncoalesced);
-// at the weight shapes it runs on (conversion, once per tensor) that costs
-// little, and a warp-per-group layout is left to later work.
+// The element-wise body (B1) and tr_scale_copy (B5) share one grid.
+//
+// Bound on the card.  B5 and the float32 B1 move 8 bytes an element (4
+// read, 4 written; B1's int32 output the same) and are bound by HBM: B1
+// float32 runs at B5's time, its copy ceiling.  The bfloat16 B1 moves 4
+// bytes an element (6 with int32 output), and its reveal, about 45 SASS
+// instructions an element on the common path, binds it instead: at the
+// issue rate of 132 SMs x 4 warp instructions a clock that is above its
+// byte bound (PERF.md counts both, scripts/time_tr_quantize.py --sass).
+//
+// Design (kernels/tr_quantize.py::plan sizes the launch):
+// * 16-byte loads and stores.  Each thread takes kUnroll vectors of 16
+//   bytes of x a tile (4 float32 or 8 bfloat16 each), kThreads vectors
+//   apart, so that a warp's load is 512 contiguous bytes; it issues all
+//   of a tile's loads before any reveal, and the next tile's before the
+//   reveal of this one, so that loads stay in flight while it computes;
+//   it stores 16-byte vectors of the output type (float4, int4, or 8
+//   bfloat16 packed in pairs).  The vector loop indexes in 32 bits.
+// * Alignment and tails in the same launch.  The vectors start where x
+//   and out are both 16-byte aligned; the elements before (head) and the
+//   last partial vector (tail) take the same body one element at a time,
+//   on the grid's last threads.  Where no element aligns both pointers
+//   (x one float past a boundary, out on one), every element goes that
+//   way.
+// * The grid is whole waves: as many blocks as the occupancy API says the
+//   card runs at once, in a grid-stride loop over tiles.  One tile a
+//   thread ran 2% slower over a float32 forward's shapes (PERF.md).
+// * The reveal interleaved over kGroup = 8 elements (tr_common.cuh,
+//   shared with the mma kernel): the quotient |x| / sf from 1 / sf
+//   computed once a thread (quantize_rcp, equal to __fdiv_rn in its
+//   range, __fdiv_rn outside it, the range checked once for the 8), and
+//   the keep-terms loop stepping the 8 at once, so their chains overlap;
+//   a budget of at least the term count skips it.  Eight, not a whole
+//   tile: sixteen bfloat16 at once held 94 registers (two blocks an SM,
+//   against four) and ran slower in all but one timed row (PERF.md).
+//
+// The grouped body (B2) keeps its g <= 32 term masks in registers and
+// walks the planes with the reference kernel's greedy merge, so the TPU
+// kernel's lower-triangular matmul for the within-plane rank is not
+// needed: one thread a group, a grid-stride loop.  Its loads are strided
+// by g floats between neighbouring threads (uncoalesced); at the weight
+// shapes it runs on (conversion, once per tensor) that costs little.
 //
 // The element-wise body also takes bfloat16 input (the serving mode's
 // activations): the magnitude is quantized in float32 from the exact
 // widening of the input, the kept integer rounds to bfloat16 (RNE), and
 // its product with sf rounds to bfloat16 again, as the JAX package's
-// sign * acc.astype(bfloat16) * sf followed by the cast to bfloat16.  It
-// moves half the bytes of the float32 body but measures no faster on the
-// H100 (PERF.md): one element per thread on a grid-stride loop, not the
-// bytes, limits both, and a plain copy on this grid (tr_scale_copy) is
-// slower than PyTorch's own vectorized multiply.
+// sign * acc.astype(bfloat16) * sf followed by the cast to bfloat16.
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "tr_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 2;                 // 16-byte vectors a thread a tile
+constexpr int kTile = kUnroll * kThreads;  // vectors a block a tile
+// Elements a reveal takes at once: two float32 vectors, or one of eight
+// bfloat16 (sixteen at once held 94 registers, two blocks an SM).
+constexpr int kGroup = 8;
+static_assert(kUnroll * 4 % kGroup == 0, "whole float32 groups a tile");
 constexpr int kMaxGroup = 32;
+
+// One launch's elements: `head` one at a time, then n_vec 16-byte vectors
+// of x (x + head and out + head 16-byte aligned), then `tail` one at a
+// time.
+struct Span {
+  int64_t head;
+  uint32_t n_vec;
+  uint32_t tail;
+};
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// 16 bytes of x (w) into v[at ..], widened exactly to float32.
+template <int M>
+__device__ __forceinline__ void widen(const float*, uint4 w, float (&v)[M],
+                                      int at) {
+  v[at] = __uint_as_float(w.x);
+  v[at + 1] = __uint_as_float(w.y);
+  v[at + 2] = __uint_as_float(w.z);
+  v[at + 3] = __uint_as_float(w.w);
+}
+template <int M>
+__device__ __forceinline__ void widen(const __nv_bfloat16*, uint4 w,
+                                      float (&v)[M], int at) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[at + 2 * j] = __uint_as_float(u[j] << 16);
+    v[at + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store1(int32_t* p, int32_t v) { *p = v; }
+
+// V outputs o[at ..] at p (16-byte aligned), in 16-byte stores.
+template <int V, int M>
+__device__ __forceinline__ void store_vec(float* p, const float (&o)[M],
+                                          int at) {
+#pragma unroll
+  for (int j = 0; j < V; j += 4)
+    *reinterpret_cast<float4*>(p + j) =
+        make_float4(o[at + j], o[at + j + 1], o[at + j + 2], o[at + j + 3]);
+}
+template <int V, int M>
+__device__ __forceinline__ void store_vec(int32_t* p, const int32_t (&o)[M],
+                                          int at) {
+#pragma unroll
+  for (int j = 0; j < V; j += 4)
+    *reinterpret_cast<int4*>(p + j) =
+        make_int4(o[at + j], o[at + j + 1], o[at + j + 2], o[at + j + 3]);
+}
+template <int V, int M>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&o)[M], int at) {
+#pragma unroll
+  for (int j = 0; j < V; j += 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(o[at + j + 2 * k], o[at + j + 2 * k + 1]);
+      w[k] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(p + j) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The element-wise grid: body(v, o) maps M widened inputs to M results
+// (float, rounded to the output type at the store, or int32).
+template <typename In, class Body>
+__device__ __forceinline__ void elementwise(
+    const In* __restrict__ x, typename Body::Out* __restrict__ out,
+    const Span s, const Body& body) {
+  using R = typename Body::R;
+  constexpr int V = 16 / sizeof(In);
+  // One element at a time: the head, then the tail, from the grid's last
+  // thread down (the first threads take the vectors, so that a small x
+  // runs both at once).
+  const int64_t singles = s.head + s.tail;
+  const int64_t vec_end = s.head + static_cast<int64_t>(s.n_vec) * V;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = threads - 1 - (blockIdx.x * static_cast<int64_t>(kThreads)
+                                  + threadIdx.x);
+       i < singles; i += threads) {
+    const int64_t e = i < s.head ? i : vec_end + (i - s.head);
+    const float v[1] = {load1(x + e)};
+    R o[1];
+    body(v, o);
+    store1(out + e, o[0]);
+  }
+  // Vectors, kUnroll a thread a tile, kThreads apart: the tile's loads,
+  // then the next tile's (in flight during the reveal), then the reveal
+  // of kGroup elements at once, and their stores, group by group.
+  const uint4* const xv = reinterpret_cast<const uint4*>(x + s.head);
+  typename Body::Out* const ov = out + s.head;
+  const uint32_t stride = gridDim.x * kTile;
+  uint4 w[kUnroll];
+  auto load = [&](uint32_t t, uint4 (&dst)[kUnroll]) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t j = t + u * kThreads;
+      dst[u] = j < s.n_vec ? __ldg(xv + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  uint32_t t = blockIdx.x * kTile + threadIdx.x;
+  load(t, w);
+  for (; t < s.n_vec; t += stride) {
+    uint4 next[kUnroll];
+    load(t + stride, next);  // zeros past the end, no access
+#pragma unroll
+    for (int g = 0; g < kUnroll; g += kGroup / V) {
+      float v[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup / V; ++u) widen(x, w[g + u], v, u * V);
+      R o[kGroup];
+      body(v, o);
+#pragma unroll
+      for (int u = 0; u < kGroup / V; ++u) {
+        const uint32_t j = t + (g + u) * kThreads;
+        if (j < s.n_vec)
+          store_vec<V>(ov + static_cast<size_t>(j) * V, o, u * V);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) w[u] = next[u];
+  }
+}
+
+// B1's body: sign * value(kept terms of q) * sf, or the signed integer
+// value itself (INT_OUT).  For bfloat16 input the value rounds to
+// bfloat16 before the product (and the product at the store).
+template <typename In, bool INT_OUT, bool SERIAL>
+struct Reveal {
+  using Out = std::conditional_t<INT_OUT, int32_t, In>;
+  using R = std::conditional_t<INT_OUT, int32_t, float>;
+  float sf, nsf, r, maxq;
+  int budget;
+  bool sf_ok, keep_all;
+
+  // r_: the correctly rounded 1 / sf_.
+  __device__ __forceinline__ Reveal(float sf_, float r_, int bits,
+                                    int budget_)
+      : sf(sf_), nsf(-sf_), r(r_),
+        maxq(static_cast<float>((1u << bits) - 1u)), budget(budget_),
+        sf_ok(tq::rcp_scale_ok(sf_)),
+        // At least as many terms as q < 2^bits has: value == q.
+        keep_all(budget_ >= 2 * (bits + 1) / 3) {}
+
+  template <int M>
+  __device__ __forceinline__ void operator()(const float (&v)[M],
+                                             R (&o)[M]) const {
+    uint32_t q[M];
+    int32_t val[M];
+    tq::quantize_n(v, sf, r, maxq, sf_ok, q);
+    if (keep_all) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) val[i] = static_cast<int32_t>(q[i]);
+    } else {
+      tq::keep_terms_n<M, SERIAL>(q, budget, val);
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if constexpr (INT_OUT) {
+        o[i] = v[i] < 0.f ? -val[i] : val[i];
+      } else {
+        float m = static_cast<float>(val[i]);
+        if constexpr (std::is_same_v<In, __nv_bfloat16>)
+          m = __bfloat162float(__float2bfloat16_rn(m));
+        // (sign * m) * sf, as tq::dequantize: the sign on sf instead.
+        o[i] = __fmul_rn(m, v[i] < 0.f ? nsf : sf);
+      }
+    }
+  }
+};
+
+// B5's body: x * sf.
+struct Scale {
+  using Out = float;
+  using R = float;
+  float sf;
+
+  template <int M>
+  __device__ __forceinline__ void operator()(const float (&v)[M],
+                                             float (&o)[M]) const {
+#pragma unroll
+    for (int i = 0; i < M; ++i) o[i] = __fmul_rn(v[i], sf);
+  }
+};
+
+template <typename In, bool INT_OUT, bool SERIAL>
+__global__ void __launch_bounds__(kThreads)
+    tr_elementwise_kernel(const In* __restrict__ x,
+                          const float* __restrict__ sf,
+                          typename Reveal<In, INT_OUT, SERIAL>::Out* out,
+                          Span s, int bits, int budget) {
+  const float scale = *sf;
+  elementwise(x, out, s, Reveal<In, INT_OUT, SERIAL>(
+                             scale, __frcp_rn(scale), bits, budget));
+}
+
+__global__ void __launch_bounds__(kThreads)
+    tr_scale_copy_kernel(const float* __restrict__ x,
+                         const float* __restrict__ sf, float* out, Span s) {
+  elementwise(x, out, s, Scale{*sf});
+}
 
 int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   return static_cast<int>(b < (1 << 20) ? b : (1 << 20));
-}
-
-__device__ __forceinline__ float max_q(int bits) {
-  return static_cast<float>((1u << bits) - 1u);
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// sign(x) * v * sf stored as In: float32 as is; bfloat16 with v rounded to
-// bfloat16 before the product and the product rounded after it.
-__device__ __forceinline__ void store_dequantized(float* out, int64_t i,
-                                                  float x, int32_t v,
-                                                  float sf) {
-  out[i] = tq::dequantize(x, v, sf);
-}
-__device__ __forceinline__ void store_dequantized(__nv_bfloat16* out,
-                                                  int64_t i, float x,
-                                                  int32_t v, float sf) {
-  const float s = __bfloat162float(__float2bfloat16_rn(static_cast<float>(v)));
-  out[i] = __float2bfloat16_rn(__fmul_rn(x < 0.f ? -s : s, sf));
-}
-
-// group_size == 1: out[i] = sign * value(kept terms of q[i]) * sf (in the
-// input's type), or the signed integer value itself when int_out is set.
-template <typename In>
-__global__ void tr_elementwise_kernel(const In* __restrict__ x,
-                                      const float* __restrict__ sf_ptr,
-                                      void* __restrict__ out, int64_t n,
-                                      int bits, int budget, int serial,
-                                      int int_out) {
-  const float sf = *sf_ptr;
-  const float maxq = max_q(bits);
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float v = widen(x[i]);
-    const int32_t val = tq::keep_terms(tq::quantize(v, sf, maxq), budget,
-                                       serial != 0);
-    if (int_out)
-      static_cast<int32_t*>(out)[i] = v < 0.f ? -val : val;
-    else
-      store_dequantized(static_cast<In*>(out), i, v, val, sf);
-  }
-}
-
-// tr_scale_copy: out[i] = x[i] * sf, on the element-wise body's grid.
-__global__ void tr_scale_copy_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ sf_ptr,
-                                     float* __restrict__ out, int64_t n) {
-  const float sf = *sf_ptr;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
-    out[i] = __fmul_rn(x[i], sf);
 }
 
 // group_size > 1: x is (n_groups, g) contiguous (the wrapper moved the
@@ -107,7 +299,7 @@ __global__ void tr_grouped_kernel(const float* __restrict__ x,
                                   float* __restrict__ out, int64_t n_groups,
                                   int g, int bits, int budget, int serial) {
   const float sf = *sf_ptr;
-  const float maxq = max_q(bits);
+  const float maxq = static_cast<float>((1u << bits) - 1u);
   for (int64_t grp = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
        grp < n_groups; grp += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const float* xg = x + grp * g;
@@ -144,27 +336,87 @@ __global__ void tr_grouped_kernel(const float* __restrict__ x,
   }
 }
 
+// Variant bits of the element-wise kernels: 1 bfloat16 input, 2 int32
+// output, 4 'serial'; kScaleCopy is tr_scale_copy.
+constexpr int kScaleCopy = 8;
+
+template <typename In, bool INT_OUT, bool SERIAL>
+const void* reveal_kernel() {
+  return reinterpret_cast<const void*>(
+      &tr_elementwise_kernel<In, INT_OUT, SERIAL>);
+}
+
+const void* elementwise_function(int variant) {
+  using bf16 = __nv_bfloat16;
+  static const void* const fns[] = {
+      reveal_kernel<float, false, false>(), reveal_kernel<bf16, false, false>(),
+      reveal_kernel<float, true, false>(),  reveal_kernel<bf16, true, false>(),
+      reveal_kernel<float, false, true>(),  reveal_kernel<bf16, false, true>(),
+      reveal_kernel<float, true, true>(),   reveal_kernel<bf16, true, true>(),
+      reinterpret_cast<const void*>(&tr_scale_copy_kernel)};
+  return variant >= 0 && variant <= kScaleCopy ? fns[variant] : nullptr;
+}
+
+// The span of a launch, or false where the kernel cannot take it: vectors
+// past 32-bit indexing, or x + head / out + head off 16 bytes.
+bool make_span(const void* x, const void* out, int in_bytes, int out_bytes,
+               int64_t head, int64_t n_vec, int64_t tail, int blocks,
+               Span* s) {
+  if (head < 0 || n_vec < 0 || n_vec > INT32_MAX || tail < 0 ||
+      tail > INT32_MAX || blocks < 1)
+    return false;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x) + head * in_bytes;
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out) + head * out_bytes;
+  if (n_vec > 0 && (xa % 16 || oa % 16)) return false;
+  *s = Span{head, static_cast<uint32_t>(n_vec), static_cast<uint32_t>(tail)};
+  return true;
+}
+
 }  // namespace
 
+// The element-wise body: x (float32, or bfloat16 where variant & 1) into
+// out (x's type, or int32 where variant & 2; 'serial' where variant & 4)
+// over the span (head, n_vec, tail) of kernels/tr_quantize.py::plan, on
+// `blocks` blocks.  A span the kernel cannot take returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int tq_tr_quantize_elementwise(const void* x, const float* sf,
-                                          void* out, int64_t n, int bits,
-                                          int budget, int serial, int int_out,
-                                          int in_bf16, cudaStream_t stream) {
-  if (in_bf16)
-    tr_elementwise_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), sf, out, n, bits, budget,
-        serial, int_out);
-  else
-    tr_elementwise_kernel<<<blocks_for(n), kThreads, 0, stream>>>(
-        static_cast<const float*>(x), sf, out, n, bits, budget, serial,
-        int_out);
-  return static_cast<int>(cudaGetLastError());
+                                          void* out, int64_t head,
+                                          int64_t n_vec, int64_t tail,
+                                          int blocks, int bits, int budget,
+                                          int variant, cudaStream_t stream) {
+  const int in_bytes = variant & 1 ? 2 : 4;
+  const int out_bytes = variant & 2 ? 4 : in_bytes;
+  Span s;
+  if (variant < 0 || variant >= kScaleCopy ||
+      !make_span(x, out, in_bytes, out_bytes, head, n_vec, tail, blocks, &s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &sf, &out, &s, &bits, &budget};
+  return static_cast<int>(cudaLaunchKernel(elementwise_function(variant),
+                                           dim3(blocks), dim3(kThreads), args,
+                                           0, stream));
 }
 
 extern "C" int tq_tr_scale_copy(const float* x, const float* sf, float* out,
-                                int64_t n, cudaStream_t stream) {
-  tr_scale_copy_kernel<<<blocks_for(n), kThreads, 0, stream>>>(x, sf, out, n);
-  return static_cast<int>(cudaGetLastError());
+                                int64_t head, int64_t n_vec, int64_t tail,
+                                int blocks, cudaStream_t stream) {
+  Span s;
+  if (!make_span(x, out, 4, 4, head, n_vec, tail, blocks, &s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &sf, &out, &s};
+  return static_cast<int>(cudaLaunchKernel(elementwise_function(kScaleCopy),
+                                           dim3(blocks), dim3(kThreads), args,
+                                           0, stream));
+}
+
+// Blocks of the element-wise kernel `variant` (kScaleCopy: tr_scale_copy)
+// an SM runs at once (the occupancy API), or a negative CUDA error.
+extern "C" int tq_tr_elementwise_blocks_per_sm(int variant) {
+  const void* fn = elementwise_function(variant);
+  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, 0);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 extern "C" int tq_tr_quantize_grouped(const float* x, const float* sf,

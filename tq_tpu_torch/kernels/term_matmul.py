@@ -39,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from tq_tpu_torch.kernels import _build
-from tq_tpu_torch.kernels.tr_quantize import (MAX_BITS, tr_quantize_int_ref,
+from tq_tpu_torch.kernels.tr_quantize import (MAX_BITS, _sm_count,
+                                              tr_quantize_int_ref,
                                               tr_quantize_ref)
 from tq_tpu_torch.ops.term_reveal import as_scale
 
@@ -408,11 +409,6 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
     term_matmul.kernel_launches[p.kernel] += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

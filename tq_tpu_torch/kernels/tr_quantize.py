@@ -14,6 +14,9 @@ integer and its product with ``sf`` each rounded to bfloat16, as the JAX
 package's element-wise term reveal of a bfloat16 tensor followed by the
 cast to bfloat16.  :func:`tr_scale_copy` is the element-wise body's grid
 with a body that only scales: the copy ceiling it is timed against.
+:func:`plan` sizes both launches: 16-byte vectors where ``x`` and the
+output can be aligned together, the rest one element at a time, on whole
+waves of blocks.
 
 The helpers below are the loop-free int32 bit-mask math of the TPU
 kernel's element-wise body, as tensor ops; the plain version uses them and
@@ -22,6 +25,9 @@ the CUDA kernels repeat them per thread (``csrc/tr_common.cuh``).
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from tq_tpu_torch.kernels import _build
@@ -29,13 +35,23 @@ from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
 
 __all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
            "tr_quantize_int_ref", "tr_scale_copy", "tr_scale_copy_ref",
-           "max_hese_terms", "MAX_BITS"]
+           "max_hese_terms", "MAX_BITS", "plan", "ElementwisePlan", "GRIDS"]
 
 _KEEP_MODES = ("largest", "serial")
 MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
 _MAX_GROUP = 32  # the grouped kernel keeps a group's masks in registers
 # More terms than any group holds: a budget past it keeps everything.
 _BUDGET_CAP = _MAX_GROUP * (MAX_BITS + 1)
+# The element-wise kernels' blocks, and the 16-byte vectors of x a thread
+# takes a tile (csrc/tr_quantize.cu: kThreads, kUnroll).
+_THREADS, _UNROLL = 256, 2
+_VECTOR_BYTES = 16
+# Variant bits of the element-wise kernels (csrc/tr_quantize.cu): bfloat16
+# input, int32 output, 'serial'; and tr_scale_copy.
+_BF16_IN, _INT_OUT, _SERIAL, _SCALE_COPY = 1, 2, 4, 8
+# Grids plan() can size: whole waves of blocks in a grid-stride loop, or
+# one tile a thread (as many blocks as tiles).
+GRIDS = ("waves", "tiles")
 
 
 def max_hese_terms(bits: int) -> int:
@@ -155,19 +171,102 @@ def _kernel_scale(x: torch.Tensor, sf, bits: int, keep_mode: str,
     return as_scale(sf, x.device).contiguous()
 
 
-def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool):
+class ElementwisePlan(NamedTuple):
+    """How the element-wise kernels launch on ``n`` elements (:func:`plan`)."""
+
+    vec: int         # elements in a 16-byte vector of x; 1: no vector path
+    per_thread: int  # elements a thread takes a tile
+    head: int        # elements before the first vector, one at a time
+    n_vec: int       # vectors
+    tail: int        # elements after the last vector, one at a time
+    blocks: int      # blocks of _THREADS threads
+
+
+@functools.lru_cache(maxsize=1024)  # pure: computed once per shape
+def plan(n: int, x_addr: int, out_addr: int, in_size: int, out_size: int,
+         sms: int, per_sm: int, grid: str = "waves") -> ElementwisePlan:
+    """The span and grid of an element-wise launch on ``n`` elements of
+    ``in_size`` bytes into ``out_size``-byte outputs, ``x`` and the output
+    at byte addresses ``x_addr`` and ``out_addr`` (modulo 16), on a card
+    of ``sms`` SMs that runs ``per_sm`` blocks of the kernel an SM.
+
+    The vectors start at the first element at which both pointers are
+    16-byte aligned (``head`` elements in); where there is none, every
+    element goes one at a time (``vec`` 1).  ``grid`` "waves": at most as
+    many blocks as the card runs at once, in a grid-stride loop; "tiles":
+    a block per tile of ``_UNROLL * _THREADS`` vectors.
+    """
+    if grid not in GRIDS:
+        raise ValueError(f"grid must be one of {GRIDS}, got {grid!r}")
+    vec = _VECTOR_BYTES // in_size
+    head = next((h for h in range(vec)
+                 if (x_addr + h * in_size) % _VECTOR_BYTES == 0
+                 and (out_addr + h * out_size) % _VECTOR_BYTES == 0), None)
+    if head is None:
+        vec, head = 1, n
+    head = min(head, n)
+    n_vec = (n - head) // vec if vec > 1 else 0
+    if n_vec >= 2**31:
+        raise ValueError(f"the element-wise kernels index vectors in 32 "
+                         f"bits: {n} elements is too many")
+    tail = n - head - n_vec * vec
+    tiles = -(-n_vec // (_UNROLL * _THREADS))
+    blocks = max(1, tiles, -(-(head + tail) // _THREADS))
+    if grid == "waves":
+        blocks = min(blocks, max(1, sms * per_sm))
+    return ElementwisePlan(vec, vec * _UNROLL if vec > 1 else 1, head,
+                           n_vec, tail, min(blocks, 2**31 - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, variant: int) -> int:
+    """Blocks of the element-wise kernel ``variant`` an SM of the card
+    ``index`` runs at once (the occupancy API)."""
+    with torch.cuda.device(index):
+        n = _build.load().tq_tr_elementwise_blocks_per_sm(variant)
+    if n < 0:
+        _build.check(-n, "tq_tr_elementwise_blocks_per_sm")
+    return n
+
+
+def _plan_for(x: torch.Tensor, out: torch.Tensor, variant: int,
+              grid: str) -> ElementwisePlan:
+    index = x.device.index
+    return plan(x.numel(), x.data_ptr() % _VECTOR_BYTES,
+                out.data_ptr() % _VECTOR_BYTES, x.element_size(),
+                out.element_size(), _sm_count(index),
+                _blocks_per_sm(index, variant), grid)
+
+
+def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool,
+                        out=None, grid: str = "waves"):
+    """The element-wise kernel on CUDA ``x``; ``out`` (a contiguous tensor
+    of x's shape and the output type, any alignment) and ``grid`` (see
+    :func:`plan`) are for the card's checks and timings."""
     sf = _kernel_scale(x, sf, bits, keep_mode,
                        (torch.float32, torch.bfloat16))
     in_bf16 = x.dtype == torch.bfloat16
     xc = x.contiguous()
-    out = torch.empty(x.shape, dtype=torch.int32 if int_out else x.dtype,
-                      device=x.device)
+    dtype = torch.int32 if int_out else x.dtype
+    if out is None:
+        out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    elif (out.shape != x.shape or out.dtype != dtype
+          or not out.is_contiguous() or out.device != x.device):
+        raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
+                         f"{tuple(x.shape)} on {x.device}")
     if xc.numel():
+        variant = ((_BF16_IN if in_bf16 else 0) | (_INT_OUT if int_out else 0)
+                   | (_SERIAL if keep_mode == "serial" else 0))
+        p = _plan_for(xc, out, variant, grid)
         _build.check(_build.load().tq_tr_quantize_elementwise(
-            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), xc.numel(), bits,
-            min(budget, _BUDGET_CAP), int(keep_mode == "serial"),
-            int(int_out), int(in_bf16),
-            torch.cuda.current_stream(x.device).cuda_stream),
+            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), p.head, p.n_vec,
+            p.tail, p.blocks, bits, min(budget, _BUDGET_CAP), variant,
+            torch._C._cuda_getCurrentRawStream(x.device.index)),
             "tq_tr_quantize_elementwise")
         tr_quantize.launches["elementwise_bf16" if in_bf16
                              else "elementwise"] += 1
@@ -259,15 +358,22 @@ def tr_scale_copy(x: torch.Tensor, sf) -> torch.Tensor:
     (float32 only)."""
     if not x.is_cuda:
         return tr_scale_copy_ref(x, sf)
+    return _launch_scale_copy(x, sf)
+
+
+def _launch_scale_copy(x: torch.Tensor, sf, grid: str = "waves"):
+    """The scale-copy kernel on CUDA ``x``; ``grid``: see :func:`plan`."""
     if x.dtype != torch.float32:
         raise TypeError(f"tr_scale_copy kernel takes float32, got {x.dtype}")
     sf = as_scale(sf, x.device).contiguous()
     xc = x.contiguous()
     out = torch.empty_like(xc)
     if xc.numel():
+        p = _plan_for(xc, out, _SCALE_COPY, grid)
         _build.check(_build.load().tq_tr_scale_copy(
-            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), xc.numel(),
-            torch.cuda.current_stream(x.device).cuda_stream),
+            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), p.head, p.n_vec,
+            p.tail, p.blocks,
+            torch._C._cuda_getCurrentRawStream(x.device.index)),
             "tq_tr_scale_copy")
         tr_scale_copy.launches["scale_copy"] += 1
     return out
