@@ -10,8 +10,9 @@ non-zero without printing a result:
    and turn TF32 off;
 2. hold every kernel body against its plain PyTorch version on the card:
    ``tr_quantize`` (element-wise and grouped) bit for bit (the element-wise
-   body also at every length 1-40 and at x 1-7 elements past a 16-byte
-   boundary, the output aligned or not), ``term_matmul``
+   body also at every length 1-40, at x 1-7 elements past a 16-byte
+   boundary, the output aligned or not, and split into chunks; the
+   launchers' stream handle is the current stream's), ``term_matmul``
    (f32 mode on float32 weights, quantized and raw input, at M > 8: the
    tensor-core kernel, and the tiled kernel it replaced) within
    rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
@@ -472,16 +473,20 @@ def _boundary_inputs(torch, bits: int, sf: float, dev):
 def _elementwise_edges(torch, exact, dev) -> dict:
     """The element-wise grid's edges, bit for bit against the plain
     version, for float32 and bfloat16 input, dequantized and int32 output,
-    both keep modes (bits 9, 3 terms): every length 1-40, and x starting
-    1-3 (float32) or 1-7 (bfloat16) elements past a 16-byte boundary with
-    the output aligned, as far past one (the vectors start after a head of
-    single elements), and one element further (no vectors)."""
+    both keep modes (bits 9, 3 terms): every length 1-40 and 2^20 + 29,
+    and x starting 1-3 (float32) or 1-7 (bfloat16) elements past a
+    16-byte boundary with the output aligned, as far past one (the
+    vectors start after a head of single elements), and one element
+    further (no vectors), at lengths that go one element a thread (40,
+    1,029) and one that takes vectors (2^20 + 29)."""
     from tq_tpu_torch.kernels import tr_quantize as tk
 
     sf = torch.tensor(0.0371, device=dev)
     gen = torch.Generator(device=dev).manual_seed(5)
     base = _boundary_inputs(torch, 9, 0.0371, dev)
     base = base[torch.randperm(base.numel(), generator=gen, device=dev)]
+    long = 2**20 + 29
+    base = base.repeat(-(-(long + 8) // base.numel()))
     cases, routes = 0, {"vectors": 0, "head": 0, "singles": 0}
     for dtype in (torch.float32, torch.bfloat16):
         src = base.to(dtype)
@@ -493,7 +498,7 @@ def _elementwise_edges(torch, exact, dev) -> dict:
                 def check(x, out, what):
                     got = tk._launch_elementwise(x, sf, 9, 3, mode, int_out,
                                                  out=out)
-                    p = tk._plan_for(x, got, 0, "waves")
+                    p = tk._plan_for(x, got, 0)
                     routes["singles" if p.vec == 1 else
                            "head" if p.head else "vectors"] += 1
                     want = (tk.tr_quantize_int_ref(x, sf, 9, 3, mode)
@@ -502,10 +507,10 @@ def _elementwise_edges(torch, exact, dev) -> dict:
                     exact(f"elementwise {dtype} int_out={int_out} {mode} "
                           f"{what}", got, want)
 
-                for n in range(1, 41):
+                for n in (*range(1, 41), long):
                     check(src[:n], None, f"length {n}")
                 for k in range(1, per16):
-                    for n in (40, 1029):
+                    for n in (40, 1029, long):
                         x = src[k:k + n]
                         check(x, None, f"x +{k}, length {n}, out aligned")
                         for ko in (k % out_per16, k % out_per16 + 1):
@@ -513,10 +518,33 @@ def _elementwise_edges(torch, exact, dev) -> dict:
                                               device=dev)
                             check(x, buf[ko:ko + n],
                                   f"x +{k}, length {n}, out +{ko}")
-                cases += 40 + (per16 - 1) * 2 * 3
+                cases += 41 + (per16 - 1) * 3 * 3
     for route, n in routes.items():
         if n == 0:
             fail(f"elementwise edges: no case took the {route} route")
+    # A launch past tk._CHUNK elements is split (its vectors index in 32
+    # bits): the split, at a chunk of 2^19, on x 0-3 floats off 16 bytes:
+    # two chunks of vectors and one of 5 single elements.
+    chunk, tk._CHUNK = tk._CHUNK, 2**19
+    try:
+        for k in range(4):
+            x = base[k:k + 2**20 + 5]
+            before = tk.tr_quantize.launches["elementwise"]
+            exact(f"elementwise x +{k}, in chunks of 2^19",
+                  tk.tr_quantize(x, sf, 9, 1, 3), tk.tr_quantize_ref(
+                      x, sf, 9, 1, 3))
+            if tk.tr_quantize.launches["elementwise"] != before + 3:
+                fail("elementwise: 2^20 + 5 elements in chunks of 2^19 did "
+                     "not take 3 launches")
+            cases += 1
+    finally:
+        tk._CHUNK = chunk
+    # The launchers' stream handle is the current stream's.
+    from tq_tpu_torch.kernels import _build
+    for s in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(s):
+            if _build.stream(base.device) != s.cuda_stream:
+                fail("kernels._build.stream is not the current stream")
     return dict(cases=cases, routes=routes)
 
 

@@ -12,11 +12,15 @@ sf 0.05):
 * times by CUDA-graph replay (``chip_smoke.device_ms``) B1 on float32
   and bfloat16 input, each with its int32-output variant, B5 and
   ``torch.mul(x, sf)`` at the four ResNet-18 activation shapes at batch 64
-  (``chip_smoke.RESNET_ACTIVATIONS``) and at (1, 650), the LSTM serving
-  generator's activation; where the checkout's wrapper sizes its grid with
-  ``plan()``, each kernel also on the other grid it offers;
-* times B1's eager call at (1, 650) (``chip_smoke.eager_ms``: the host's
-  launch path, which bounds generation);
+  (``chip_smoke.RESNET_ACTIVATIONS``) and at the LSTM's activations
+  (``LSTM``): (1, 650) in the serving generator; in the sweep at batch
+  10, (10, 650) one layer's h or c and (350, 650) a 35-step chunk's
+  embeddings;
+* where the checkout's wrapper splits launches (``_chunks``), times B1
+  and B5 at ``SPAN_N`` elements on both spans ``plan()`` chooses between,
+  16-byte vectors and one element a thread (``spans``);
+* times B1's eager call at (1, 650) (``chip_smoke.eager_ms``, the least
+  of 5 readings: the host's launch path, which bounds generation);
 * times ``term_matmul``'s f32 mode at (128, 784, 512) (the ``mma``
   kernel, which shares B1's reveal helpers);
 * measures TR ResNet-18 images/s at batch 64 in float32 and bfloat16
@@ -47,6 +51,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 SERVING = (1, 650)
+# The LSTM LM's activations at width 650: the serving generator's; at the
+# sweep's batch 10, one layer's h or c and a 35-step chunk's embeddings.
+LSTM = [SERVING, (10, 650), (350, 650)]
+# Element counts at which both spans plan() chooses between are timed.
+SPAN_N = [650, 6_500, 65_000, 227_500, 455_000, 910_000, 1_605_632]
 
 
 def sass_counts(library: Path, out: Path, budget: int = 3) -> dict:
@@ -117,6 +126,56 @@ def sass_counts(library: Path, out: Path, budget: int = 3) -> dict:
     return counts
 
 
+def spans(torch, tk, _build, device_ms, sf, gen) -> dict:
+    """B1 (float32 and bfloat16 in) and B5 at each of ``SPAN_N`` elements
+    on both spans ``tk.plan`` chooses between, whichever it would choose:
+    16-byte vectors on whole waves, and one element a thread (each held
+    equal to the plain version first)."""
+    lib, dev = _build.load(), torch.device("cuda")
+    sms = tk._sm_count(dev.index or 0)
+    out = {}
+    for n in SPAN_N:
+        x = torch.randn(n, generator=gen, device=dev) * 2
+        row = {}
+        for name, xs, variant in (("b1_f32", x, 0),
+                                  ("b1_bf16", x.to(torch.bfloat16), 1),
+                                  ("b5", x, tk._SCALE_COPY)):
+            res = torch.empty_like(xs)
+            size = xs.element_size()
+            per_sm = tk._blocks_per_sm(dev.index or 0, variant)
+            # plan() on a card of one SM that runs every block takes the
+            # vectors wherever x has any; on one of 2^31 SMs, never.
+            for span, p in (("vectors", tk.plan(n, 0, 0, size, size, 1,
+                                                sms * per_sm)),
+                            ("singles", tk.plan(n, 0, 0, size, size, 2**31,
+                                                per_sm))):
+                if variant == tk._SCALE_COPY:
+                    def call(p=p):
+                        _build.check(lib.tq_tr_scale_copy(
+                            x.data_ptr(), sf.data_ptr(), res.data_ptr(),
+                            p.head, p.n_vec, p.tail, p.blocks,
+                            _build.stream(x.device)), "tq_tr_scale_copy")
+                    want = tk.tr_scale_copy_ref(x, sf)
+                else:
+                    def call(p=p, xs=xs, variant=variant):
+                        _build.check(lib.tq_tr_quantize_elementwise(
+                            xs.data_ptr(), sf.data_ptr(), res.data_ptr(),
+                            p.head, p.n_vec, p.tail, p.blocks, 9, 3,
+                            variant, _build.stream(xs.device)),
+                            "tq_tr_quantize_elementwise")
+                    want = tk.tr_quantize_ref(xs, sf, 9, 1, 3)
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(res, want):
+                    sys.exit(f"{name} at {n} on the {span} span differs "
+                             "from the plain version")
+                row[f"{name}_{span}"] = device_ms(torch, call)
+            row[f"{name}_plan"] = "vectors" if tk._plan_for(
+                xs, res, variant).vec > 1 else "singles"
+        out[str(n)] = row
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True,
@@ -150,34 +209,27 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     sf = torch.tensor(0.05, device=dev)
-    grids = getattr(tk, "GRIDS", ())
 
     def kernels(x, xb):
-        fns = {
+        return {
             "b1_f32": lambda: tk.tr_quantize(x, sf, 9, 1, 3),
             "b1_f32_int": lambda: tk.tr_quantize_int(x, sf, 9, 3),
             "b1_bf16": lambda: tk.tr_quantize(xb, sf, 9, 1, 3),
             "b1_bf16_int": lambda: tk.tr_quantize_int(xb, sf, 9, 3),
             "b5": lambda: tk.tr_scale_copy(x, sf),
             "torch_mul": lambda: torch.mul(x, sf)}
-        for g in grids:  # each grid plan() offers, named
-            fns.update({
-                f"b1_f32@{g}": lambda g=g: tk._launch_elementwise(
-                    x, sf, 9, 3, "largest", False, grid=g),
-                f"b1_bf16@{g}": lambda g=g: tk._launch_elementwise(
-                    xb, sf, 9, 3, "largest", False, grid=g),
-                f"b5@{g}": lambda g=g: tk._launch_scale_copy(x, sf, grid=g)})
-        return fns
 
     ms = {}
-    for shape in [*RESNET_ACTIVATIONS, SERVING]:
+    for shape in [*RESNET_ACTIVATIONS, *LSTM]:
         x = torch.randn(*shape, generator=gen, device=dev) * 2
         xb = x.to(torch.bfloat16)
         ms["x".join(map(str, shape))] = {
             name: device_ms(torch, fn) for name, fn in kernels(x, xb).items()}
+    if hasattr(tk, "_chunks"):
+        ms["spans"] = spans(torch, tk, _build, device_ms, sf, gen)
     x = torch.randn(*SERVING, generator=gen, device=dev)
-    eager = {"b1_f32_1x650": eager_ms(
-        torch, lambda: tk.tr_quantize(x, sf, 8, 1, 3))}
+    eager = {"b1_f32_1x650": min(eager_ms(  # the least of 5: host noise
+        torch, lambda: tk.tr_quantize(x, sf, 8, 1, 3)) for _ in range(5))}
 
     xm = torch.randn(128, 784, generator=gen, device=dev).relu()
     wm = torch.randn(784, 512, generator=gen, device=dev) * 0.05

@@ -41,15 +41,18 @@ def _simulate(p, n: int) -> np.ndarray:
     plan ``p`` (csrc/tr_quantize.cu::elementwise)."""
     cover = np.zeros(n, np.uint8)
     threads, tile = tk._THREADS, tk._UNROLL * tk._THREADS
-    # One element at a time: thread g takes i = stride - 1 - g, grid-stride.
+    # One element at a time, grid-stride: thread g takes i = g where there
+    # are no vectors, else i = stride - 1 - g (the threads a million at a
+    # time).
     stride = p.blocks * threads
     singles = p.head + p.tail
     vec_end = p.head + p.n_vec * p.vec
-    g = np.arange(stride, dtype=np.int64)
     for start in range(0, singles, stride):
-        i = start + stride - 1 - g
-        i = i[i < singles]
-        cover[np.where(i < p.head, i, vec_end + (i - p.head))] += 1
+        for g0 in range(0, stride, 1 << 20):
+            g = np.arange(g0, min(stride, g0 + (1 << 20)), dtype=np.int64)
+            i = start + (stride - 1 - g if p.n_vec else g)
+            i = i[i < singles]
+            cover[np.where(i < p.head, i, vec_end + (i - p.head))] += 1
     # Vectors: thread (b, t) from b * tile + t, grid-stride by blocks *
     # tile, taking t + u * threads for u < _UNROLL.
     first = (np.arange(p.blocks, dtype=np.int64)[:, None] * tile
@@ -74,26 +77,21 @@ def test_plan_covers_every_element_once(n, in_size, out_size, offset):
     both."""
     x_addr = offset * in_size
     for out_addr in {0, (offset * out_size) % 16}:
-        for grid in tk.GRIDS:
-            p = tk.plan(n, x_addr, out_addr, in_size, out_size, SMS, PER_SM,
-                        grid)
-            assert p.head + p.n_vec * p.vec + p.tail == n
-            assert (_simulate(p, n) == 1).all()
-            if p.n_vec:
-                assert (x_addr + p.head * in_size) % 16 == 0
-                assert (out_addr + p.head * out_size) % 16 == 0
-                assert p.head < p.vec and p.tail < p.vec
-            if grid == "waves":
-                assert p.blocks <= SMS * PER_SM
-            else:
-                assert p.blocks == max(
-                    1, -(-p.n_vec // (tk._UNROLL * tk._THREADS)),
-                    -(-(p.head + p.tail) // tk._THREADS))
+        p = tk.plan(n, x_addr, out_addr, in_size, out_size, SMS, PER_SM)
+        assert p.head + p.n_vec * p.vec + p.tail == n
+        assert (_simulate(p, n) == 1).all()
+        if p.n_vec:
+            assert (x_addr + p.head * in_size) % 16 == 0
+            assert (out_addr + p.head * out_size) % 16 == 0
+            assert p.head < p.vec and p.tail < p.vec
+            assert 1 <= p.blocks <= SMS * PER_SM
+        else:  # a block per _THREADS elements
+            assert p.blocks == -(-n // tk._THREADS)
 
 
 @pytest.mark.parametrize("in_size,out_size", PAIRS)
 def test_plan_vector_width_falls_to_one_where_misaligned(in_size, out_size):
-    n = 1 << 16
+    n = 1 << 20
     vec = 16 // in_size
     aligned = tk.plan(n, 0, 0, in_size, out_size, SMS, PER_SM)
     assert (aligned.vec, aligned.head, aligned.per_thread) == (
@@ -112,17 +110,49 @@ def test_plan_vector_width_falls_to_one_where_misaligned(in_size, out_size):
 
 
 def test_plan_sizes_the_grid():
-    p = tk.plan(RESNET_N, 0, 0, 4, 4, SMS, PER_SM, "waves")
+    p = tk.plan(RESNET_N, 0, 0, 4, 4, SMS, PER_SM)
     assert p.blocks == SMS * PER_SM
-    p = tk.plan(RESNET_N, 0, 0, 4, 4, SMS, PER_SM, "tiles")
-    assert p.blocks == RESNET_N // 4 // (tk._UNROLL * tk._THREADS)
-    # The serving generator's (1, 650): one block.
+    # The serving generator's (1, 650): one element a thread, 3 blocks.
     assert tk.plan(650, 0, 0, 4, 4, SMS, PER_SM) == tk.ElementwisePlan(
-        vec=4, per_thread=8, head=0, n_vec=162, tail=2, blocks=1)
-    with pytest.raises(ValueError, match="grid"):
-        tk.plan(8, 0, 0, 4, 4, SMS, PER_SM, "rows")
+        vec=1, per_thread=1, head=650, n_vec=0, tail=0, blocks=3)
     with pytest.raises(ValueError, match="32"):
         tk.plan(2**33 + 8, 0, 0, 4, 4, SMS, PER_SM)
+
+
+@pytest.mark.parametrize("in_size,out_size", PAIRS)
+def test_plan_takes_small_n_one_element_a_thread(in_size, out_size):
+    """Vectors only where one wave of threads of one element each does not
+    cover x; below, one element a thread, a block per _THREADS: the LSTM's
+    (10, 650) and (350, 650) activations go that way, a ResNet-18 layer4
+    activation does not."""
+    vec = 16 // in_size
+    wave = SMS * tk._SM_THREADS
+    for n in (1, 650, 6500, 227_500, wave):
+        assert tk.plan(n, 0, 0, in_size, out_size, SMS, PER_SM) == (
+            tk.ElementwisePlan(1, 1, n, 0, 0, -(-n // tk._THREADS)))
+    for n in (wave + 1, 455_000, 64 * 7 * 7 * 512):
+        p = tk.plan(n, 0, 0, in_size, out_size, SMS, PER_SM)
+        assert p.vec == vec and p.n_vec == n // vec
+
+
+@pytest.mark.parametrize("offset", [0, 1, 5])
+def test_chunks_split_a_launch_at_aligned_starts(monkeypatch, offset):
+    """Past ``_CHUNK`` elements a launch is split, each piece starting
+    where x does modulo 16 bytes, so that its vectors index in 32 bits and
+    the plan of every whole piece is the same."""
+    monkeypatch.setattr(tk, "_CHUNK", 32)
+    x = torch.arange(offset + 100, dtype=torch.float32)[offset:]
+    out = torch.empty(100, dtype=torch.int32)
+    pieces = tk._chunks(x, out)
+    assert [p.numel() for p, _ in pieces] == [32, 32, 32, 4]
+    assert torch.equal(torch.cat([p for p, _ in pieces]), x)
+    for xs, outs in pieces:
+        assert xs.numel() == outs.numel()
+        assert (xs.data_ptr() - x.data_ptr()) % 16 == 0
+        assert (outs.data_ptr() - out.data_ptr()) % 16 == 0
+    (whole,) = tk._chunks(x[:32], out[:32])  # one launch, no slicing
+    assert whole[0].data_ptr() == x.data_ptr() and whole[0].numel() == 32
+    assert tk._chunks(x[:0], out[:0]) == ()
 
 
 def _top_bit(r: np.ndarray) -> np.ndarray:

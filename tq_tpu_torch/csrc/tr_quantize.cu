@@ -23,7 +23,8 @@
 //   of a tile's loads before any reveal, and the next tile's before the
 //   reveal of this one, so that loads stay in flight while it computes;
 //   it stores 16-byte vectors of the output type (float4, int4, or 8
-//   bfloat16 packed in pairs).  The vector loop indexes in 32 bits.
+//   bfloat16 packed in pairs).  The vector loop indexes in 32 bits (the
+//   wrapper splits a launch past 2^32 elements).
 // * Alignment and tails in the same launch.  The vectors start where x
 //   and out are both 16-byte aligned; the elements before (head) and the
 //   last partial vector (tail) take the same body one element at a time,
@@ -33,6 +34,13 @@
 // * The grid is whole waves: as many blocks as the occupancy API says the
 //   card runs at once, in a grid-stride loop over tiles.  One tile a
 //   thread ran 2% slower over a float32 forward's shapes (PERF.md).
+// * Small x one element a thread.  Where one wave of threads of one
+//   element each covers x, a thread's chain (the loads, 1 / sf, a reveal
+//   of 8) would set the time on the vectors, so every element goes one
+//   at a time, a block per 256, on the instantiation without the vector
+//   loop (under 32 registers: a full SM), in order, with __fdiv_rn (for
+//   one quotient it costs less than 1 / sf and the corrections); each
+//   thread's first load is issued before sf is read.
 // * The reveal interleaved over kGroup = 8 elements (tr_common.cuh,
 //   shared with the mma kernel): the quotient |x| / sf from 1 / sf
 //   computed once a thread (quantize_rcp, equal to __fdiv_rn in its
@@ -145,36 +153,40 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
   }
 }
 
-// The element-wise grid: body(v, o) maps M widened inputs to M results
-// (float, rounded to the output type at the store, or int32).
-template <typename In, class Body>
-__device__ __forceinline__ void elementwise(
-    const In* __restrict__ x, typename Body::Out* __restrict__ out,
-    const Span s, const Body& body) {
+// The element-wise grid.  make_body() gives the body, which maps M widened
+// inputs to M results (float, rounded to the output type at the store, or
+// int32); it reads sf, so it is called once this thread's first loads are
+// out, and the two loads overlap.  VEC: the vectors too.  A span of single
+// elements alone (n_vec 0) runs on the instantiation without them, which
+// holds fewer registers and so runs more blocks an SM.
+template <bool VEC, typename In, typename Out, class MakeBody>
+__device__ __forceinline__ void elementwise(const In* __restrict__ x,
+                                            Out* __restrict__ out,
+                                            const Span s,
+                                            const MakeBody& make_body) {
+  using Body = decltype(make_body());
   using R = typename Body::R;
   constexpr int V = 16 / sizeof(In);
-  // One element at a time: the head, then the tail, from the grid's last
-  // thread down (the first threads take the vectors, so that a small x
-  // runs both at once).
+  // One element at a time: without the vectors, in order; with them, the
+  // head, then the tail, from the grid's last thread down (the first
+  // threads take the vectors, so that a small x runs both at once).  The
+  // next element's load is issued before this one's body.
   const int64_t singles = s.head + s.tail;
   const int64_t vec_end = s.head + static_cast<int64_t>(s.n_vec) * V;
   const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = threads - 1 - (blockIdx.x * static_cast<int64_t>(kThreads)
-                                  + threadIdx.x);
-       i < singles; i += threads) {
-    const int64_t e = i < s.head ? i : vec_end + (i - s.head);
-    const float v[1] = {load1(x + e)};
-    R o[1];
-    body(v, o);
-    store1(out + e, o[0]);
-  }
+  auto at = [&](int64_t i) {
+    return !VEC || i < s.head ? i : vec_end + (i - s.head);
+  };
+  const int64_t gid =
+      blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  int64_t i = VEC ? threads - 1 - gid : gid;
+  float next1 = i < singles ? load1(x + at(i)) : 0.f;
   // Vectors, kUnroll a thread a tile, kThreads apart: the tile's loads,
   // then the next tile's (in flight during the reveal), then the reveal
   // of kGroup elements at once, and their stores, group by group.
   const uint4* const xv = reinterpret_cast<const uint4*>(x + s.head);
-  typename Body::Out* const ov = out + s.head;
+  Out* const ov = out + s.head;
   const uint32_t stride = gridDim.x * kTile;
-  uint4 w[kUnroll];
   auto load = [&](uint32_t t, uint4 (&dst)[kUnroll]) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -183,26 +195,37 @@ __device__ __forceinline__ void elementwise(
     }
   };
   uint32_t t = blockIdx.x * kTile + threadIdx.x;
-  load(t, w);
-  for (; t < s.n_vec; t += stride) {
-    uint4 next[kUnroll];
-    load(t + stride, next);  // zeros past the end, no access
+  uint4 w[kUnroll];
+  if constexpr (VEC) load(t, w);
+  const Body body = make_body();
+  for (; i < singles; i += threads) {
+    const float v[1] = {next1};
+    if (i + threads < singles) next1 = load1(x + at(i + threads));
+    R o[1];
+    body(v, o);
+    store1(out + at(i), o[0]);
+  }
+  if constexpr (VEC) {
+    for (; t < s.n_vec; t += stride) {
+      uint4 next[kUnroll];
+      load(t + stride, next);  // zeros past the end, no access
 #pragma unroll
-    for (int g = 0; g < kUnroll; g += kGroup / V) {
-      float v[kGroup];
+      for (int g = 0; g < kUnroll; g += kGroup / V) {
+        float v[kGroup];
 #pragma unroll
-      for (int u = 0; u < kGroup / V; ++u) widen(x, w[g + u], v, u * V);
-      R o[kGroup];
-      body(v, o);
+        for (int u = 0; u < kGroup / V; ++u) widen(x, w[g + u], v, u * V);
+        R o[kGroup];
+        body(v, o);
 #pragma unroll
-      for (int u = 0; u < kGroup / V; ++u) {
-        const uint32_t j = t + (g + u) * kThreads;
-        if (j < s.n_vec)
-          store_vec<V>(ov + static_cast<size_t>(j) * V, o, u * V);
+        for (int u = 0; u < kGroup / V; ++u) {
+          const uint32_t j = t + (g + u) * kThreads;
+          if (j < s.n_vec)
+            store_vec<V>(ov + static_cast<size_t>(j) * V, o, u * V);
+        }
       }
-    }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) w[u] = next[u];
+      for (int u = 0; u < kUnroll; ++u) w[u] = next[u];
+    }
   }
 }
 
@@ -217,7 +240,7 @@ struct Reveal {
   int budget;
   bool sf_ok, keep_all;
 
-  // r_: the correctly rounded 1 / sf_.
+  // r_: the correctly rounded 1 / sf_ (unused by a body of one element).
   __device__ __forceinline__ Reveal(float sf_, float r_, int bits,
                                     int budget_)
       : sf(sf_), nsf(-sf_), r(r_),
@@ -231,7 +254,10 @@ struct Reveal {
                                              R (&o)[M]) const {
     uint32_t q[M];
     int32_t val[M];
-    tq::quantize_n(v, sf, r, maxq, sf_ok, q);
+    if constexpr (M == 1)  // one quotient: the division costs less than r
+      q[0] = tq::quantize(v[0], sf, maxq);
+    else
+      tq::quantize_n(v, sf, r, maxq, sf_ok, q);
     if (keep_all) {
 #pragma unroll
       for (int i = 0; i < M; ++i) val[i] = static_cast<int32_t>(q[i]);
@@ -267,21 +293,24 @@ struct Scale {
   }
 };
 
-template <typename In, bool INT_OUT, bool SERIAL>
+template <typename In, bool INT_OUT, bool SERIAL, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     tr_elementwise_kernel(const In* __restrict__ x,
                           const float* __restrict__ sf,
                           typename Reveal<In, INT_OUT, SERIAL>::Out* out,
                           Span s, int bits, int budget) {
-  const float scale = *sf;
-  elementwise(x, out, s, Reveal<In, INT_OUT, SERIAL>(
-                             scale, __frcp_rn(scale), bits, budget));
+  elementwise<VEC>(x, out, s, [=] {
+    const float scale = *sf;  // 1 / sf only for the vectors' groups of 8
+    return Reveal<In, INT_OUT, SERIAL>(scale, VEC ? __frcp_rn(scale) : 0.f,
+                                       bits, budget);
+  });
 }
 
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     tr_scale_copy_kernel(const float* __restrict__ x,
                          const float* __restrict__ sf, float* out, Span s) {
-  elementwise(x, out, s, Scale{*sf});
+  elementwise<VEC>(x, out, s, [=] { return Scale{*sf}; });
 }
 
 int blocks_for(int64_t n) {
@@ -340,21 +369,32 @@ __global__ void tr_grouped_kernel(const float* __restrict__ x,
 // output, 4 'serial'; kScaleCopy is tr_scale_copy.
 constexpr int kScaleCopy = 8;
 
-template <typename In, bool INT_OUT, bool SERIAL>
-const void* reveal_kernel() {
-  return reinterpret_cast<const void*>(
-      &tr_elementwise_kernel<In, INT_OUT, SERIAL>);
+template <class F>
+const void* address(F* f) {
+  return reinterpret_cast<const void*>(f);
 }
 
-const void* elementwise_function(int variant) {
+// The element-wise kernels by variant, with the vectors (VEC) or without.
+template <bool VEC>
+const void* const* elementwise_functions() {
   using bf16 = __nv_bfloat16;
   static const void* const fns[] = {
-      reveal_kernel<float, false, false>(), reveal_kernel<bf16, false, false>(),
-      reveal_kernel<float, true, false>(),  reveal_kernel<bf16, true, false>(),
-      reveal_kernel<float, false, true>(),  reveal_kernel<bf16, false, true>(),
-      reveal_kernel<float, true, true>(),   reveal_kernel<bf16, true, true>(),
-      reinterpret_cast<const void*>(&tr_scale_copy_kernel)};
-  return variant >= 0 && variant <= kScaleCopy ? fns[variant] : nullptr;
+      address(&tr_elementwise_kernel<float, false, false, VEC>),
+      address(&tr_elementwise_kernel<bf16, false, false, VEC>),
+      address(&tr_elementwise_kernel<float, true, false, VEC>),
+      address(&tr_elementwise_kernel<bf16, true, false, VEC>),
+      address(&tr_elementwise_kernel<float, false, true, VEC>),
+      address(&tr_elementwise_kernel<bf16, false, true, VEC>),
+      address(&tr_elementwise_kernel<float, true, true, VEC>),
+      address(&tr_elementwise_kernel<bf16, true, true, VEC>),
+      address(&tr_scale_copy_kernel<VEC>)};
+  return fns;
+}
+
+const void* elementwise_function(int variant, bool vec) {
+  if (variant < 0 || variant > kScaleCopy) return nullptr;
+  return (vec ? elementwise_functions<true>()
+              : elementwise_functions<false>())[variant];
 }
 
 // The span of a launch, or false where the kernel cannot take it: vectors
@@ -377,7 +417,8 @@ bool make_span(const void* x, const void* out, int in_bytes, int out_bytes,
 // The element-wise body: x (float32, or bfloat16 where variant & 1) into
 // out (x's type, or int32 where variant & 2; 'serial' where variant & 4)
 // over the span (head, n_vec, tail) of kernels/tr_quantize.py::plan, on
-// `blocks` blocks.  A span the kernel cannot take returns
+// `blocks` blocks; a span without vectors, on the instantiation without
+// the vector loop.  A span the kernel cannot take returns
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int tq_tr_quantize_elementwise(const void* x, const float* sf,
                                           void* out, int64_t head,
@@ -391,7 +432,8 @@ extern "C" int tq_tr_quantize_elementwise(const void* x, const float* sf,
       !make_span(x, out, in_bytes, out_bytes, head, n_vec, tail, blocks, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&x, &sf, &out, &s, &bits, &budget};
-  return static_cast<int>(cudaLaunchKernel(elementwise_function(variant),
+  return static_cast<int>(cudaLaunchKernel(elementwise_function(variant,
+                                                                s.n_vec > 0),
                                            dim3(blocks), dim3(kThreads), args,
                                            0, stream));
 }
@@ -403,15 +445,17 @@ extern "C" int tq_tr_scale_copy(const float* x, const float* sf, float* out,
   if (!make_span(x, out, 4, 4, head, n_vec, tail, blocks, &s))
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&x, &sf, &out, &s};
-  return static_cast<int>(cudaLaunchKernel(elementwise_function(kScaleCopy),
+  return static_cast<int>(cudaLaunchKernel(elementwise_function(kScaleCopy,
+                                                                s.n_vec > 0),
                                            dim3(blocks), dim3(kThreads), args,
                                            0, stream));
 }
 
-// Blocks of the element-wise kernel `variant` (kScaleCopy: tr_scale_copy)
-// an SM runs at once (the occupancy API), or a negative CUDA error.
+// Blocks of the element-wise kernel `variant` (kScaleCopy: tr_scale_copy),
+// with the vectors, an SM runs at once (the occupancy API), or a negative
+// CUDA error.
 extern "C" int tq_tr_elementwise_blocks_per_sm(int variant) {
-  const void* fn = elementwise_function(variant);
+  const void* fn = elementwise_function(variant, true);
   if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   int n = 0;
   const cudaError_t err =

@@ -27,7 +27,9 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "check", "library_path"]
+import torch
+
+__all__ = ["load", "check", "library_path", "stream"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -144,6 +146,14 @@ def load() -> ctypes.CDLL:
         lib.tq_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def stream(device) -> int:
+    """The handle of the current stream of ``device`` (a CUDA tensor's,
+    with its index), as ``torch.cuda.current_stream(device).cuda_stream``
+    gives it, without building that ``torch.cuda.Stream`` object on every
+    launch (``chip_smoke.py`` holds the two equal)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

@@ -394,7 +394,7 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
         return t.data_ptr() if t is not None else None
 
     budget = min(num_keep_terms, MAX_BITS + 1)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = _build.stream(x.device)
     if p.kernel == "mma":
         _build.check(_build.load().tq_term_matmul_mma(
             x.data_ptr(), wt.data_ptr(), ptr(sf_t), ptr(wsf_t),

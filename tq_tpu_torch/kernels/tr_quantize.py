@@ -15,8 +15,8 @@ package's element-wise term reveal of a bfloat16 tensor followed by the
 cast to bfloat16.  :func:`tr_scale_copy` is the element-wise body's grid
 with a body that only scales: the copy ceiling it is timed against.
 :func:`plan` sizes both launches: 16-byte vectors where ``x`` and the
-output can be aligned together, the rest one element at a time, on whole
-waves of blocks.
+output can be aligned together, on whole waves of blocks, the rest one
+element at a time; a small ``x`` one element a thread.
 
 The helpers below are the loop-free int32 bit-mask math of the TPU
 kernel's element-wise body, as tensor ops; the plain version uses them and
@@ -35,7 +35,7 @@ from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
 
 __all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
            "tr_quantize_int_ref", "tr_scale_copy", "tr_scale_copy_ref",
-           "max_hese_terms", "MAX_BITS", "plan", "ElementwisePlan", "GRIDS"]
+           "max_hese_terms", "MAX_BITS", "plan", "ElementwisePlan"]
 
 _KEEP_MODES = ("largest", "serial")
 MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
@@ -49,9 +49,13 @@ _VECTOR_BYTES = 16
 # Variant bits of the element-wise kernels (csrc/tr_quantize.cu): bfloat16
 # input, int32 output, 'serial'; and tr_scale_copy.
 _BF16_IN, _INT_OUT, _SERIAL, _SCALE_COPY = 1, 2, 4, 8
-# Grids plan() can size: whole waves of blocks in a grid-stride loop, or
-# one tile a thread (as many blocks as tiles).
-GRIDS = ("waves", "tiles")
+# Threads an SM holds on Hopper (sm_90a, the kernels' only target); the
+# element-wise kernels without the vector loop run that many an SM.
+_SM_THREADS = 2048
+# Elements one launch takes at most: its vectors stay below 2**31, which
+# the kernels index in 32 bits.  A multiple of 16, so that every chunk
+# starts where x does modulo 16 bytes.
+_CHUNK = 1 << 32
 
 
 def max_hese_terms(bits: int) -> int:
@@ -174,7 +178,7 @@ def _kernel_scale(x: torch.Tensor, sf, bits: int, keep_mode: str,
 class ElementwisePlan(NamedTuple):
     """How the element-wise kernels launch on ``n`` elements (:func:`plan`)."""
 
-    vec: int         # elements in a 16-byte vector of x; 1: no vector path
+    vec: int         # elements in a 16-byte vector of x; 1: no vectors
     per_thread: int  # elements a thread takes a tile
     head: int        # elements before the first vector, one at a time
     n_vec: int       # vectors
@@ -184,38 +188,37 @@ class ElementwisePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=1024)  # pure: computed once per shape
 def plan(n: int, x_addr: int, out_addr: int, in_size: int, out_size: int,
-         sms: int, per_sm: int, grid: str = "waves") -> ElementwisePlan:
+         sms: int, per_sm: int) -> ElementwisePlan:
     """The span and grid of an element-wise launch on ``n`` elements of
     ``in_size`` bytes into ``out_size``-byte outputs, ``x`` and the output
     at byte addresses ``x_addr`` and ``out_addr`` (modulo 16), on a card
     of ``sms`` SMs that runs ``per_sm`` blocks of the kernel an SM.
 
     The vectors start at the first element at which both pointers are
-    16-byte aligned (``head`` elements in); where there is none, every
-    element goes one at a time (``vec`` 1).  ``grid`` "waves": at most as
-    many blocks as the card runs at once, in a grid-stride loop; "tiles":
-    a block per tile of ``_UNROLL * _THREADS`` vectors.
+    16-byte aligned (``head`` elements in), on whole waves of blocks: at
+    most as many as the card runs at once, in a grid-stride loop.  Where
+    no element aligns both pointers, or one wave of threads of one
+    element each covers x (``n <= sms * _SM_THREADS``), every element
+    goes one at a time (``vec`` 1), a block per ``_THREADS``: there a
+    thread's chain, not the bytes, sets the time (PERF.md).
     """
-    if grid not in GRIDS:
-        raise ValueError(f"grid must be one of {GRIDS}, got {grid!r}")
     vec = _VECTOR_BYTES // in_size
     head = next((h for h in range(vec)
                  if (x_addr + h * in_size) % _VECTOR_BYTES == 0
-                 and (out_addr + h * out_size) % _VECTOR_BYTES == 0), None)
-    if head is None:
-        vec, head = 1, n
+                 and (out_addr + h * out_size) % _VECTOR_BYTES == 0), n)
     head = min(head, n)
-    n_vec = (n - head) // vec if vec > 1 else 0
+    n_vec = (n - head) // vec
+    if n_vec == 0 or n <= sms * _SM_THREADS:
+        return ElementwisePlan(1, 1, n, 0, 0, min(-(-n // _THREADS),
+                                                  2**31 - 1))
     if n_vec >= 2**31:
         raise ValueError(f"the element-wise kernels index vectors in 32 "
                          f"bits: {n} elements is too many")
     tail = n - head - n_vec * vec
     tiles = -(-n_vec // (_UNROLL * _THREADS))
-    blocks = max(1, tiles, -(-(head + tail) // _THREADS))
-    if grid == "waves":
-        blocks = min(blocks, max(1, sms * per_sm))
-    return ElementwisePlan(vec, vec * _UNROLL if vec > 1 else 1, head,
-                           n_vec, tail, min(blocks, 2**31 - 1))
+    blocks = max(tiles, -(-(head + tail) // _THREADS))
+    return ElementwisePlan(vec, vec * _UNROLL, head, n_vec, tail,
+                           min(blocks, max(1, sms * per_sm)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,20 +237,30 @@ def _blocks_per_sm(index: int, variant: int) -> int:
     return n
 
 
-def _plan_for(x: torch.Tensor, out: torch.Tensor, variant: int,
-              grid: str) -> ElementwisePlan:
+def _plan_for(x: torch.Tensor, out: torch.Tensor,
+              variant: int) -> ElementwisePlan:
     index = x.device.index
     return plan(x.numel(), x.data_ptr() % _VECTOR_BYTES,
                 out.data_ptr() % _VECTOR_BYTES, x.element_size(),
                 out.element_size(), _sm_count(index),
-                _blocks_per_sm(index, variant), grid)
+                _blocks_per_sm(index, variant))
+
+
+def _chunks(x: torch.Tensor, out: torch.Tensor):
+    """Contiguous ``x`` and ``out`` as pieces of at most ``_CHUNK``
+    elements, a launch each (none for no elements)."""
+    n = x.numel()
+    if n <= _CHUNK:
+        return ((x, out),) if n else ()
+    xf, of = x.view(-1), out.view(-1)
+    return [(xf[s:s + _CHUNK], of[s:s + _CHUNK]) for s in range(0, n, _CHUNK)]
 
 
 def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool,
-                        out=None, grid: str = "waves"):
+                        out=None):
     """The element-wise kernel on CUDA ``x``; ``out`` (a contiguous tensor
-    of x's shape and the output type, any alignment) and ``grid`` (see
-    :func:`plan`) are for the card's checks and timings."""
+    of x's shape and the output type, any alignment) is for the card's
+    checks."""
     sf = _kernel_scale(x, sf, bits, keep_mode,
                        (torch.float32, torch.bfloat16))
     in_bf16 = x.dtype == torch.bfloat16
@@ -259,15 +272,14 @@ def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool,
           or not out.is_contiguous() or out.device != x.device):
         raise ValueError(f"out must be a contiguous {dtype} tensor of shape "
                          f"{tuple(x.shape)} on {x.device}")
-    if xc.numel():
-        variant = ((_BF16_IN if in_bf16 else 0) | (_INT_OUT if int_out else 0)
-                   | (_SERIAL if keep_mode == "serial" else 0))
-        p = _plan_for(xc, out, variant, grid)
+    variant = ((_BF16_IN if in_bf16 else 0) | (_INT_OUT if int_out else 0)
+               | (_SERIAL if keep_mode == "serial" else 0))
+    for xs, outs in _chunks(xc, out):
+        p = _plan_for(xs, outs, variant)
         _build.check(_build.load().tq_tr_quantize_elementwise(
-            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), p.head, p.n_vec,
+            xs.data_ptr(), sf.data_ptr(), outs.data_ptr(), p.head, p.n_vec,
             p.tail, p.blocks, bits, min(budget, _BUDGET_CAP), variant,
-            torch._C._cuda_getCurrentRawStream(x.device.index)),
-            "tq_tr_quantize_elementwise")
+            _build.stream(x.device)), "tq_tr_quantize_elementwise")
         tr_quantize.launches["elementwise_bf16" if in_bf16
                              else "elementwise"] += 1
     return out
@@ -294,8 +306,7 @@ def _launch_grouped(x, sf, bits, group_size, budget, axis, keep_mode):
             xm.data_ptr(), sf.data_ptr(), out.data_ptr(), n_groups,
             group_size, bits, min(budget, _BUDGET_CAP),
             int(keep_mode == "serial"),
-            torch.cuda.current_stream(x.device).cuda_stream),
-            "tq_tr_quantize_grouped")
+            _build.stream(x.device)), "tq_tr_quantize_grouped")
         tr_quantize.launches["grouped"] += 1
     if pad:
         out = out[..., :n]
@@ -358,23 +369,16 @@ def tr_scale_copy(x: torch.Tensor, sf) -> torch.Tensor:
     (float32 only)."""
     if not x.is_cuda:
         return tr_scale_copy_ref(x, sf)
-    return _launch_scale_copy(x, sf)
-
-
-def _launch_scale_copy(x: torch.Tensor, sf, grid: str = "waves"):
-    """The scale-copy kernel on CUDA ``x``; ``grid``: see :func:`plan`."""
     if x.dtype != torch.float32:
         raise TypeError(f"tr_scale_copy kernel takes float32, got {x.dtype}")
     sf = as_scale(sf, x.device).contiguous()
     xc = x.contiguous()
     out = torch.empty_like(xc)
-    if xc.numel():
-        p = _plan_for(xc, out, _SCALE_COPY, grid)
+    for xs, outs in _chunks(xc, out):
+        p = _plan_for(xs, outs, _SCALE_COPY)
         _build.check(_build.load().tq_tr_scale_copy(
-            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), p.head, p.n_vec,
-            p.tail, p.blocks,
-            torch._C._cuda_getCurrentRawStream(x.device.index)),
-            "tq_tr_scale_copy")
+            xs.data_ptr(), sf.data_ptr(), outs.data_ptr(), p.head, p.n_vec,
+            p.tail, p.blocks, _build.stream(x.device)), "tq_tr_scale_copy")
         tr_scale_copy.launches["scale_copy"] += 1
     return out
 
