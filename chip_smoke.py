@@ -12,7 +12,11 @@ non-zero without printing a result:
    ``tr_quantize`` (element-wise and grouped) bit for bit (the element-wise
    body also at every length 1-40, at x 1-7 elements past a 16-byte
    boundary, the output aligned or not, and split into chunks; the
-   launchers' stream handle is the current stream's), ``term_matmul``
+   launchers' stream handle is the current stream's; the grouped body on
+   every axis with inner 1, 10 and others, trailing partial groups,
+   g = 8, 16 and generic ones, x off 16 bytes and in another layout, its
+   output contiguous, and timed at the MLP's and the LSTM's weight
+   shapes beside B5 on as many elements), ``term_matmul``
    (f32 mode on float32 weights, quantized and raw input, at M > 8: the
    tensor-core kernel, and the tiled kernel it replaced) within
    rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
@@ -55,8 +59,9 @@ non-zero without printing a result:
    activation shapes at batch 64 (RESNET_ACTIVATIONS) in float32 and
    bfloat16 (and their int32 variants; the bf16 body also at every q and
    budget for bits 1..9), the grouped body on every converted conv's HWIO
-   weight (g=8, axis 2); ``tr_scale_copy`` (B1's copy ceiling) equal to
-   ``x * sf``; each timed beside its bound, B5 beside ``torch.mul``;
+   weight (g=8, axis 2; each shape timed, and a sweep setting's sum);
+   ``tr_scale_copy`` (B1's copy ceiling) equal to ``x * sf``; each timed
+   beside its bound, B5 beside ``torch.mul``;
 10. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
     wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
     ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
@@ -555,7 +560,8 @@ def phase_kernels(torch):
     from tq_tpu_torch.kernels.tr_quantize import (max_hese_terms, tr_quantize,
                                                   tr_quantize_int,
                                                   tr_quantize_int_ref,
-                                                  tr_quantize_ref)
+                                                  tr_quantize_ref,
+                                                  tr_scale_copy)
     from tq_tpu_torch.layers.common import weight_scale
 
     dev = torch.device("cuda")
@@ -610,7 +616,10 @@ def phase_kernels(torch):
                   lambda: tr_quantize_ref(w1, sf, 6, 1, 6)),
         bound_ms=b, bound_by=by)
 
-    # tr_quantize grouped.
+    # tr_quantize grouped, read in place as (outer, n, inner): the grouping
+    # axis last (inner 1) and not, inner 10, trailing partial groups on a
+    # non-last axis, g = 8 and 16 and generic ones, 16-byte vectors of 4
+    # columns a thread (inner % 4 == 0) and one column.
     n_cases = 0
     cases = [((24, 64), 9, 8, 12, -1), ((24, 64), 9, 8, 24, -1),
              ((24, 64), 4, 16, 14, -1), ((24, 64), 8, 2, 3, -1),
@@ -618,25 +627,61 @@ def phase_kernels(torch):
              ((3, 50), 8, 16, 20, -1), ((37, 70), 16, 32, 40, 0),
              ((64, 32, 3, 3), 9, 8, 16, 1), ((5, 101), 6, 2, 1, 1),
              ((784, 512), 4, 16, 6, 0), ((784, 512), 4, 16, 14, 0),
-             ((512, 10), 4, 16, 10, 0), ((300, 7), 16, 32, 0, 0)]
+             ((512, 10), 4, 16, 10, 0), ((300, 7), 16, 32, 0, 0),
+             ((5, 19, 10), 9, 8, 5, 1), ((5, 19, 10), 9, 16, 30, 1),
+             ((5, 19, 10), 9, 7, 9, 1), ((3, 3, 20, 12), 9, 8, 12, 2),
+             ((3, 3, 20, 12), 9, 16, 20, 2), ((650, 2600), 8, 8, 24, 0),
+             ((100, 64), 24, 31, 60, 0), ((2, 45, 64), 1, 3, 2, 1)]
     for shape, bits, g, k, axis in cases:
         x = randn(*shape)
+        # ... and the same values in a view off 16 bytes, and in another
+        # layout (first and last axes swapped in memory)
+        off = torch.empty(x.numel() + 1, device=dev)[1:].view(shape)
+        off.copy_(x)
+        xt = x.transpose(0, -1).contiguous().transpose(0, -1)
         sf = weight_scale(x, bits)
         for mode in ("largest", "serial"):
-            exact(f"grouped {shape} bits={bits} g={g} k={k} {mode}",
-                  tr_quantize(x, sf, bits, g, k, axis, mode),
-                  tr_quantize_ref(x, sf, bits, g, k, axis, mode))
-            n_cases += 1
+            ref = tr_quantize_ref(x, sf, bits, g, k, axis, mode)
+            for name, xs in (("", x), (" off 16 bytes", off),
+                             (" transposed", xt)):
+                got = tr_quantize(xs, sf, bits, g, k, axis, mode)
+                exact(f"grouped {shape}{name} bits={bits} g={g} k={k} "
+                      f"{mode}", got, ref)
+                if not got.is_contiguous():
+                    fail(f"grouped {shape}{name}: the output is not "
+                         "contiguous")
+                n_cases += 1
     sf = weight_scale(w1, 4)
     out = tr_quantize(w1, sf, 4, 16, 6, 0)
     ref = tr_quantize_ref(w1, sf, 4, 16, 6, 0)
     b, by = bound_ms(8 * n, 6 * n)
+    # The MLP's other weights and the LSTM's (the g = 8 setting), timed
+    # beside their bound and B5 on as many elements (the copy ceiling);
+    # the tied decoder comes as the encoder's transpose.
+    per_shape = {}
+    for shape, bits, g, k, transposed in [
+            ((784, 512), 4, 16, 6, False), ((512, 512), 4, 16, 6, False),
+            ((512, 10), 4, 16, 6, False), ((650, 2600), 8, 8, 24, False),
+            ((650, 33278), 8, 8, 24, True)]:
+        x = randn(*shape[::-1], scale=0.05).T if transposed \
+            else randn(*shape, scale=0.05)
+        xc = x.contiguous()
+        wsf = weight_scale(x, bits)
+        exact(f"grouped {shape} bits={bits} g={g} k={k}",
+              tr_quantize(x, wsf, bits, g, k, 0),
+              tr_quantize_ref(x, wsf, bits, g, k, 0))
+        per_shape["x".join(map(str, shape))] = dict(
+            group_size=g, bits=bits, terms=k, transposed=transposed,
+            ms=device_ms(torch, lambda: tr_quantize(x, wsf, bits, g, k, 0)),
+            copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(xc, wsf)),
+            bound_ms=bound_ms(8 * x.numel(), 0)[0])
     results["tr_quantize_grouped"] = dict(
         cases=n_cases, shape=[784, 512], group_size=16,
         max_abs_err=float((out - ref).abs().max()),
         **timings(torch, lambda: tr_quantize(w1, sf, 4, 16, 6, 0),
                   lambda: tr_quantize_ref(w1, sf, 4, 16, 6, 0)),
-        bound_ms=b, bound_by=by)
+        copy_ceiling_ms=per_shape["784x512"]["copy_ceiling_ms"],
+        bound_ms=b, bound_by=by, per_shape=per_shape)
 
     # term_matmul f32 on float32 weights at M > STREAM_MAX_M, on the mma
     # kernel (the route), beside the tiled kernel it replaced, the raw
@@ -1461,6 +1506,16 @@ def phase_cnn_kernels(torch):
                        tr_quantize(w, wsf, 9, 8, wt, 2, mode),
                        tr_quantize_ref(w, wsf, 9, 8, wt, 2, mode))
                 g_cases += 1
+    # Each conv shape's time, and B2's device time a sweep setting (the
+    # converted convs at the flagship's setting).
+    conv_ms = {}
+    for shape, w in weights.items():
+        wsf = weight_scale(w, 9)
+        conv_ms["x".join(map(str, shape))] = device_ms(
+            torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2))
+    setting_ms = sum(conv_ms["x".join(map(str, (s.kh, s.kw, s.in_ch,
+                                                 s.out_ch)))]
+                     for s in conv_specs()[1:])
     w = weights[(3, 3, 512, 512)]
     wsf = weight_scale(w, 9)
     nw = w.numel()
@@ -1470,9 +1525,9 @@ def phase_cnn_kernels(torch):
         cases=g_cases, max_abs_err=0.0,
         **timings(torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2),
                   lambda: tr_quantize_ref(w, wsf, 9, 8, 12, 2)),
-        # The wrapper's copy that moves axis 2 last, inside ms.
-        transpose_ms=device_ms(torch,
-                               lambda: torch.movedim(w, 2, -1).contiguous()),
+        # B5 on as many elements: what B2's 8 bytes an element cost alone.
+        copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(w, wsf)),
+        per_conv_shape_ms=conv_ms, sweep_setting_ms=setting_ms,
         bound_ms=b, bound_by=by)
     emit({"phase": "cnn_kernels", "ok": True, "bf16_cases": n_cases,
           "results": rows})

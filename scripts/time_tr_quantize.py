@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Device time of one checkout's element-wise ``tr_quantize`` (B1) and
-``tr_scale_copy`` (B5), and what they move end to end.
+``tr_scale_copy`` (B5), and what they move end to end; or, with
+``--grouped``, of its grouped body (B2).
 
     python3 scripts/time_tr_quantize.py --root DIR [--sass FILE]
+    python3 scripts/time_tr_quantize.py --root DIR --grouped
 
 Imports ``tq_tpu_torch`` from the checkout DIR (any commit of the port;
 its kernels are built there at first use) and, on seeded inputs like
@@ -26,6 +28,16 @@ sf 0.05):
 * measures TR ResNet-18 images/s at batch 64 in float32 and bfloat16
   (``chip_smoke._images_per_s``, 20 forwards after 2 of warm-up) on
   ``chip_smoke.resnet_checkpoint``'s weights at the flagship's settings.
+
+``--grouped`` times B2 instead, at every weight shape the paths give it
+(``GROUPED``: the MNIST MLP's three dense weights, the LSTM's recurrent
+weights and its tied decoder, a transposed view of the encoder, and the
+ten distinct converted ResNet-18 conv weights), each held equal to the
+plain version first, beside its byte bound and B5 on as many elements
+(its copy ceiling); where the checkout's kernel takes 16-byte vectors of
+4 columns (``grouped_plan``), also both column widths through the C
+entry point; B2's eager call at (784, 512) (the least of 5 readings);
+and B2's device time a ResNet-18 sweep setting (the 19 converted convs).
 
 ``--sass FILE`` also writes the SASS of the checkout's kernel library to
 FILE (``cuobjdump -sass``) and prints the instructions of each
@@ -56,6 +68,18 @@ SERVING = (1, 650)
 LSTM = [SERVING, (10, 650), (350, 650)]
 # Element counts at which both spans plan() chooses between are timed.
 SPAN_N = [650, 6_500, 65_000, 227_500, 455_000, 910_000, 1_605_632]
+# B2 on the paths: name -> (shape, axis, g, bits, terms, transposed).  The
+# MLP's mnist-tr setting (wb 4, g 16, 6 terms), the LSTM's g = 8 setting
+# (wb 8, 24 terms; the tied decoder is the encoder's transpose), and the
+# ResNet-18 flagship's (9, 8, 12) on the converted convs (appended in
+# grouped()).
+GROUPED = {
+    "mlp_784x512": ((784, 512), 0, 16, 4, 6, False),
+    "mlp_512x512": ((512, 512), 0, 16, 4, 6, False),
+    "mlp_512x10": ((512, 10), 0, 16, 4, 6, False),
+    "lstm_650x2600": ((650, 2600), 0, 8, 8, 24, False),
+    "lstm_decoder_650x33278": ((650, 33278), 0, 8, 8, 24, True),
+}
 
 
 def sass_counts(library: Path, out: Path, budget: int = 3) -> dict:
@@ -176,6 +200,62 @@ def spans(torch, tk, _build, device_ms, sf, gen) -> dict:
     return out
 
 
+def grouped(torch, tk, _build, device_ms, eager_ms, gen) -> dict:
+    """B2 at every path shape (``GROUPED`` and the converted ResNet-18
+    convs): device ms, bound, copy ceiling, and both column widths where
+    the checkout has them; eager ms at (784, 512); ms a sweep setting."""
+    from tq_tpu_torch.layers.common import weight_scale
+    from tq_tpu_torch.models.resnet import conv_specs
+
+    convs = [(s.kh, s.kw, s.in_ch, s.out_ch) for s in conv_specs()[1:]]
+    shapes = dict(GROUPED)
+    for shape in dict.fromkeys(convs):
+        shapes["resnet_" + "x".join(map(str, shape))] = (shape, 2, 8, 9,
+                                                         12, False)
+    dev = torch.device("cuda")
+    out = {}
+    for name, (shape, axis, g, bits, k, transposed) in shapes.items():
+        x = torch.randn(*(shape[::-1] if transposed else shape),
+                        generator=gen, device=dev) * 0.05
+        x = x.T if transposed else x
+        sf = weight_scale(x, bits)
+        want = tk.tr_quantize_ref(x, sf, bits, g, k, axis)
+        got = tk.tr_quantize(x, sf, bits, g, k, axis)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            sys.exit(f"B2 at {name} differs from the plain version")
+        n = x.numel()
+        xc = x.contiguous()
+        row = {"ms": device_ms(torch, lambda: tk.tr_quantize(
+                   x, sf, bits, g, k, axis)),
+               "copy_ceiling_ms": device_ms(torch, lambda: tk.tr_scale_copy(
+                   xc, sf)),
+               "bound_ms": 8 * n / 3.35e12 * 1e3}
+        if hasattr(tk, "grouped_plan"):
+            p = tk.grouped_plan(tuple(xc.shape), axis, g, 0, 0)
+            res = torch.empty_like(xc)
+            for cols in (1, 4) if p.cols == 4 else (1,):
+                def call(cols=cols):
+                    _build.check(_build.load().tq_tr_quantize_grouped(
+                        xc.data_ptr(), sf.data_ptr(), res.data_ptr(),
+                        p.outer, p.n, p.inner, g, bits, k, 0, cols,
+                        _build.stream(xc.device)), "tq_tr_quantize_grouped")
+                call()
+                torch.cuda.synchronize()
+                if not torch.equal(res, want):
+                    sys.exit(f"B2 at {name}, {cols} columns a thread, "
+                             "differs from the plain version")
+                row[f"cols{cols}_ms"] = device_ms(torch, call)
+        out[name] = row
+    x = torch.randn(784, 512, generator=gen, device=dev) * 0.05
+    sf = weight_scale(x, 4)
+    eager = min(eager_ms(torch, lambda: tk.tr_quantize(x, sf, 4, 16, 6, 0))
+                for _ in range(5))
+    setting = sum(out["resnet_" + "x".join(map(str, c))]["ms"] for c in convs)
+    return {"ms": out, "eager_ms_784x512": eager,
+            "resnet_setting_ms": setting, "resnet_convs": len(convs)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True,
@@ -183,6 +263,9 @@ def main() -> None:
     ap.add_argument("--sass", type=Path, default=None,
                     help="write the kernel library's SASS here and count "
                          "the element-wise kernels' instructions")
+    ap.add_argument("--grouped", action="store_true",
+                    help="time the grouped body (B2) at the paths' weight "
+                         "shapes instead")
     args = ap.parse_args()
     root = args.root.resolve()
 
@@ -209,6 +292,11 @@ def main() -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     sf = torch.tensor(0.05, device=dev)
+    if args.grouped:
+        print(json.dumps({"root": str(root), "card": nvidia_smi_line(),
+                          **grouped(torch, tk, _build, device_ms, eager_ms,
+                                    gen)}), flush=True)
+        return
 
     def kernels(x, xb):
         return {

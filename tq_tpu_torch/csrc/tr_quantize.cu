@@ -50,13 +50,30 @@
 //   tile: sixteen bfloat16 at once held 94 registers (two blocks an SM,
 //   against four) and ran slower in all but one timed row (PERF.md).
 //
-// The grouped body (B2) keeps its g <= 32 term masks in registers and
-// walks the planes with the reference kernel's greedy merge, so the TPU
-// kernel's lower-triangular matmul for the within-plane rank is not
-// needed: one thread a group, a grid-stride loop.  Its loads are strided
-// by g floats between neighbouring threads (uncoalesced); at the weight
-// shapes it runs on (conversion, once per tensor) that costs little.
-//
+// The grouped body (B2) reads x in place as (outer, n, inner): n the
+// grouping axis, inner the product of the trailing dimensions (every
+// caller groups along a non-last axis: dense (in, out) and the LSTM's
+// (in, 4H) on axis 0, conv HWIO on axis 2).  It moves 8 bytes an element
+// like B1 and needs no transpose.
+// * A thread takes one cell (outer, group, column): it issues the group's
+//   g loads, inner apart, before anything else, so neighbouring threads
+//   take neighbouring columns and each of a warp's g loads is one
+//   contiguous span; it writes the results back at the same addresses, so
+//   the output is contiguous in x's own layout.  The trailing partial
+//   group reads the missing elements as zeros (no terms), as the
+//   reference's zero-pad.  Blocks of 64 threads, so that small weights
+//   (the MLP's 784x512 at g = 16: 25,088 cells) still spread over every
+//   SM.  Cells are numbered in 32 bits where they fit, else in 64.
+// * The plane walk is sized to g: the instantiations for g = 8 and 16
+//   (the paths' group sizes) keep 2g words of masks, and every other g up
+//   to 32 takes the generic one.  It visits only the planes that hold a
+//   term of the group, in the reference's order, counting each plane's
+//   terms over the g masks, and stops at the plane P where the budget
+//   runs out (the cut); a second pass keeps every term of the planes
+//   before P and P's term in the first `rem` elements holding one, in
+//   ascending index: the k-way merge's order.
+// * Quotients as B1's: quantize_n from 1 / sf, read after the loads.
+
 // The element-wise body also takes bfloat16 input (the serving mode's
 // activations): the magnitude is quantized in float32 from the exact
 // widening of the input, the kept integer rounds to bfloat16 (RNE), and
@@ -313,66 +330,167 @@ __global__ void __launch_bounds__(kThreads)
   elementwise<VEC>(x, out, s, [=] { return Scale{*sf}; });
 }
 
-int blocks_for(int64_t n) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(b < (1 << 20) ? b : (1 << 20));
-}
-
-// group_size > 1: x is (n_groups, g) contiguous (the wrapper moved the
-// grouping axis last and zero-padded it).  A term at (element j, plane p)
-// is kept while the group's budget lasts, visiting planes top-down
-// ('largest') or bottom-up ('serial') and, within a plane, elements in
-// ascending index -- the order of the reference's k-way merge.
-__global__ void tr_grouped_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ sf_ptr,
-                                  float* __restrict__ out, int64_t n_groups,
-                                  int g, int bits, int budget, int serial) {
-  const float sf = *sf_ptr;
-  const float maxq = static_cast<float>((1u << bits) - 1u);
-  for (int64_t grp = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       grp < n_groups; grp += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const float* xg = x + grp * g;
-    float* og = out + grp * g;
-    uint32_t t[kMaxGroup], neg[kMaxGroup], kept[kMaxGroup];
-    uint32_t negative = 0;  // bit j: element j is < 0
-#pragma unroll
-    for (int j = 0; j < kMaxGroup; ++j) {
-      t[j] = neg[j] = kept[j] = 0u;
-      if (j < g) {
-        const float v = xg[j];
-        if (v < 0.f) negative |= 1u << j;
-        tq::term_masks(tq::quantize(v, sf, maxq), t[j], neg[j]);
-      }
-    }
-    int rem = budget;
-    for (int s = 0; s <= bits && rem > 0; ++s) {
-      const uint32_t plane = 1u << (serial ? s : bits - s);
-#pragma unroll
-      for (int j = 0; j < kMaxGroup; ++j) {
-        if (rem > 0 && (t[j] & plane)) {
-          kept[j] |= plane;
-          --rem;
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMaxGroup; ++j) {
-      if (j < g) {
-        const float sign = (negative >> j) & 1u ? -1.f : 1.f;
-        og[j] = tq::dequantize(sign, tq::kept_value(kept[j], neg[j]), sf);
-      }
-    }
-  }
-}
-
-// Variant bits of the element-wise kernels: 1 bfloat16 input, 2 int32
-// output, 4 'serial'; kScaleCopy is tr_scale_copy.
-constexpr int kScaleCopy = 8;
+// ---------------------------------------------------------------- B2
 
 template <class F>
 const void* address(F* f) {
   return reinterpret_cast<const void*>(f);
 }
+
+constexpr int kGroupedThreads = 64;
+
+// One launch of the grouped body: x as (outer, n, inner); a cell is one
+// (outer, group, column), groups = ceil(n / g).
+struct Grouped {
+  int64_t outer, n, inner, groups, cells;
+  int g;
+};
+
+// Cell t's outer index, group and column.
+template <typename I>
+__device__ __forceinline__ void cell_of(I t, I inner, I groups, int64_t& o,
+                                        int64_t& grp, int64_t& col) {
+  col = static_cast<int64_t>(t % inner);
+  const I r = t / inner;
+  grp = static_cast<int64_t>(r % groups);
+  o = static_cast<int64_t>(r / groups);
+}
+
+// The greedy merge in cut-plane form over a group's term masks t[0..G):
+// `whole` the planes kept entirely, `cut` the plane at which the budget
+// ran out (0 if it did not), `rem` the terms left for it.  kept() is
+// called once per element, in ascending index.
+template <int G, bool SERIAL>
+struct CutPlane {
+  uint32_t whole = 0u, cut = 0u;
+  int rem;
+
+  __device__ __forceinline__ CutPlane(const uint32_t (&t)[G], int budget)
+      : rem(budget) {
+    uint32_t planes = 0u;  // the planes holding a term of the group
+#pragma unroll
+    for (int j = 0; j < G; ++j) planes |= t[j];
+    while (planes != 0u && rem > 0) {
+      const uint32_t p = SERIAL ? planes & (0u - planes) : tq::top_bit(planes);
+      int c = 0;
+#pragma unroll
+      for (int j = 0; j < G; ++j) c += (t[j] & p) != 0u;
+      if (c > rem) {
+        cut = p;
+        break;
+      }
+      whole |= p;
+      rem -= c;
+      planes ^= p;
+    }
+  }
+
+  __device__ __forceinline__ uint32_t kept(uint32_t t) {
+    uint32_t k = t & whole;
+    if ((t & cut) != 0u && rem > 0) {
+      k |= cut;
+      --rem;
+    }
+    return k;
+  }
+};
+
+// One group in place: v[j] (0 where absent) becomes sign * value(kept
+// terms) * sf.
+template <int G, bool SERIAL>
+__device__ __forceinline__ void reveal_group(float (&v)[G], float sf,
+                                             float r, float maxq, bool sf_ok,
+                                             int budget) {
+  uint32_t q[G], t[G], negative = 0u;  // bit j: v[j] < 0
+#pragma unroll
+  for (int j = 0; j < G; ++j) negative |= (v[j] < 0.f ? 1u : 0u) << j;
+  tq::quantize_n(v, sf, r, maxq, sf_ok, q);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    uint32_t neg;
+    tq::term_masks(q[j], t[j], neg);
+  }
+  CutPlane<G, SERIAL> walk(t, budget);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    uint32_t tj, neg;  // neg again from q: fewer registers than keeping it
+    tq::term_masks(q[j], tj, neg);
+    const float val =
+        static_cast<float>(tq::kept_value(walk.kept(t[j]), neg));
+    v[j] = __fmul_rn((negative >> j) & 1u ? -val : val, sf);
+  }
+}
+
+// G: the group size, or kMaxGroup for any g <= 32 (s.g, read at run time).
+// COLS: columns a thread (4: 16-byte loads and stores; inner % 4 == 0 and
+// x and out 16-byte aligned, s.inner counting vectors).
+template <int G, bool SERIAL, int COLS>
+__global__ void __launch_bounds__(kGroupedThreads)
+    tr_grouped_kernel(const float* __restrict__ x,
+                      const float* __restrict__ sf_ptr,
+                      float* __restrict__ out, const Grouped s, int bits,
+                      int budget) {
+  const uint64_t t = blockIdx.x * static_cast<uint64_t>(kGroupedThreads) +
+                     threadIdx.x;
+  if (t >= static_cast<uint64_t>(s.cells)) return;
+  int64_t o, grp, col;
+  if (s.cells <= static_cast<int64_t>(UINT32_MAX))
+    cell_of<uint32_t>(static_cast<uint32_t>(t),
+                      static_cast<uint32_t>(s.inner),
+                      static_cast<uint32_t>(s.groups), o, grp, col);
+  else
+    cell_of<uint64_t>(t, s.inner, s.groups, o, grp, col);
+  const int g = G == kMaxGroup ? s.g : G;
+  const int64_t first = grp * g;
+  const int64_t left = s.n - first;  // < g in the trailing partial group
+  const int m = left < g ? static_cast<int>(left) : g;
+  const int64_t pitch = s.inner * COLS;  // floats between a group's rows
+  const int64_t at = (o * s.n + first) * pitch + col * COLS;
+  float v[COLS][G];
+  if constexpr (COLS == 1) {
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      v[0][j] = j < m ? __ldg(x + at + j * pitch) : 0.f;
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float4 w = j < m ? __ldg(reinterpret_cast<const float4*>(
+                                   x + at + j * pitch))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[0][j] = w.x;
+      v[1][j] = w.y;
+      v[2][j] = w.z;
+      v[3][j] = w.w;
+    }
+  }
+  const float sf = *sf_ptr;  // read once the loads are out
+  const float r = __frcp_rn(sf);
+  const float maxq = static_cast<float>((1u << bits) - 1u);
+  const bool sf_ok = tq::rcp_scale_ok(sf);
+#pragma unroll
+  for (int k = 0; k < COLS; ++k)
+    reveal_group<G, SERIAL>(v[k], sf, r, maxq, sf_ok, budget);
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (j < m) {
+      if constexpr (COLS == 1)
+        out[at + j * pitch] = v[0][j];
+      else
+        *reinterpret_cast<float4*>(out + at + j * pitch) =
+            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+    }
+  }
+}
+
+template <int G, int COLS>
+const void* grouped_function(bool serial) {
+  return serial ? address(&tr_grouped_kernel<G, true, COLS>)
+                : address(&tr_grouped_kernel<G, false, COLS>);
+}
+
+// Variant bits of the element-wise kernels: 1 bfloat16 input, 2 int32
+// output, 4 'serial'; kScaleCopy is tr_scale_copy.
+constexpr int kScaleCopy = 8;
 
 // The element-wise kernels by variant, with the vectors (VEC) or without.
 template <bool VEC>
@@ -463,15 +581,42 @@ extern "C" int tq_tr_elementwise_blocks_per_sm(int variant) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// The grouped body: x (float32) viewed as (outer, n, inner), grouped along
+// n by group_size (1..32); out the same layout.  cols 4 takes 16-byte
+// vectors of 4 columns a thread (inner % 4 == 0, x and out 16-byte
+// aligned), cols 1 one column.  Anything else returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int tq_tr_quantize_grouped(const float* x, const float* sf,
-                                      float* out, int64_t n_groups,
-                                      int group_size, int bits, int budget,
-                                      int serial, cudaStream_t stream) {
-  if (group_size < 1 || group_size > kMaxGroup)
+                                      float* out, int64_t outer, int64_t n,
+                                      int64_t inner, int group_size, int bits,
+                                      int budget, int serial, int cols,
+                                      cudaStream_t stream) {
+  const bool vec = cols == 4;
+  if (group_size < 1 || group_size > kMaxGroup || outer < 1 || n < 1 ||
+      inner < 1 || (cols != 1 && !vec) ||
+      (vec && (inner % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
+               reinterpret_cast<uintptr_t>(out) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  tr_grouped_kernel<<<blocks_for(n_groups), kThreads, 0, stream>>>(
-      x, sf, out, n_groups, group_size, bits, budget, serial);
-  return static_cast<int>(cudaGetLastError());
+  Grouped s;
+  s.outer = outer;
+  s.n = n;
+  s.inner = inner / cols;
+  s.g = group_size;
+  s.groups = (n + group_size - 1) / group_size;
+  s.cells = outer * s.groups * s.inner;
+  const int64_t blocks = (s.cells + kGroupedThreads - 1) / kGroupedThreads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      group_size == 8  ? (vec ? grouped_function<8, 4>(serial)
+                              : grouped_function<8, 1>(serial))
+      : group_size == 16 ? (vec ? grouped_function<16, 4>(serial)
+                                : grouped_function<16, 1>(serial))
+      : vec ? nullptr : grouped_function<kMaxGroup, 1>(serial);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&x, &sf, &out, &s, &bits, &budget};
+  return static_cast<int>(cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
+                                           dim3(kGroupedThreads), args, 0,
+                                           stream));
 }
 
 extern "C" const char* tq_error_string(int err) {
