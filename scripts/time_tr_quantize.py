@@ -34,9 +34,8 @@ sf 0.05):
 weights and its tied decoder, a transposed view of the encoder, and the
 ten distinct converted ResNet-18 conv weights), each held equal to the
 plain version first, beside its byte bound and B5 on as many elements
-(its copy ceiling); where the checkout's kernel takes 16-byte vectors of
-4 columns (``grouped_plan``), also both column widths through the C
-entry point; B2's eager call at (784, 512) (the least of 5 readings);
+(its copy ceiling); B2's eager call at (784, 512) (the least of 5
+readings);
 and B2's device time a ResNet-18 sweep setting (the 19 converted convs).
 
 ``--sass FILE`` also writes the SASS of the checkout's kernel library to
@@ -200,10 +199,10 @@ def spans(torch, tk, _build, device_ms, sf, gen) -> dict:
     return out
 
 
-def grouped(torch, tk, _build, device_ms, eager_ms, gen) -> dict:
+def grouped(torch, tk, device_ms, eager_ms, gen) -> dict:
     """B2 at every path shape (``GROUPED`` and the converted ResNet-18
-    convs): device ms, bound, copy ceiling, and both column widths where
-    the checkout has them; eager ms at (784, 512); ms a sweep setting."""
+    convs): device ms, bound and copy ceiling; eager ms at (784, 512); ms
+    a sweep setting."""
     from tq_tpu_torch.layers.common import weight_scale
     from tq_tpu_torch.models.resnet import conv_specs
 
@@ -224,29 +223,13 @@ def grouped(torch, tk, _build, device_ms, eager_ms, gen) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             sys.exit(f"B2 at {name} differs from the plain version")
-        n = x.numel()
         xc = x.contiguous()
-        row = {"ms": device_ms(torch, lambda: tk.tr_quantize(
-                   x, sf, bits, g, k, axis)),
-               "copy_ceiling_ms": device_ms(torch, lambda: tk.tr_scale_copy(
-                   xc, sf)),
-               "bound_ms": 8 * n / 3.35e12 * 1e3}
-        if hasattr(tk, "grouped_plan"):
-            p = tk.grouped_plan(tuple(xc.shape), axis, g, 0, 0)
-            res = torch.empty_like(xc)
-            for cols in (1, 4) if p.cols == 4 else (1,):
-                def call(cols=cols):
-                    _build.check(_build.load().tq_tr_quantize_grouped(
-                        xc.data_ptr(), sf.data_ptr(), res.data_ptr(),
-                        p.outer, p.n, p.inner, g, bits, k, 0, cols,
-                        _build.stream(xc.device)), "tq_tr_quantize_grouped")
-                call()
-                torch.cuda.synchronize()
-                if not torch.equal(res, want):
-                    sys.exit(f"B2 at {name}, {cols} columns a thread, "
-                             "differs from the plain version")
-                row[f"cols{cols}_ms"] = device_ms(torch, call)
-        out[name] = row
+        out[name] = {
+            "ms": device_ms(torch, lambda: tk.tr_quantize(x, sf, bits, g, k,
+                                                         axis)),
+            "copy_ceiling_ms": device_ms(torch, lambda: tk.tr_scale_copy(
+                xc, sf)),
+            "bound_ms": 8 * x.numel() / 3.35e12 * 1e3}
     x = torch.randn(784, 512, generator=gen, device=dev) * 0.05
     sf = weight_scale(x, 4)
     eager = min(eager_ms(torch, lambda: tk.tr_quantize(x, sf, 4, 16, 6, 0))
@@ -294,8 +277,8 @@ def main() -> None:
     sf = torch.tensor(0.05, device=dev)
     if args.grouped:
         print(json.dumps({"root": str(root), "card": nvidia_smi_line(),
-                          **grouped(torch, tk, _build, device_ms, eager_ms,
-                                    gen)}), flush=True)
+                          **grouped(torch, tk, device_ms, eager_ms, gen)}),
+              flush=True)
         return
 
     def kernels(x, xb):

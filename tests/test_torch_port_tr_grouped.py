@@ -5,12 +5,11 @@ The CUDA kernel (``csrc/tr_quantize.cu::tr_grouped_kernel``) runs only on
 the card, where ``chip_smoke.py`` holds it bit for bit against the plain
 version.  Here :func:`_emulate` repeats it step for step:
 
-* the index map: ``x`` viewed in place as ``(outer, n, inner)``, a thread
-  per cell (outer, group, column) of :func:`grouped_plan`'s columns (1, or
-  4 with 16-byte vectors), reading the group's elements ``inner`` apart
-  and writing the results back at the same addresses; every element is
-  read and written exactly once, on every axis, with a trailing partial
-  group;
+* the index map: ``x`` viewed in place as ``(outer, n, inner)``
+  (:func:`grouped_view`), a thread per cell (outer, group, column),
+  reading the group's elements ``inner`` apart and writing the results
+  back at the same addresses; every element is read and written exactly
+  once, on every axis, with a trailing partial group;
 * the plane walk in cut-plane form: the planes holding a term of the
   group visited in the reference's order, each plane's terms counted,
   the walk stopped at the plane where the budget runs out, then the
@@ -34,26 +33,22 @@ jk = importlib.import_module("tq_tpu.kernels.tr_quantize")
 MAX_GROUP = 32  # the generic instantiation's width (kMaxGroup)
 
 
-def _cells(shape, axis, g, cols):
-    """Every thread's (flat element index of its group's row j, column k)
-    as the kernel's cell_of and address arithmetic give them: int64
-    ``(cells, G, cols)`` addresses, -1 where the row is absent (past the
-    trailing partial group or the generic width's g)."""
-    p = tk.grouped_plan(tuple(shape), axis, g, 0, 0)
-    width = p.inner // cols  # the kernel's s.inner
-    groups = -(-p.n // g)
-    cells = p.outer * groups * width
-    t = np.arange(cells, dtype=np.int64)
-    col, r = t % width, t // width
+def _cells(shape, axis, g):
+    """Every thread's flat element index of its group's row j, as the
+    kernel's cell_of and address arithmetic give them: int64 ``(cells, G)``
+    addresses, -1 where the row is absent (past the trailing partial group
+    or, in the generic instantiation, past g)."""
+    outer, n, inner = tk.grouped_view(tuple(shape), axis)
+    groups = -(-n // g)
+    t = np.arange(outer * groups * inner, dtype=np.int64)
+    col, r = t % inner, t // inner
     grp, o = r % groups, r // groups
     first = grp * g
-    m = np.minimum(g, p.n - first)  # rows present
-    at = (o * p.n + first) * p.inner + col * cols
-    G = g if g in tk._VEC_GROUPS else MAX_GROUP
-    j = np.arange(G)
-    addr = (at[:, None, None] + j[None, :, None] * p.inner
-            + np.arange(cols)[None, None, :])
-    return np.where((j < m[:, None])[:, :, None], addr, -1)
+    m = np.minimum(g, n - first)  # rows present
+    at = (o * n + first) * inner + col
+    j = np.arange(g if g in (8, 16) else MAX_GROUP)
+    addr = at[:, None] + j[None, :] * inner
+    return np.where(j < m[:, None], addr, -1)
 
 
 def _walk(t: np.ndarray, budget: int, serial: bool):
@@ -98,17 +93,15 @@ def _masks(v: np.ndarray, sf: np.float32, bits: int):
 
 
 def _emulate(x: np.ndarray, sf: np.float32, bits: int, g: int, budget: int,
-             axis: int, serial: bool, cols: int = 1):
+             axis: int, serial: bool):
     """The kernel's output on float32 ``x``, and how often it read and
     wrote each element."""
-    addr = _cells(x.shape, axis, g, cols)
+    addr = _cells(x.shape, axis, g)
     flat = x.reshape(-1)
     present = addr >= 0
     reads = np.bincount(addr[present], minlength=flat.size)
-    cells, G, _ = addr.shape
-    # Per column k a group of G values, v = 0 where absent.
+    G = addr.shape[1]
     v = np.where(present, flat[np.where(present, addr, 0)], np.float32(0))
-    v = v.transpose(0, 2, 1).reshape(cells * cols, G)
     q, t, neg = _masks(v, sf, bits)
     whole, cut, rem = _walk(t, budget, serial)
     res = np.empty_like(v)
@@ -121,7 +114,6 @@ def _emulate(x: np.ndarray, sf: np.float32, bits: int, g: int, budget: int,
                - ((kept & neg[:, j]).astype(np.int64) << 1))
         m = val.astype(np.float32)
         res[:, j] = np.where(v[:, j] < 0, -m, m) * sf
-    res = res.reshape(cells, cols, G).transpose(0, 2, 1)
     out = np.full_like(flat, np.nan)
     writes = np.bincount(addr[present], minlength=flat.size)
     out[addr[present]] = res[present]
@@ -133,32 +125,24 @@ def _emulate(x: np.ndarray, sf: np.float32, bits: int, g: int, budget: int,
     ((5, 19, 10), 0), ((5, 19, 10), 1), ((5, 19, 10), 2),  # inner 10, 1
     ((3, 3, 21, 3), 0), ((3, 3, 21, 3), 1), ((3, 3, 21, 3), 2),  # inner 3
     ((3, 3, 21, 3), 3), ((3, 3, 21, 3), -2),
-    ((2, 45, 64), 1), ((3, 3, 20, 12), 2)])                # 16-byte vectors
+    ((2, 45, 64), 1), ((3, 3, 20, 12), 2)])
 @pytest.mark.parametrize("g", [3, 8, 16])
 def test_index_map_reads_and_writes_every_element_once(shape, axis, g):
     x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
-    for x_addr in (0, 4):
-        cols = tk.grouped_plan(shape, axis, g, x_addr, 0).cols
-        assert cols == (4 if g in (8, 16) and x_addr == 0
-                        and np.prod(shape[axis % len(shape) + 1:]) % 4 == 0
-                        else 1)
-        out, reads, writes = _emulate(x, np.float32(0.05), 9, g, 12, axis,
-                                      False, cols)
-        assert (reads == 1).all() and (writes == 1).all()
-        # The output lies in x's own layout: the plain version's values.
-        want = tk.tr_quantize_ref(torch.from_numpy(x), torch.tensor(0.05),
-                                  9, g, 12, axis).numpy()
-        np.testing.assert_array_equal(out, want)
+    out, reads, writes = _emulate(x, np.float32(0.05), 9, g, 12, axis, False)
+    assert (reads == 1).all() and (writes == 1).all()
+    # The output lies in x's own layout: the plain version's values.
+    want = tk.tr_quantize_ref(torch.from_numpy(x), torch.tensor(0.05), 9, g,
+                              12, axis).numpy()
+    np.testing.assert_array_equal(out, want)
 
 
-def test_grouped_plan_views_x_in_place():
-    p = tk.grouped_plan((3, 3, 512, 512), 2, 8, 0, 0)
-    assert p == tk.GroupedPlan(9, 512, 512, 4)
-    assert tk.grouped_plan((784, 512), 0, 16, 0, 0) == (1, 784, 512, 4)
-    assert tk.grouped_plan((650, 2600), 0, 8, 4, 0).cols == 1  # x off 16 B
-    assert tk.grouped_plan((512, 10), 0, 16, 0, 0).cols == 1  # 10 % 4
-    assert tk.grouped_plan((24, 64), -1, 8, 0, 0) == (24, 64, 1, 1)
-    assert tk.grouped_plan((24, 64), 0, 2, 0, 0).cols == 1  # generic g
+def test_grouped_view_reads_x_in_place():
+    assert tk.grouped_view((3, 3, 512, 512), 2) == (9, 512, 512)
+    assert tk.grouped_view((3, 3, 512, 512), -2) == (9, 512, 512)
+    assert tk.grouped_view((784, 512), 0) == (1, 784, 512)
+    assert tk.grouped_view((24, 64), -1) == (24, 64, 1)
+    assert tk.grouped_view((7,), 0) == (1, 7, 1)
 
 
 @pytest.mark.parametrize("shape,axis,g", [
@@ -167,15 +151,15 @@ def test_grouped_plan_views_x_in_place():
 def test_cell_numbering_past_32_bits(shape, axis, g):
     """Past 2^32 cells the kernel numbers them in 64 bits: the last cell's
     last row is x's last element (Python integers, as the 64-bit path)."""
-    p = tk.grouped_plan(shape, axis, g, 0, 0)
-    groups = -(-p.n // g)
-    cells = p.outer * groups * p.inner
+    outer, n, inner = tk.grouped_view(shape, axis)
+    groups = -(-n // g)
+    cells = outer * groups * inner
     assert cells > 2**32
     t = cells - 1
-    col, r = t % p.inner, t // p.inner
+    col, r = t % inner, t // inner
     grp, o = r % groups, r // groups
-    m = min(g, p.n - grp * g)
-    last = (o * p.n + grp * g) * p.inner + col + (m - 1) * p.inner
+    m = min(g, n - grp * g)
+    last = (o * n + grp * g) * inner + col + (m - 1) * inner
     assert last == np.prod(shape, dtype=object) - 1
 
 

@@ -422,9 +422,7 @@ __device__ __forceinline__ void reveal_group(float (&v)[G], float sf,
 }
 
 // G: the group size, or kMaxGroup for any g <= 32 (s.g, read at run time).
-// COLS: columns a thread (4: 16-byte loads and stores; inner % 4 == 0 and
-// x and out 16-byte aligned, s.inner counting vectors).
-template <int G, bool SERIAL, int COLS>
+template <int G, bool SERIAL>
 __global__ void __launch_bounds__(kGroupedThreads)
     tr_grouped_kernel(const float* __restrict__ x,
                       const float* __restrict__ sf_ptr,
@@ -444,48 +442,25 @@ __global__ void __launch_bounds__(kGroupedThreads)
   const int64_t first = grp * g;
   const int64_t left = s.n - first;  // < g in the trailing partial group
   const int m = left < g ? static_cast<int>(left) : g;
-  const int64_t pitch = s.inner * COLS;  // floats between a group's rows
-  const int64_t at = (o * s.n + first) * pitch + col * COLS;
-  float v[COLS][G];
-  if constexpr (COLS == 1) {
+  const int64_t at = (o * s.n + first) * s.inner + col;
+  float v[G];
 #pragma unroll
-    for (int j = 0; j < G; ++j)
-      v[0][j] = j < m ? __ldg(x + at + j * pitch) : 0.f;
-  } else {
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const float4 w = j < m ? __ldg(reinterpret_cast<const float4*>(
-                                   x + at + j * pitch))
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[0][j] = w.x;
-      v[1][j] = w.y;
-      v[2][j] = w.z;
-      v[3][j] = w.w;
-    }
-  }
+  for (int j = 0; j < G; ++j)
+    v[j] = j < m ? __ldg(x + at + j * s.inner) : 0.f;
   const float sf = *sf_ptr;  // read once the loads are out
   const float r = __frcp_rn(sf);
   const float maxq = static_cast<float>((1u << bits) - 1u);
   const bool sf_ok = tq::rcp_scale_ok(sf);
+  reveal_group<G, SERIAL>(v, sf, r, maxq, sf_ok, budget);
 #pragma unroll
-  for (int k = 0; k < COLS; ++k)
-    reveal_group<G, SERIAL>(v[k], sf, r, maxq, sf_ok, budget);
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    if (j < m) {
-      if constexpr (COLS == 1)
-        out[at + j * pitch] = v[0][j];
-      else
-        *reinterpret_cast<float4*>(out + at + j * pitch) =
-            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-    }
-  }
+  for (int j = 0; j < G; ++j)
+    if (j < m) out[at + j * s.inner] = v[j];
 }
 
-template <int G, int COLS>
+template <int G>
 const void* grouped_function(bool serial) {
-  return serial ? address(&tr_grouped_kernel<G, true, COLS>)
-                : address(&tr_grouped_kernel<G, false, COLS>);
+  return serial ? address(&tr_grouped_kernel<G, true>)
+                : address(&tr_grouped_kernel<G, false>);
 }
 
 // Variant bits of the element-wise kernels: 1 bfloat16 input, 2 int32
@@ -582,37 +557,28 @@ extern "C" int tq_tr_elementwise_blocks_per_sm(int variant) {
 }
 
 // The grouped body: x (float32) viewed as (outer, n, inner), grouped along
-// n by group_size (1..32); out the same layout.  cols 4 takes 16-byte
-// vectors of 4 columns a thread (inner % 4 == 0, x and out 16-byte
-// aligned), cols 1 one column.  Anything else returns
+// n by group_size (1..32); out the same layout.  Anything else returns
 // cudaErrorInvalidValue and launches nothing.
 extern "C" int tq_tr_quantize_grouped(const float* x, const float* sf,
                                       float* out, int64_t outer, int64_t n,
                                       int64_t inner, int group_size, int bits,
-                                      int budget, int serial, int cols,
+                                      int budget, int serial,
                                       cudaStream_t stream) {
-  const bool vec = cols == 4;
   if (group_size < 1 || group_size > kMaxGroup || outer < 1 || n < 1 ||
-      inner < 1 || (cols != 1 && !vec) ||
-      (vec && (inner % 4 || reinterpret_cast<uintptr_t>(x) % 16 ||
-               reinterpret_cast<uintptr_t>(out) % 16)))
+      inner < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Grouped s;
   s.outer = outer;
   s.n = n;
-  s.inner = inner / cols;
+  s.inner = inner;
   s.g = group_size;
   s.groups = (n + group_size - 1) / group_size;
   s.cells = outer * s.groups * s.inner;
   const int64_t blocks = (s.cells + kGroupedThreads - 1) / kGroupedThreads;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const void* fn =
-      group_size == 8  ? (vec ? grouped_function<8, 4>(serial)
-                              : grouped_function<8, 1>(serial))
-      : group_size == 16 ? (vec ? grouped_function<16, 4>(serial)
-                                : grouped_function<16, 1>(serial))
-      : vec ? nullptr : grouped_function<kMaxGroup, 1>(serial);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = group_size == 8    ? grouped_function<8>(serial)
+                   : group_size == 16 ? grouped_function<16>(serial)
+                                      : grouped_function<kMaxGroup>(serial);
   void* args[] = {&x, &sf, &out, &s, &bits, &budget};
   return static_cast<int>(cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
                                            dim3(kGroupedThreads), args, 0,

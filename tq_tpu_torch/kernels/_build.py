@@ -49,10 +49,9 @@ SIGNATURES = {
     "tq_tr_scale_copy": [_P, _P, _P, _I64, _I64, _I64, _I, _P],
     # variant -> blocks of that element-wise kernel an SM runs at once
     "tq_tr_elementwise_blocks_per_sm": [_I],
-    # x, sf, out, outer, n, inner, group_size, bits, budget, serial, cols,
-    # stream
+    # x, sf, out, outer, n, inner, group_size, bits, budget, serial, stream
     "tq_tr_quantize_grouped": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I,
-                               _I, _P],
+                               _P],
     # x, w, signs, sf, w_sf, out, ws, M, N, K, bits, budget, mode, wfmt,
     # quantize_x, splits, k_per_split, kernel, row_tile, stream
     "tq_term_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -16,7 +16,9 @@ cast to bfloat16.  :func:`tr_scale_copy` is the element-wise body's grid
 with a body that only scales: the copy ceiling it is timed against.
 :func:`plan` sizes both launches: 16-byte vectors where ``x`` and the
 output can be aligned together, on whole waves of blocks, the rest one
-element at a time; a small ``x`` one element a thread.
+element at a time; a small ``x`` one element a thread.  The grouped body
+reads ``x`` in place (:func:`grouped_view`), with no transpose or pad,
+and returns a contiguous tensor of x's shape.
 
 The helpers below are the loop-free int32 bit-mask math of the TPU
 kernel's element-wise body, as tensor ops; the plain version uses them and
@@ -37,13 +39,11 @@ from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
 __all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
            "tr_quantize_int_ref", "tr_scale_copy", "tr_scale_copy_ref",
            "max_hese_terms", "MAX_BITS", "plan", "ElementwisePlan",
-           "grouped_plan", "GroupedPlan"]
+           "grouped_view"]
 
 _KEEP_MODES = ("largest", "serial")
 MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
 _MAX_GROUP = 32  # the grouped kernel keeps a group's masks in registers
-# Group sizes whose grouped kernel also takes 4 columns a thread.
-_VEC_GROUPS = (8, 16)
 # More terms than any group holds: a budget past it keeps everything.
 _BUDGET_CAP = _MAX_GROUP * (MAX_BITS + 1)
 # The element-wise kernels' blocks, and the 16-byte vectors of x a thread
@@ -289,30 +289,14 @@ def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool,
     return out
 
 
-class GroupedPlan(NamedTuple):
-    """How the grouped kernel views ``x`` (:func:`grouped_plan`)."""
-
-    outer: int  # product of the dimensions before the grouping axis
-    n: int      # length of the grouping axis
-    inner: int  # product of the dimensions after it: the row pitch
-    cols: int   # columns a thread: 4 (16-byte vectors) or 1
-
-
-@functools.lru_cache(maxsize=1024)  # pure: computed once per shape
-def grouped_plan(shape: tuple, axis: int, group_size: int, x_addr: int,
-                 out_addr: int) -> GroupedPlan:
-    """The grouped kernel's view of a contiguous ``x`` of ``shape``,
-    grouped along ``axis``, at byte addresses ``x_addr`` and ``out_addr``
-    (modulo 16): ``(outer, n, inner)``, read in place.  A thread takes 4
-    columns with 16-byte loads where the kernel has that instantiation
-    (g = 8 and 16), the rows are whole vectors and both pointers align;
-    else one column."""
+def grouped_view(shape: tuple, axis: int) -> tuple[int, int, int]:
+    """``(outer, n, inner)``: how the grouped kernel reads a contiguous
+    ``x`` of ``shape`` in place, grouped along ``axis`` of length n; outer
+    and inner are the products of the dimensions before and after it
+    (inner is the row pitch)."""
     axis = axis % len(shape)
-    inner = math.prod(shape[axis + 1:])
-    vec = (group_size in _VEC_GROUPS and inner % 4 == 0
-           and x_addr % _VECTOR_BYTES == 0 and out_addr % _VECTOR_BYTES == 0)
-    return GroupedPlan(math.prod(shape[:axis]), shape[axis], inner,
-                       4 if vec else 1)
+    return (math.prod(shape[:axis]), shape[axis],
+            math.prod(shape[axis + 1:]))
 
 
 def _launch_grouped(x, sf, bits, group_size, budget, axis, keep_mode):
@@ -325,14 +309,11 @@ def _launch_grouped(x, sf, bits, group_size, budget, axis, keep_mode):
     xc = x.contiguous()
     out = torch.empty_like(xc)
     if xc.numel():
-        p = grouped_plan(tuple(xc.shape), axis, group_size,
-                         xc.data_ptr() % _VECTOR_BYTES,
-                         out.data_ptr() % _VECTOR_BYTES)
         _build.check(_build.load().tq_tr_quantize_grouped(
-            xc.data_ptr(), sf.data_ptr(), out.data_ptr(), p.outer, p.n,
-            p.inner, group_size, bits, min(budget, _BUDGET_CAP),
-            int(keep_mode == "serial"), p.cols, _build.stream(x.device)),
-            "tq_tr_quantize_grouped")
+            xc.data_ptr(), sf.data_ptr(), out.data_ptr(),
+            *grouped_view(tuple(xc.shape), axis), group_size, bits,
+            min(budget, _BUDGET_CAP), int(keep_mode == "serial"),
+            _build.stream(x.device)), "tq_tr_quantize_grouped")
         tr_quantize.launches["grouped"] += 1
     return out
 
