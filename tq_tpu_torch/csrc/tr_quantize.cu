@@ -63,7 +63,10 @@
 //   group reads the missing elements as zeros (no terms), as the
 //   reference's zero-pad.  Blocks of 64 threads, so that small weights
 //   (the MLP's 784x512 at g = 16: 25,088 cells) still spread over every
-//   SM.  Cells are numbered in 32 bits where they fit, else in 64.
+//   SM: at those sizes a thread's chain, not the bytes, sets the time, so
+//   more, shorter threads win (four columns a thread on 16-byte loads ran
+//   up to 2x slower there, and 3% faster at 3x3x512x512 only: PERF.md).
+//   Cells are numbered in 32 bits where they fit, else in 64.
 // * The plane walk is sized to g: the instantiations for g = 8 and 16
 //   (the paths' group sizes) keep 2g words of masks, and every other g up
 //   to 32 takes the generic one.  It visits only the planes that hold a
@@ -73,6 +76,10 @@
 //   before P and P's term in the first `rem` elements holding one, in
 //   ascending index: the k-way merge's order.
 // * Quotients as B1's: quantize_n from 1 / sf, read after the loads.
+// Bound: 46 registers at g = 8, 64 at g = 16 (the generic 141).  At
+// 3x3x512x512 (g = 8) it runs at 56% of its byte bound and 2.3x B5 on as
+// many elements: its arithmetic (quotient, masks, the walk, the kept
+// value), not the bytes, binds it (PERF.md).
 
 // The element-wise body also takes bfloat16 input (the serving mode's
 // activations): the magnitude is quantized in float32 from the exact
