@@ -349,7 +349,7 @@ constexpr int kGroupedThreads = 64;
 // One launch of the grouped body: x as (outer, n, inner); a cell is one
 // (outer, group, column), groups = ceil(n / g).
 struct Grouped {
-  int64_t outer, n, inner, groups, cells;
+  int64_t n, inner, groups, cells;
   int g;
 };
 
@@ -422,9 +422,8 @@ __device__ __forceinline__ void reveal_group(float (&v)[G], float sf,
   for (int j = 0; j < G; ++j) {
     uint32_t tj, neg;  // neg again from q: fewer registers than keeping it
     tq::term_masks(q[j], tj, neg);
-    const float val =
-        static_cast<float>(tq::kept_value(walk.kept(t[j]), neg));
-    v[j] = __fmul_rn((negative >> j) & 1u ? -val : val, sf);
+    v[j] = tq::dequantize((negative >> j) & 1u ? -1.f : 1.f,
+                          tq::kept_value(walk.kept(t[j]), neg), sf);
   }
 }
 
@@ -574,22 +573,17 @@ extern "C" int tq_tr_quantize_grouped(const float* x, const float* sf,
   if (group_size < 1 || group_size > kMaxGroup || outer < 1 || n < 1 ||
       inner < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Grouped s;
-  s.outer = outer;
-  s.n = n;
-  s.inner = inner;
-  s.g = group_size;
-  s.groups = (n + group_size - 1) / group_size;
-  s.cells = outer * s.groups * s.inner;
+  const int64_t groups = (n + group_size - 1) / group_size;
+  Grouped s{n, inner, groups, outer * groups * inner, group_size};
   const int64_t blocks = (s.cells + kGroupedThreads - 1) / kGroupedThreads;
   if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = group_size == 8    ? grouped_function<8>(serial)
                    : group_size == 16 ? grouped_function<16>(serial)
                                       : grouped_function<kMaxGroup>(serial);
   void* args[] = {&x, &sf, &out, &s, &bits, &budget};
-  return static_cast<int>(cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
-                                           dim3(kGroupedThreads), args, 0,
-                                           stream));
+  return static_cast<int>(
+      cudaLaunchKernel(fn, dim3(static_cast<unsigned>(blocks)),
+                       dim3(kGroupedThreads), args, 0, stream));
 }
 
 extern "C" const char* tq_error_string(int err) {
