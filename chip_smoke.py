@@ -16,7 +16,8 @@ non-zero without printing a result:
    every axis with inner 1, 10 and others, trailing partial groups,
    g = 8, 16 and generic ones, x off 16 bytes and in another layout, its
    output contiguous, and timed at the MLP's and the LSTM's weight
-   shapes beside B5 on as many elements), ``term_matmul``
+   shapes beside B5 on as many elements; the element-wise body also
+   timed at the LSTM's activation shapes), ``term_matmul``
    (f32 mode on float32 weights, quantized and raw input, at M > 8: the
    tensor-core kernel, and the tiled kernel it replaced) within
    rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
@@ -61,7 +62,8 @@ non-zero without printing a result:
    budget for bits 1..9), the grouped body on every converted conv's HWIO
    weight (g=8, axis 2; each shape timed, and a sweep setting's sum);
    ``tr_scale_copy`` (B1's copy ceiling) equal to ``x * sf``; each timed
-   beside its bound, B5 beside ``torch.mul``;
+   (device, eager, plain version) beside its bound, B5 beside
+   ``torch.mul``;
 10. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
     wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
     ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
@@ -608,13 +610,26 @@ def phase_kernels(torch):
     n = w1.numel()
     b, by = bound_ms(8 * n, 6 * n)
     edges = _elementwise_edges(torch, exact, dev)
+    # ... and at the LSTM's activations (bits 9, 3 terms): the serving
+    # generator's, one layer's h or c at the sweep's batch 10, a 35-step
+    # chunk's embeddings.
+    lstm_shapes = {}
+    for shape in [(1, 650), (10, 650), (350, 650)]:
+        x = randn(*shape, scale=2.0)
+        s5 = torch.tensor(0.05, device=dev)
+        exact(f"elementwise {shape}", tr_quantize(x, s5, 9, 1, 3),
+              tr_quantize_ref(x, s5, 9, 1, 3))
+        lstm_shapes["x".join(map(str, shape))] = dict(
+            **timings(torch, lambda: tr_quantize(x, s5, 9, 1, 3),
+                      lambda: tr_quantize_ref(x, s5, 9, 1, 3)),
+            bound_ms=bound_ms(8 * x.numel(), 0)[0])
     results["tr_quantize_elementwise"] = dict(
         cases=n_cases + edges["cases"], edge_routes=edges["routes"],
         shape=[784, 512],
         max_abs_err=float((out - ref).abs().max()),
         **timings(torch, lambda: tr_quantize(w1, sf, 6, 1, 6),
                   lambda: tr_quantize_ref(w1, sf, 6, 1, 6)),
-        bound_ms=b, bound_by=by)
+        bound_ms=b, bound_by=by, per_shape=lstm_shapes)
 
     # tr_quantize grouped, read in place as (outer, n, inner): the grouping
     # axis last (inner 1) and not, inner 10, trailing partial groups on a
@@ -672,7 +687,8 @@ def phase_kernels(torch):
               tr_quantize_ref(x, wsf, bits, g, k, 0))
         per_shape["x".join(map(str, shape))] = dict(
             group_size=g, bits=bits, terms=k, transposed=transposed,
-            ms=device_ms(torch, lambda: tr_quantize(x, wsf, bits, g, k, 0)),
+            **timings(torch, lambda: tr_quantize(x, wsf, bits, g, k, 0),
+                      lambda: tr_quantize_ref(x, wsf, bits, g, k, 0)),
             copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(xc, wsf)),
             bound_ms=bound_ms(8 * x.numel(), 0)[0])
     results["tr_quantize_grouped"] = dict(
@@ -1464,29 +1480,27 @@ def phase_cnn_kernels(torch):
                         bound_ms=b, bound_by=by)
             library = (lambda: torch.mul(x, sf)) if name == "tr_scale_copy" \
                 else None
+            cell.update(timings(torch, kernel, plain, library))
             if shape == RESNET_ACTIVATIONS[0]:
-                cell.update(timings(torch, kernel, plain, library))
                 rows[name] = cell
-            else:
-                cell.update(ms=device_ms(torch, kernel),
-                            library_ms=device_ms(torch, library)
-                            if library else None)
-            cells[name] = {k: cell[k] for k in ("ms", "library_ms",
-                                                "bound_ms", "bound_by",
-                                                "max_abs_err")}
+            cells[name] = {k: cell[k] for k in ("ms", "eager_ms", "plain_ms",
+                                                "library_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}
         per_shape["x".join(map(str, shape))] = cells
     for name in ("tr_quantize_elementwise", "tr_quantize_elementwise_bf16"):
         rows[name]["copy_ceiling_ms"] = rows["tr_scale_copy"]["ms"]
         rows[name]["int_out"] = rows.pop(name + "_int")
         rows[name]["per_shape"] = {
-            s: {"ms": c[name]["ms"], "int_out_ms": c[name + "_int"]["ms"],
+            s: {"ms": c[name]["ms"], "eager_ms": c[name]["eager_ms"],
+                "plain_ms": c[name]["plain_ms"],
+                "int_out_ms": c[name + "_int"]["ms"],
                 "bound_ms": c[name]["bound_ms"],
                 "int_out_bound_ms": c[name + "_int"]["bound_ms"],
                 "copy_ceiling_ms": c["tr_scale_copy"]["ms"]}
             for s, c in per_shape.items()}
     rows["tr_scale_copy"]["per_shape"] = {
-        s: {k: c["tr_scale_copy"][k] for k in ("ms", "library_ms",
-                                               "bound_ms")}
+        s: {k: c["tr_scale_copy"][k] for k in ("ms", "eager_ms", "plain_ms",
+                                               "library_ms", "bound_ms")}
         for s, c in per_shape.items()}
 
     # B2 on every converted conv's weight shape, at the flagship's (9, 8, 12)
@@ -1506,15 +1520,17 @@ def phase_cnn_kernels(torch):
                        tr_quantize(w, wsf, 9, 8, wt, 2, mode),
                        tr_quantize_ref(w, wsf, 9, 8, wt, 2, mode))
                 g_cases += 1
-    # Each conv shape's time, and B2's device time a sweep setting (the
-    # converted convs at the flagship's setting).
-    conv_ms = {}
+    # Each conv shape's times and bound, and B2's device time a sweep
+    # setting (the converted convs at the flagship's setting).
+    per_conv = {}
     for shape, w in weights.items():
         wsf = weight_scale(w, 9)
-        conv_ms["x".join(map(str, shape))] = device_ms(
-            torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2))
-    setting_ms = sum(conv_ms["x".join(map(str, (s.kh, s.kw, s.in_ch,
-                                                 s.out_ch)))]
+        per_conv["x".join(map(str, shape))] = dict(
+            **timings(torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2),
+                      lambda: tr_quantize_ref(w, wsf, 9, 8, 12, 2)),
+            bound_ms=bound_ms(8 * w.numel(), 0)[0])
+    setting_ms = sum(per_conv["x".join(map(str, (s.kh, s.kw, s.in_ch,
+                                                  s.out_ch)))]["ms"]
                      for s in conv_specs()[1:])
     w = weights[(3, 3, 512, 512)]
     wsf = weight_scale(w, 9)
@@ -1527,7 +1543,7 @@ def phase_cnn_kernels(torch):
                   lambda: tr_quantize_ref(w, wsf, 9, 8, 12, 2)),
         # B5 on as many elements: what B2's 8 bytes an element cost alone.
         copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(w, wsf)),
-        per_conv_shape_ms=conv_ms, sweep_setting_ms=setting_ms,
+        per_shape=per_conv, sweep_setting_ms=setting_ms,
         bound_ms=b, bound_by=by)
     emit({"phase": "cnn_kernels", "ok": True, "bf16_cases": n_cases,
           "results": rows})
