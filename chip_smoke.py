@@ -77,12 +77,33 @@ non-zero without printing a result:
     published grid (15 settings, 512 synthetic images, batch 64): tmacs,
     avg_terms and params equal to ``results/resnet18-results.json``, the
     flagship setting's 19 calibrated scales equal to the JAX package's
-    (or near-ties on the card's histogram).
+    (or near-ties on the card's histogram);
+12. ``zoo_kernels``: ``tr_quantize`` at the rest of the CNN zoo's shapes,
+    bit for bit and timed: the element-wise body in float32 and bfloat16
+    on VGG's (64, 224, 224, 64) and MobileNet's / EfficientNet's (64, 112,
+    112, 96) (swish outputs: signed), at bits 16 with 16 terms on the
+    exempt depthwise weights, on squeeze-excite inputs (64, 1, 1, C); the
+    grouped body at g = 2 and 32 (its generic instantiation) on (3, 3,
+    512, 512) at every alpha of the group-size grid, and at g = 8 on (1,
+    1, 1152, 320);
+13. ``cnn_zoo``: VGG-16-bn, MobileNet-v2, EfficientNet-b0 and AlexNet at
+    224x224 on ``zoo_params``' seeded weights: the flagship's program
+    (batch 8) and its bf16 mode, then ``run_sweep`` over the arch's
+    published grid on 64 synthetic images; the logits against the JAX
+    package's (``EXPECTED_ZOO``) within ZOO_LOGIT_RTOL, each converted conv
+    card against CPU within LAYER_RTOL on the same input (boundary flips
+    counted), the bf16 mode within 0.2 of the float32 one, the sweep's
+    tmacs, avg_terms and params equal to ``results/``, its (9, 8, 12, 9,
+    3) scales equal to the JAX package's (or near-ties);
+14. ``group_size``: ``evals/group_size.py``'s ``run_grid('resnet18')``
+    over all 25 settings (64 synthetic images): tmacs and avg_terms equal
+    to ``results/resnet18-group-size-results.json``, the grouped body
+    launched at every g > 1.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.  ``--only mlp|lstm|cnn`` runs the build
-and those groups of phases only (phases 2-5, 6-8, 9-11).
+device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo`` runs the
+build and those groups of phases only (phases 2-5, 6-8, 9-11, 12-14).
 """
 
 from __future__ import annotations
@@ -210,6 +231,212 @@ EXPECTED_CNN = {
             "layer4.0.downsample.0": 0.04885198920965195,
             "layer4.1.conv1": 0.04885198920965195,
             "layer4.1.conv2": 0.04885198920965195,
+        },
+    },
+}
+
+# The rest of the CNN zoo at 224x224 on zoo_params(arch, ZOO_SEED)'s
+# weights.  The flagship's program (wb=9, g=8, wt=12, db=9, dt=3, every sf
+# 0.05) on ZOO_PROGRAM["batch"] images of numpy normals from seed 0, and the
+# sweep's (9, 8, 12, 9, 3) scales after its calibration pass (the first
+# synthetic batch of 64), in conversion order; AlexNet, which has no
+# published file, with its sweep's deterministic columns.  From the JAX
+# package on the CPU, printed by
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_port_zoo --expected``.
+ZOO_ARCHS = ("vgg16_bn", "mobilenet_v2", "efficientnet_b0", "alexnet")
+ZOO_SEED = 0
+ZOO_PROGRAM = dict(tr=(9, 8, 12), db=9, dt=3, sf=0.05, batch=8, image=224)
+EXPECTED_ZOO = {
+    "vgg16_bn": {
+        "program": {
+            "top1": [795, 795, 795, 480, 795, 795, 795, 416],
+            "top2_margin": [0.0022505521774291992, 0.006171766668558121,
+                            0.004045501351356506, 0.0019608065485954285,
+                            0.0007551982998847961, 0.0005882158875465393,
+                            0.0027087144553661346, 9.217113256454468e-05],
+            "mean": 5.9606015565805135e-06,
+            "std": 0.02221569462975415,
+            "max_abs": 0.06998812407255173,
+            "row_max": [0.06403996050357819, 0.06824380904436111,
+                        0.06349945813417435, 0.06341642886400223,
+                        0.06604239344596863, 0.06335555016994476,
+                        0.06486225873231888, 0.06377570331096649],
+            "first": [0.02200012281537056, 0.0038333176635205746,
+                      -0.02646070346236229, 0.010045886039733887,
+                      0.002925564767792821, 0.02291811816394329,
+                      -0.01078892033547163, 0.008593558333814144],
+        },
+        "sweep_sf": {
+            "setting": [9, 8, 12, 9, 3],
+            "sf": [0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272],
+        },
+    },
+    "mobilenet_v2": {
+        "program": {
+            "top1": [93, 93, 93, 93, 93, 93, 93, 93],
+            "top2_margin": [0.043519020080566406, 0.04973435401916504,
+                            0.1412501335144043, 0.1106424331665039,
+                            0.04167461395263672, 0.07389163970947266,
+                            0.026016712188720703, 0.17352056503295898],
+            "mean": -0.08448403856196092,
+            "std": 1.137211361978146,
+            "max_abs": 4.7612690925598145,
+            "row_max": [3.441467046737671, 3.3802199363708496,
+                        3.3894753456115723, 3.4560964107513428,
+                        3.424201488494873, 3.4011783599853516,
+                        3.4526467323303223, 3.551295757293701],
+            "first": [0.37782421708106995, 0.9904072284698486,
+                      -1.6237306594848633, 2.1398987770080566,
+                      -1.4976638555526733, 1.8762035369873047,
+                      -0.4931541681289673, -2.539684772491455],
+        },
+        "sweep_sf": {
+            "setting": [9, 8, 12, 9, 3],
+            "sf": [0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.04885198920965195,
+                   0.024425998330116272, 0.07327798008918762,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.04885198920965195, 0.07327798008918762,
+                   0.07327798008918762, 0.0977039635181427,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.04885198920965195,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762, 0.0977039635181427,
+                   0.07327798008918762, 0.07327798008918762,
+                   0.07327798008918762],
+        },
+    },
+    "efficientnet_b0": {
+        "program": {
+            "top1": [858, 858, 858, 858, 858, 858, 858, 858],
+            "top2_margin": [0.00014466047286987305, 0.00014466047286987305,
+                            0.00014466047286987305, 0.00014466047286987305,
+                            0.00014466047286987305, 0.00014466047286987305,
+                            0.00014466047286987305, 0.00014466047286987305],
+            "mean": 0.001162176468141297,
+            "std": 0.016327123941501986,
+            "max_abs": 0.02792540192604065,
+            "row_max": [0.02785356715321541, 0.02785356715321541,
+                        0.02785356715321541, 0.02785356715321541,
+                        0.02785356715321541, 0.02785356715321541,
+                        0.02785356715321541, 0.02785356715321541],
+            "first": [0.02033214084804058, -0.008804664947092533,
+                      -0.021292291581630707, 0.015325016342103481,
+                      -0.01838327944278717, 0.0015641999198123813,
+                      -0.02250843495130539, 0.016879979521036148],
+        },
+        "sweep_sf": {
+            "setting": [9, 8, 12, 9, 3],
+            "sf": [0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 9.99999993922529e-09,
+                   9.99999993922529e-09, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   0.024425998330116272, 0.024425998330116272,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 0.024425998330116272,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   0.024425998330116272, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 0.024425998330116272,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09,
+                   9.99999993922529e-09, 9.99999993922529e-09],
+        },
+    },
+    "alexnet": {
+        "program": {
+            "top1": [177, 177, 814, 177, 177, 177, 814, 177],
+            "top2_margin": [0.0021944046020507812, 0.003735944628715515,
+                            0.001955285668373108, 0.01077444851398468,
+                            0.0013228356838226318, 0.012300118803977966,
+                            0.0027742087841033936, 0.006500869989395142],
+            "mean": 0.0002687962944437459,
+            "std": 0.04406743969722684,
+            "max_abs": 0.14910674095153809,
+            "row_max": [0.1368844360113144, 0.13570944964885712,
+                        0.14301255345344543, 0.14244745671749115,
+                        0.14294695854187012, 0.14437726140022278,
+                        0.14252695441246033, 0.14910674095153809],
+            "first": [0.08439035713672638, 0.027090908959507942,
+                      0.03425776585936546, -0.0711604505777359,
+                      -0.0009975321590900421, -0.018901046365499496,
+                      0.019578658044338226, 0.08336549252271652],
+        },
+        "sweep_sf": {
+            "setting": [9, 8, 12, 9, 3],
+            "sf": [0.024425998330116272, 0.024425998330116272,
+                   0.024425998330116272, 0.024425998330116272],
+        },
+        "columns": {
+            "quant": {
+                "tmacs": [31605645312.0, 36873252864.0, 42140860416.0,
+                          47408467968.0],
+                "avg_terms": [9.0, 9.0, 9.0, 9.0],
+                "params": [61100840.0, 61100840.0, 61100840.0, 61100840.0],
+            },
+            "tr-data2": {
+                "tmacs": [1755869184.0, 2341158912.0, 2926448640.0,
+                          3511738368.0],
+                "avg_terms": [1.5, 2.0, 2.5, 3.0],
+                "params": [61100840.0, 61100840.0, 61100840.0, 61100840.0],
+            },
+            "tr-data3": {
+                "tmacs": [2633803776.0, 3511738368.0, 4389672960.0,
+                          5267607552.0],
+                "avg_terms": [1.5, 2.0, 2.5, 3.0],
+                "params": [61100840.0, 61100840.0, 61100840.0, 61100840.0],
+            },
+            "tr-data4": {
+                "tmacs": [3511738368.0, 4682317824.0, 5852897280.0,
+                          7023476736.0],
+                "avg_terms": [1.5, 2.0, 2.5, 3.0],
+                "params": [61100840.0, 61100840.0, 61100840.0, 61100840.0],
+            },
         },
     },
 }
@@ -357,6 +584,51 @@ def resnet_checkpoint(path, seed: int = CNN_SEED) -> None:
                 np.float32),
             "b": rng.uniform(-bound, bound, fan_out).astype(np.float32)}
     save_params(path, params)
+
+
+def zoo_params(arch: str, seed: int = ZOO_SEED) -> dict:
+    """Random weights of the CNN ``arch`` made with numpy from ``seed``, in
+    its ``init``'s distributions (Kaiming-normal fan-out HWIO convs over
+    their groups, zero conv biases, BN at scale 1, bias 0, mean 0, var 1,
+    uniform dense layers), as numpy arrays in the model's tree."""
+    import torch
+
+    from tq_tpu_torch.evals.cnn import get_model
+
+    m = get_model(arch)
+    groups = {s.name: s.groups for s in m.conv_specs()}
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, leaves in m.init(torch.Generator(), device="meta").items():
+        if "scale" in leaves:
+            n = leaves["scale"].shape[0]
+            params[name] = {"scale": np.ones(n, np.float32),
+                            "bias": np.zeros(n, np.float32),
+                            "mean": np.zeros(n, np.float32),
+                            "var": np.ones(n, np.float32)}
+        elif leaves["w"].ndim == 4:
+            kh, kw, _, out = leaves["w"].shape
+            std = np.sqrt(2.0 / (kh * kw * out // groups[name]))
+            params[name] = {"w": (rng.normal(size=leaves["w"].shape) * std)
+                            .astype(np.float32)}
+            if "b" in leaves:
+                params[name]["b"] = np.zeros(out, np.float32)
+        else:
+            fan_in, fan_out = leaves["w"].shape
+            bound = 1.0 / np.sqrt(fan_in)
+            params[name] = {
+                "w": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(
+                    np.float32),
+                "b": rng.uniform(-bound, bound, fan_out).astype(np.float32)}
+    return params
+
+
+def zoo_checkpoint(arch: str, path, seed: int = ZOO_SEED) -> None:
+    """Save :func:`zoo_params` with the port's ``save_params``: the same
+    file loads in both packages."""
+    from tq_tpu_torch.utils.checkpoint import save_params
+
+    save_params(path, zoo_params(arch, seed))
 
 
 def emit(obj) -> None:
@@ -1126,11 +1398,58 @@ def phase_term_matmul_modes(torch):
                 faster = M
             up_to = min(up_to, faster)
         faster_up_to[f"{K}x{N}"] = up_to
+    # The tiled kernel's bf16 and int8 modes at M > STREAM_MAX_M, which no
+    # path runs: device time beside the bound, the plain version and the
+    # library call on the already-quantized input (bf16 torch.matmul;
+    # torch._int_mm on operands zero-padded to its multiples of 8).
+    tiled_modes = {}
+    for M, K, N in [(128, 784, 512), (350, 650, 2600)]:
+        for variant in ("bf16_int16", "bf16_packed8", "int8_int8"):
+            mode, fmt, quantize_x = VARIANTS[variant]
+            if (fmt, K, N) not in weights:
+                weights[(fmt, K, N)] = _tm_weights(torch, fmt, K, N, gen, dev)
+            w, w_sf, wv = weights[(fmt, K, N)]
+            x = torch.randn(M, K, generator=gen, device=dev)
+            sf = torch.tensor(0.03, device=dev)
+            bits, terms = (7, 3) if mode == "int8" else (8, 3)
+            kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
+                      quantize_x=quantize_x)
+            before = term_matmul.kernel_launches["tiled"]
+            out = term_matmul(x, w, sf, bits, terms, **kw)
+            ref = term_matmul_ref(x, w, sf, bits, terms, **kw)
+            torch.cuda.synchronize()
+            if term_matmul.kernel_launches["tiled"] != before + 1:
+                fail(f"term_matmul {variant} {(M, K, N)} did not take the "
+                     "tiled kernel")
+            xq = tr_quantize_int_ref(x, sf, bits, terms)
+            if mode == "int8":
+                pk = -K % 8
+                a = torch.nn.functional.pad(xq.to(torch.int8), (0, pk))
+                b = torch.nn.functional.pad(wv.to(torch.int8), (0, 0, 0, pk))
+                b = b.t().contiguous().t()  # column-major, as cuBLASLt takes
+
+                def library(a=a, b=b):
+                    return torch._int_mm(a, b)
+            else:
+                a, b = xq.to(torch.bfloat16), wv.to(torch.bfloat16)
+
+                def library(a=a, b=b):
+                    return torch.matmul(a, b)
+            bnd, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N)
+                               + 4 * M * N, 2 * M * K * N, PEAK_OPS[mode])
+            tiled_modes[f"{variant} {M}x{K}x{N}"] = dict(
+                max_abs_err=float((out - ref).abs().max()),
+                **timings(torch, lambda: launch(x, w, sf, bits, terms, **kw),
+                          lambda: term_matmul_ref(x, w, sf, bits, terms,
+                                                  **kw), library),
+                bound_ms=bnd, bound_by=by)
     emit({"phase": "term_matmul_modes", "ok": True, "cases": cases,
           "variants": len(VARIANTS), "stream_max_m": T,
           "launches_by_kernel": by_kernel, "max_abs_err": max_err,
           "results": results, "crossover_ms": crossover,
-          "stream_faster_up_to_m": faster_up_to})
+          "stream_faster_up_to_m": faster_up_to,
+          "tiled_modes_ms": tiled_modes})
+    results["tiled_modes"] = tiled_modes
     return results
 
 
@@ -1554,8 +1873,8 @@ def phase_cnn_kernels(torch):
 
 
 def _record_convs(torch, model, qp, qc, qs, x):
-    """(logits, {name: (input, stride, padding)} of each converted conv) of
-    the float32 eval forward."""
+    """(logits, {name: (input, stride, padding, groups)} of each converted
+    conv) of the float32 eval forward."""
     from tq_tpu_torch.layers.qctx import QuantCtx
 
     seen = {}
@@ -1564,7 +1883,7 @@ def _record_convs(torch, model, qp, qc, qs, x):
         def conv(self, name, params, x, stride=(1, 1), padding="SAME",
                  groups=1):
             if name in self.cfg:
-                seen[name] = (x, stride, padding)
+                seen[name] = (x, stride, padding, groups)
             return super().conv(name, params, x, stride, padding, groups)
 
     logits = model.apply(qp, x, Recorder(cfg=qc, state=qs))
@@ -1662,7 +1981,7 @@ def phase_flagship(torch, ckpt: Path):
     first = next(iter(qc))  # its input differs only by float32 rounding
     layer_err, flips, first_gap = {}, {}, 0.0
     for name, tr in qc.items():
-        xg, stride, padding = seen_g[name]
+        xg, stride, padding, _ = seen_g[name]
         xc = seen_c[name][0]
         # Same input (the CPU's): the quantized input exactly, the output
         # within LAYER_RTOL.
@@ -1730,7 +2049,7 @@ def phase_flagship(torch, ckpt: Path):
     # first image's int8 activations of every converted conv.
     _, seen_i = _record_convs(torch, resnet, packed, uqc, uqs, x[:1])
     for name, tr in uqc.items():
-        xi_f, stride, padding = seen_i[name]
+        xi_f, stride, padding, _ = seen_i[name]
         xi = tr_quantize_int(xi_f, uqs[name]["sf"], tr.data_bits,
                              tr.data_terms).to(torch.int8)
         got = int8_conv2d(xi, packed[name]["w"], stride, padding)
@@ -1861,10 +2180,454 @@ def phase_cnn_sweep(torch, ckpt: Path):
     return launches
 
 
+# --------------------------------------------------------------- phase 12
+
+
+# The zoo's largest activations at batch 64 (NHWC): VGG's first block, and
+# MobileNet's and EfficientNet's stage-2 expansion outputs.
+ZOO_ACTIVATIONS = [(64, 224, 224, 64), (64, 112, 112, 96)]
+# The exempt depthwise weights that B1 reveals at (16, 1, 16): MobileNet's
+# widest and EfficientNet's widest 5x5.
+ZOO_EXEMPT_WEIGHTS = [(3, 3, 1, 960), (5, 5, 1, 1152)]
+# EfficientNet's squeeze-excite widths: its (N, 1, 1, C) inputs.
+SE_WIDTHS = (4, 6, 10, 20)
+# The zoo's largest 1x1 weight (EfficientNet's last projection).
+ZOO_GROUPED = (1, 1, 1152, 320)
+
+
+def _cell(torch, kernel, plain, nbytes: float, n: int, big: bool = False):
+    """A per-shape cell: device, eager and plain times beside the bound
+    (the plain version of a large shape on fewer captured calls)."""
+    b, by = bound_ms(nbytes, 6 * n)
+    return dict(ms=device_ms(torch, kernel), eager_ms=eager_ms(torch, kernel),
+                plain_ms=(device_ms(torch, plain, calls=2, replays=3) if big
+                          else device_ms(torch, plain)),
+                bound_ms=b, bound_by=by)
+
+
+def phase_zoo_kernels(torch):
+    """B1 and B2 at the CNN zoo's shapes, bit for bit against the plain
+    versions first, then timed (device, eager, plain) beside the bound: B1
+    in float32 and bfloat16 on ZOO_ACTIVATIONS (signed: swish outputs on
+    the second); B1 at bits 16 with 16 terms on the exempt depthwise
+    weights; B1 on squeeze-excite inputs (64, 1, 1, C); B2 at g = 2 and 32
+    (the generic instantiation) on (3, 3, 512, 512) at every alpha of the
+    group-size grid, and at g = 8 on the zoo's largest 1x1 weight, both
+    keep modes."""
+    from tq_tpu_torch.evals.group_size import ALPHAS
+    from tq_tpu_torch.kernels.tr_quantize import (tr_quantize,
+                                                  tr_quantize_ref,
+                                                  tr_scale_copy)
+    from tq_tpu_torch.layers.common import weight_scale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sf = torch.tensor(0.05, device=dev)
+    modes = ("largest", "serial")
+    cases = 0
+    elementwise, bf16, grouped = {}, {}, {}
+    for i, shape in enumerate(ZOO_ACTIVATIONS):
+        x = torch.randn(*shape, generator=gen, device=dev) * 2
+        if i == 1:
+            x = torch.nn.functional.silu(x)
+        key = "x".join(map(str, shape))
+        for xs, cells in ((x, elementwise), (x.to(torch.bfloat16), bf16)):
+            for mode in modes:
+                _exact(torch, f"zoo {xs.dtype} {key} {mode}",
+                       tr_quantize(xs, sf, 9, 1, 3, keep_mode=mode),
+                       tr_quantize_ref(xs, sf, 9, 1, 3, keep_mode=mode))
+                cases += 1
+            n = xs.numel()
+            cells[key] = dict(
+                bits=9, terms=3, signed=True, swish=i == 1,
+                **_cell(torch, lambda: tr_quantize(xs, sf, 9, 1, 3),
+                        lambda: tr_quantize_ref(xs, sf, 9, 1, 3),
+                        2 * n * xs.element_size(), n, big=True))
+            del xs
+        del x
+        torch.cuda.empty_cache()
+    for shape in ZOO_EXEMPT_WEIGHTS:
+        w = torch.randn(*shape, generator=gen, device=dev) \
+            * (2.0 / (shape[0] * shape[1])) ** 0.5
+        wsf = weight_scale(w, 16)
+        for mode in modes:
+            _exact(torch, f"zoo exempt {shape} bits=16 k=16 {mode}",
+                   tr_quantize(w, wsf, 16, 1, 16, keep_mode=mode),
+                   tr_quantize_ref(w, wsf, 16, 1, 16, keep_mode=mode))
+            cases += 1
+        elementwise["x".join(map(str, shape))] = dict(
+            bits=16, terms=16, **_cell(
+                torch, lambda: tr_quantize(w, wsf, 16, 1, 16),
+                lambda: tr_quantize_ref(w, wsf, 16, 1, 16), 8 * w.numel(),
+                w.numel()))
+    for c in SE_WIDTHS:
+        x = torch.nn.functional.silu(
+            torch.randn(64, 1, 1, c, generator=gen, device=dev) * 3)
+        for xs in (x, x.to(torch.bfloat16)):
+            for mode in modes:
+                _exact(torch, f"zoo squeeze-excite {xs.dtype} width {c} "
+                       f"{mode}", tr_quantize(xs, sf, 9, 1, 3, keep_mode=mode),
+                       tr_quantize_ref(xs, sf, 9, 1, 3, keep_mode=mode))
+                cases += 1
+    w = torch.randn(3, 3, 512, 512, generator=gen, device=dev) \
+        * (2.0 / (9 * 512)) ** 0.5
+    wsf = weight_scale(w, 9)
+    for g in (2, 32):
+        for alpha in ALPHAS:
+            for mode in modes:
+                wt = round(alpha * g)
+                _exact(torch, f"zoo grouped (3, 3, 512, 512) g={g} wt={wt} "
+                       f"{mode}", tr_quantize(w, wsf, 9, g, wt, 2, mode),
+                       tr_quantize_ref(w, wsf, 9, g, wt, 2, mode))
+                cases += 1
+        wt = round(1.5 * g)
+        grouped[f"3x3x512x512_g{g}"] = dict(
+            group_size=g, bits=9, terms=wt, **_cell(
+                torch, lambda: tr_quantize(w, wsf, 9, g, wt, 2),
+                lambda: tr_quantize_ref(w, wsf, 9, g, wt, 2), 8 * w.numel(),
+                w.numel()),
+            copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(w, wsf)))
+    w = torch.randn(*ZOO_GROUPED, generator=gen, device=dev) \
+        * (2.0 / 320) ** 0.5
+    wsf = weight_scale(w, 9)
+    for mode in modes:
+        _exact(torch, f"zoo grouped {ZOO_GROUPED} g=8 {mode}",
+               tr_quantize(w, wsf, 9, 8, 12, 2, mode),
+               tr_quantize_ref(w, wsf, 9, 8, 12, 2, mode))
+        cases += 1
+    grouped["x".join(map(str, ZOO_GROUPED)) + "_g8"] = dict(
+        group_size=8, bits=9, terms=12, **_cell(
+            torch, lambda: tr_quantize(w, wsf, 9, 8, 12, 2),
+            lambda: tr_quantize_ref(w, wsf, 9, 8, 12, 2), 8 * w.numel(),
+            w.numel()),
+        copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(w, wsf)))
+    rows = {"tr_quantize_elementwise": elementwise,
+            "tr_quantize_elementwise_bf16": bf16,
+            "tr_quantize_grouped": grouped}
+    emit({"phase": "zoo_kernels", "ok": True, "cases": cases, "results": rows})
+    return rows
+
+
+# --------------------------------------------------------------- phase 13
+
+
+# The zoo's logits against the JAX package's (EXPECTED_ZOO), relative to
+# max |logit|: ResNet-18's LOGIT_RTOL, wider for two archs (PERF.md section
+# 2; each conv is held within LAYER_RTOL on the same input first).  On an
+# NVIDIA H100 80GB HBM3 (700 W): VGG's rounding-boundary flips compound
+# through its 12 converted convs at 224 px (13,315 card against CPU on two
+# images) to 4.6e-2; AlexNet's card and CPU paths agree within 1e-6 with
+# no flip, and both sit 8.5e-3 from the JAX package's logits (flips
+# between XLA's and PyTorch's float32 sums).  MobileNet measured 4.5e-3,
+# EfficientNet 2.5e-16.  Each wider limit leaves room for 3x the reading.
+ZOO_LOGIT_RTOL = {"vgg16_bn": 1.5e-1, "mobilenet_v2": LOGIT_RTOL,
+                  "efficientnet_b0": LOGIT_RTOL, "alexnet": 3e-2}
+# Images of the pinned program held card against CPU layer by layer.
+ZOO_CPU_IMAGES = 2
+
+
+def _zoo_layerwise(torch, m, settings, ckpt: Path, qp, qc, qs, x,
+                   arch: str):
+    """Each converted conv of the card's program against the CPU plain
+    path on the CPU's own inputs (the first ZOO_CPU_IMAGES images): the
+    quantized input exact, the output within LAYER_RTOL; the boundary
+    flips between the card's and the CPU's inputs counted; the logits'
+    gap."""
+    from tq_tpu_torch.convert import convert_cnn
+    from tq_tpu_torch.evals.cnn import load_params
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.layers.conv import tr_conv_apply
+
+    f = ZOO_PROGRAM
+    _, params_c = load_params(arch, str(ckpt), device="cpu")
+    qp_c, _, qs_c = convert_cnn(m, params_c, settings, f["db"], f["dt"])
+    qs_c = _with_sf(torch, qs_c, f["sf"])
+    for name in qc:
+        if not torch.equal(qp[name]["w"].cpu(), qp_c[name]["w"]):
+            fail(f"{arch} {name}: converted weights differ card vs cpu")
+    k = ZOO_CPU_IMAGES
+    logits_g, seen_g = _record_convs(torch, m, qp, qc, qs, x)
+    logits_c, seen_c = _record_convs(torch, m, qp_c, qc, qs_c, x[:k].cpu())
+    layer_err, flips = {}, {}
+    for name, tr in qc.items():
+        xc, stride, padding, groups = seen_c[name]
+        _exact(torch, f"{arch} {name} quantized input",
+               tr_quantize(xc.cuda(), qs[name]["sf"], tr.data_bits, 1,
+                           tr.data_terms).cpu(),
+               tr_quantize(xc, qs_c[name]["sf"], tr.data_bits, 1,
+                           tr.data_terms))
+        yg, _ = tr_conv_apply(qp[name], tr, qs[name], xc.cuda(), False,
+                              stride, padding, groups)
+        yc, _ = tr_conv_apply(qp_c[name], tr, qs_c[name], xc, False, stride,
+                              padding, groups)
+        err = float((yg.cpu() - yc).abs().max() / yc.abs().max())
+        if err > LAYER_RTOL:
+            fail(f"{arch} {name}: output differs by {err} (relative) on the "
+                 "same input")
+        layer_err[name] = err
+        xg = seen_g[name][0][:k].cpu()
+        flips[name] = int((tr_quantize(xg, qs_c[name]["sf"], tr.data_bits, 1,
+                                       tr.data_terms) != tr_quantize(
+            xc, qs_c[name]["sf"], tr.data_bits, 1, tr.data_terms)).sum())
+    gap = float((logits_g[:k].cpu() - logits_c).abs().max()
+                / logits_c.abs().max())
+    return logits_g, dict(layer_max_rel_err=max(layer_err.values()),
+                          boundary_flips=sum(flips.values()),
+                          flips_by_layer={n: v for n, v in flips.items()
+                                          if v},
+                          logit_max_rel_err_vs_cpu=gap)
+
+
+def _vs_jax(torch, logits, exp, limit: float) -> tuple[float, list]:
+    """The logits' statistics against the JAX package's, relative to its
+    max |logit|, and what misses: the statistics beyond ``limit``, a top-1
+    other than JAX's where the JAX margin exceeds twice the limit."""
+    lg = logits.cpu().double()
+    err = max(
+        abs(float(lg.mean()) - exp["mean"]),
+        abs(float(lg.std(correction=0)) - exp["std"]),
+        abs(float(lg.abs().max()) - exp["max_abs"]),
+        float((lg.max(1).values - torch.tensor(exp["row_max"])).abs().max()),
+        float((lg[0, :8] - torch.tensor(exp["first"])).abs().max()))
+    err /= exp["max_abs"]
+    misses = []
+    if err > limit:
+        misses.append(f"logit statistics differ from the JAX package's by "
+                      f"{err} of max |logit| (limit {limit})")
+    for i, (a, b, mg) in enumerate(zip(lg.argmax(1).tolist(), exp["top1"],
+                                       exp["top2_margin"])):
+        if a != b and mg > 2 * limit * exp["max_abs"]:
+            misses.append(f"image {i}: top-1 {a}, the JAX package's {b} "
+                          f"(margin {mg})")
+    return err, misses
+
+
+def _sweep_columns_hold(arch: str, out_file: Path) -> None:
+    """tmacs, avg_terms and params of the card's sweep equal
+    ``results/<arch>-results.json`` (the JAX package's sweeps), and the
+    port's compare finds no mismatch; AlexNet's also equal the JAX
+    package's pinned in EXPECTED_ZOO."""
+    from tq_tpu_torch.evals.compare import compare_file
+
+    ref_path = ROOT / "results" / out_file.name
+    got = json.loads(out_file.read_text())
+    ref = json.loads(ref_path.read_text())
+    for key in ref:
+        for col in ("tmacs", "avg_terms", "params"):
+            if got[key][col] != ref[key][col]:
+                fail(f"{arch} sweep {key} {col}: {got[key][col]} != "
+                     f"{ref_path.name}'s {ref[key][col]}")
+    lines = compare_file(out_file, ref_path)
+    bad = [ln for ln in lines if any(w in ln for w in
+                                     ("MISMATCH", "LENGTH", "missing"))]
+    if bad:
+        fail(f"{arch} sweep: the compare finds {bad}")
+    if arch == "alexnet":
+        cols = {k: {c: v[c] for c in ("tmacs", "avg_terms", "params")}
+                for k, v in got.items()}
+        if cols != EXPECTED_ZOO["alexnet"]["columns"]:
+            fail("alexnet sweep columns differ from the JAX package's")
+
+
+def _sweep_scales_hold(torch, arch: str, calibrated) -> dict:
+    """The sweep's (9, 8, 12, 9, 3) scales equal the JAX package's, or are
+    near-ties by the MSE search's own objective; returns the near-ties."""
+    exp = EXPECTED_ZOO[arch]["sweep_sf"]
+    wb, gs, wt, db, dt = exp["setting"]
+    match = [st for qcfg, st in calibrated if all(
+        (t.weight_bits, t.group_size, t.weight_terms, t.data_bits,
+         t.data_terms) in ((wb, gs, wt, db, dt), (16, 1, 16, db, dt))
+        for t in qcfg.values()) and any(
+            t.weight_bits == wb for t in qcfg.values())]
+    if len(match) != 1:
+        fail(f"{arch}: setting {exp['setting']} calibrated {len(match)} "
+             "times")
+    if len(match[0]) != len(exp["sf"]):
+        fail(f"{arch}: {len(match[0])} calibrated layers, the JAX package "
+             f"{len(exp['sf'])}")
+    near_ties = {}
+    for (name, st), want in zip(match[0].items(), exp["sf"]):
+        have = float(st["sf"])
+        if have != want:
+            ea, eb = (_mse_at(torch, st["hist"], v, db, dt)
+                      for v in (have, want))
+            if abs(ea - eb) > 1e-6 * max(ea, eb):
+                fail(f"{arch} sweep {name}: calibrated sf {have} != the JAX "
+                     f"package's {want} (errors {ea}, {eb})")
+            near_ties[name] = dict(card=have, jax=want, err_card=ea,
+                                   err_jax=eb)
+    return near_ties
+
+
+def phase_cnn_zoo(torch, tmp: Path):
+    """VGG-16-bn, MobileNet-v2, EfficientNet-b0 and AlexNet at 224x224 on
+    zoo_params' weights, through the port's entry points: the pinned
+    program (ZOO_PROGRAM) and its bf16 serving mode, then ``run_sweep``
+    over the arch's published grid on 64 synthetic images at batch 64; the
+    launches of each arch's run counted from 0.  Then, uncounted: the
+    program's logits against the JAX package's (EXPECTED_ZOO), each conv
+    card against CPU on the same input, the boundary flips, the bf16 mode
+    within the JAX test's class, the sweep's columns against ``results/``
+    and its scales against the JAX package's."""
+    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply,
+                                      static_conv_layer_settings)
+    from tq_tpu_torch.data.imagenet import find_imagenet_val
+    from tq_tpu_torch.evals import cnn as cnn_eval
+
+    if find_imagenet_val() is not None:
+        fail("EXPECTED_ZOO holds the synthetic batches' numbers; unset "
+             "TQ_DATA_DIR")
+    f = ZOO_PROGRAM
+    x_np = np.random.default_rng(0).normal(
+        size=(f["batch"], f["image"], f["image"], 3)).astype(np.float32)
+    finalize = cnn_eval.finalize_cnn
+    total: dict = {}
+    results = {}
+    misses: list = []  # against the JAX package: reported after every arch
+    t_phase = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        ckpt = tmp / f"{arch}.npz"
+        zoo_checkpoint(arch, ckpt)
+        m = cnn_eval.get_model(arch)
+        settings = static_conv_layer_settings(m.conv_specs(), *f["tr"])
+        calibrated = []
+
+        def capture(qstate, qcfg):  # the scales each setting calibrates
+            out = finalize(qstate, qcfg)
+            calibrated.append((qcfg, out))
+            return out
+
+        out_file = tmp / f"{arch}-results.json"
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, params = cnn_eval.load_params(arch, str(ckpt), device="cuda")
+        qp, qc, qs = convert_cnn(m, params, settings, f["db"], f["dt"])
+        qs = _with_sf(torch, qs, f["sf"])
+        x = torch.as_tensor(x_np, device="cuda")
+        logits, _ = make_cnn_apply(m, qc, track=False)(qp, qs, x)
+        logits_bf16, _ = make_cnn_apply(m, qc, track=False,
+                                        compute_dtype=torch.bfloat16)(
+            qp, qs, x)
+        torch.cuda.synchronize()
+        program_s = time.perf_counter() - t0
+        cnn_eval.finalize_cnn = capture
+        try:
+            t0 = time.perf_counter()
+            sweep = cnn_eval.run_sweep(arch, checkpoint=str(ckpt),
+                                       out_file=str(out_file), batch_size=64,
+                                       n_synth=64, verbose=False,
+                                       device="cuda",
+                                       **cnn_eval.PUBLISHED_GRIDS[arch])
+            torch.cuda.synchronize()
+            sweep_s = time.perf_counter() - t0
+        finally:
+            cnn_eval.finalize_cnn = finalize
+        launches = _read_counts()
+        _require_launched(launches, ["tr_quantize_elementwise",
+                                     "tr_quantize_elementwise_bf16",
+                                     "tr_quantize_grouped"], arch)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        t0 = time.perf_counter()
+        for name, t in (("f32", logits), ("bf16", logits_bf16)):
+            if t.shape != (f["batch"], 1000) or t.dtype != torch.float32 \
+                    or not bool(torch.isfinite(t).all()):
+                fail(f"{arch} {name}: logits of shape {tuple(t.shape)} and "
+                     f"type {t.dtype}, or not finite")
+        bf16_rel = float((logits_bf16 - logits).norm() / logits.norm())
+        if bf16_rel >= 0.2:
+            fail(f"{arch} bf16: {bf16_rel} (relative norm) from the float32 "
+                 "mode")
+        logits_g, lw = _zoo_layerwise(torch, m, settings, ckpt, qp, qc, qs,
+                                      x, arch)
+        if not torch.equal(logits_g, logits):
+            fail(f"{arch}: the recorded forward differs from the model's")
+        limit = ZOO_LOGIT_RTOL[arch]
+        jax_err, jax_misses = _vs_jax(torch, logits,
+                                      EXPECTED_ZOO[arch]["program"], limit)
+        misses += [f"{arch}: {m}" for m in jax_misses]
+        _sweep_columns_hold(arch, out_file)
+        near_ties = _sweep_scales_hold(torch, arch, calibrated)
+        results[arch] = dict(
+            program_seconds=program_s, sweep_seconds=sweep_s,
+            settings=sum(len(v["accs"]) for v in sweep.values()),
+            check_seconds=time.perf_counter() - t0, launches=launches,
+            logit_stat_max_rel_err_vs_jax=jax_err, limit=limit,
+            top1=logits.argmax(1).tolist(), bf16_vs_f32_rel_norm=bf16_rel,
+            sf_equal=len(EXPECTED_ZOO[arch]["sweep_sf"]["sf"])
+            - len(near_ties), sf_near_ties=near_ties, **lw)
+        del qp, qs, params, logits, logits_bf16, logits_g
+        torch.cuda.empty_cache()
+        ckpt.unlink()  # VGG's is 553 MB
+    t0 = time.perf_counter()
+    list(cnn_eval._batches("vgg16_bn", None, 64, 64))
+    emit({"phase": "cnn_zoo", "ok": not misses,
+          "seconds": time.perf_counter() - t_phase,
+          "data_seconds_per_setting": time.perf_counter() - t0,
+          "batch": f["batch"], "image": f["image"], "results": results})
+    if misses:
+        fail(f"cnn_zoo: {misses}")
+    return total
+
+
+# --------------------------------------------------------------- phase 14
+
+
+def phase_group_size(torch, ckpt: Path, tmp: Path):
+    """``evals/group_size.py``'s ``run_grid('resnet18')`` over all 25 (g,
+    alpha) settings on 64 synthetic images at batch 64, one group size a
+    call (the counts read after each): tmacs and avg_terms equal to
+    ``results/resnet18-group-size-results.json``; B2 launched at every
+    g > 1 (g = 2 and 32 on its generic instantiation), never at g = 1."""
+    from tq_tpu_torch.evals.compare import compare_file
+    from tq_tpu_torch.evals.group_size import GROUP_SIZES, run_grid
+
+    ref_path = ROOT / "results" / "resnet18-group-size-results.json"
+    out_file = tmp / ref_path.name
+    total: dict = {}
+    by_g, seconds = {}, {}
+    t_phase = time.perf_counter()
+    for g in GROUP_SIZES:
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = run_grid("resnet18", checkpoint=str(ckpt),
+                       out_file=str(out_file), batch_size=64, n_synth=64,
+                       group_sizes=(g,), verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        seconds[g] = time.perf_counter() - t0
+        launches = _read_counts()
+        by_g[g] = {k: launches[k] for k in ("tr_quantize_elementwise",
+                                            "tr_quantize_grouped")}
+        if (launches["tr_quantize_grouped"] > 0) != (g > 1):
+            fail(f"group-size grid g={g}: {launches['tr_quantize_grouped']} "
+                 "launches of the grouped body")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    published = json.loads(ref_path.read_text())
+    for key, cols in published.items():
+        for col in ("tmacs", "avg_terms"):
+            if got[key][col] != cols[col]:
+                fail(f"group-size grid g={key} {col}: {got[key][col]} != "
+                     f"published {cols[col]}")
+    lines = compare_file(out_file, ref_path)
+    if any("MISMATCH" in ln or "LENGTH" in ln or "missing" in ln
+           for ln in lines):
+        fail(f"group-size grid: the compare finds {lines}")
+    _require_launched(total, ["tr_quantize_elementwise",
+                              "tr_quantize_grouped"], "group-size grid")
+    emit({"phase": "group_size", "ok": True,
+          "seconds": time.perf_counter() - t_phase,
+          "settings": sum(len(v["accs"]) for v in got.values()),
+          "seconds_by_g": seconds, "launches_by_g": by_g,
+          "launches": total, "accs": {k: v["accs"] for k, v in got.items()}})
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn")
+GROUPS = ("mlp", "lstm", "cnn", "zoo")
 
 
 def main(argv=None) -> None:
@@ -1898,6 +2661,8 @@ def main(argv=None) -> None:
     if "mlp" in groups:
         kernel_results.update(phase_kernels(torch))
         kernel_results.update(phase_term_matmul_modes(torch))
+        kernel_results["term_matmul_kernel_tiled"]["modes_m_gt_8"] = \
+            kernel_results.pop("tiled_modes")
         by_path["mnist_mlp"] = phase_main_path(torch)
         phase_fixed_linear(torch)
     if "lstm" in groups:
@@ -1919,6 +2684,21 @@ def main(argv=None) -> None:
             resnet_checkpoint(ckpt)
             by_path["resnet_flagship"] = phase_flagship(torch, ckpt)
             by_path["resnet_sweep"] = phase_cnn_sweep(torch, ckpt)
+    if "zoo" in groups:
+        for name, cells in phase_zoo_kernels(torch).items():
+            row = kernel_results.setdefault(name, {})
+            row["zoo_shapes"] = cells
+            if "ms" not in row:  # --only zoo: the first cell heads the row
+                head = next(iter(cells.values()))
+                row.update(max_abs_err=0.0, library_ms=None,
+                           **{k: head[k] for k in ("ms", "eager_ms",
+                                                   "plain_ms", "bound_ms",
+                                                   "bound_by")})
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "resnet_seeded.npz"
+            resnet_checkpoint(ckpt)
+            by_path["group_size"] = phase_group_size(torch, ckpt, Path(tmp))
+            by_path["cnn_zoo"] = phase_cnn_zoo(torch, Path(tmp))
 
     lines = []
     for name, meta in KERNELS.items():
@@ -1934,7 +2714,8 @@ def main(argv=None) -> None:
                                            "library_ms", "eager_ms")},
                       **{k: r[k] for k in ("cold_ms", "tiled_ms",
                                            "bound_share_cold", "per_shape",
-                                           "resnet_shape", "bound_fp32_ms",
+                                           "resnet_shape", "zoo_shapes",
+                                           "modes_m_gt_8", "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
                                            "clusters_at_once")
                          if k in r},

@@ -577,9 +577,10 @@ def test_run_sweep_cpu_deterministic_columns_and_resume(tmp_path,
 
 def test_get_model_and_entry_points():
     assert teval.get_model("resnet18") is tres
-    for arch in ("alexnet", "vgg16_bn", "mobilenet_v2", "efficientnet_b0"):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            teval.get_model(arch)
+    for arch, name in (("alexnet", "alexnet"), ("vgg16_bn", "vgg"),
+                       ("mobilenet_v2", "mobilenet"),
+                       ("efficientnet_b0", "efficientnet")):
+        assert teval.get_model(arch).__name__ == f"tq_tpu_torch.models.{name}"
     with pytest.raises(ValueError, match="unknown arch"):
         teval.get_model("lenet")
     assert teval.ARCHS == jeval.ARCHS

@@ -12,13 +12,13 @@ committed script.  Without real ImageNet the batches are deterministic
 synthetic ones (accs are then meaningless; tmacs, avg_terms and params
 still reproduce the published files).  Runs on ``--device cuda`` by
 default, on the one device (no mesh), and raises if there is no CUDA
-device; ``--device cpu`` runs the plain versions of the kernels.  Only
-ResNet-18 is ported; the other archs raise.
+device; ``--device cpu`` runs the plain versions of the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 from pathlib import Path
 
@@ -58,24 +58,25 @@ PUBLISHED_GRIDS = {
 }
 
 
-def get_model(arch: str):
-    if arch == "resnet18":
-        from tq_tpu_torch.models import resnet
+_MODULES = {"alexnet": "alexnet", "vgg16_bn": "vgg", "resnet18": "resnet",
+            "mobilenet_v2": "mobilenet", "efficientnet_b0": "efficientnet"}
 
-        return resnet
-    if arch in ARCHS:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP A.8, the CNN zoo); "
-            "resnet18 is")
-    raise ValueError(f"unknown arch {arch!r}; choose from {ARCHS}")
+
+def get_model(arch: str):
+    """The model module of ``arch`` (one of ``ARCHS``)."""
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; choose from {ARCHS}")
+    return importlib.import_module(f"tq_tpu_torch.models.{_MODULES[arch]}")
 
 
 def load_params(arch: str, checkpoint: str | None, seed: int = 0,
                 device="cuda"):
     """(model module, parameters on ``device``): a ``.npz`` or torch
     ``.pt`` checkpoint if given, else a random init from a torch generator
-    seeded ``seed`` (not the JAX package's init values).  Raises for
-    ``cuda`` without a CUDA device."""
+    seeded ``seed`` (not the JAX package's init values).  A torchvision or
+    efficientnet_pytorch ``state_dict`` loads as it is: the models' layer
+    names are its module names.  Raises for ``cuda`` without a CUDA
+    device."""
     m = get_model(arch)
     device = resolve_device(device)
     if checkpoint:
@@ -109,8 +110,8 @@ def eval_setting(m, params, wb: int, gs: int, wt: int, db: int, dt: int,
                  calib_pct: float = 0.05, n_synth: int = 512):
     """One (wb, gs, wt, db, dt) setting on the parameters' device ->
     (acc %, tmacs, avg_terms, params)."""
-    device = params["conv1"]["w"].device
     specs = m.conv_specs()
+    device = params[specs[0].name]["w"].device
     settings = static_conv_layer_settings(specs, wb, gs, wt)
     tmacs, avg_terms = cnn_cost(specs, settings, db, dt)
     n_params = param_count(params)

@@ -127,7 +127,15 @@ def _tr_elementwise_vals(x_grid: torch.Tensor, sf: torch.Tensor, bits: int,
     if terms < max_hese_terms(bits):
         # A degenerate budget (every reference UQ row, and the 16-bit
         # exempt setting) drops no term: TR == plain UQ, skip the masks.
-        q = _topk_value(q, bits, terms)
+        # The kept value depends on q alone: up to 16 bits, reveal every q
+        # once and look the grid's up (the same integers, a fraction of
+        # the work at the scale search's 2048 x 8192 points).
+        if bits <= 16:
+            every_q = torch.arange(maxq + 1, dtype=torch.int32,
+                                   device=q.device)
+            q = _topk_value(every_q, bits, terms)[q.long()]
+        else:
+            q = _topk_value(q, bits, terms)
     return sign * q.to(torch.float32) * sf
 
 

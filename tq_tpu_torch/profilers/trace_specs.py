@@ -1,22 +1,29 @@
 """Layer spec tables recovered by running a model's forward on shapes only.
 
-Port of the protocol half of ``tq_tpu.profilers.trace_specs``.  A
-:class:`SpecRecorder` stands in for the QuantCtx during one forward on
-``device="meta"`` tensors (the counterpart of ``jax.eval_shape``: shapes
-propagate, nothing is computed) and records one
-:class:`~tq_tpu_torch.models.cnn_common.ConvSpec` per ``ctx.conv`` call and
-one (name, in, out) per ``ctx.dense`` call.
+Port of ``tq_tpu.profilers.trace_specs``.  Both mechanisms run a forward
+on ``device="meta"`` tensors (the counterpart of ``jax.eval_shape``:
+shapes propagate, nothing is computed):
+
+* a :class:`SpecRecorder` stands in for the QuantCtx of a model module
+  and records one :class:`~tq_tpu_torch.models.cnn_common.ConvSpec` per
+  ``ctx.conv`` call and one (name, in, out) per ``ctx.dense`` call;
+* :func:`dispatch_conv_specs` takes any callable, protocol or not, and
+  records every ``aten.convolution`` and rank-2 product that reaches the
+  dispatcher.  It sees no layer names (the counterpart of the JAX
+  package's ``jaxpr_conv_specs``), so the name-based squeeze-excite
+  exemption has to come from the caller.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tq_tpu_torch.layers.conv import conv2d
 from tq_tpu_torch.models.cnn_common import ConvSpec
 
 __all__ = ["SpecRecorder", "trace_conv_specs", "trace_dense_specs",
-           "specs_for"]
+           "dispatch_conv_specs", "specs_for"]
 
 
 class SpecRecorder:
@@ -70,6 +77,44 @@ def trace_dense_specs(model_mod, image: int | None = None,
                       batch: int = 1) -> list[tuple[str, int, int]]:
     """(name, in_features, out_features) per dense site, by tracing."""
     return _record(model_mod, image, batch).dense_specs
+
+
+class _OpRecorder(TorchDispatchMode):
+    """Records the shapes of every convolution and 2-D product it sees."""
+
+    def __init__(self):
+        super().__init__()
+        self.convs: list[ConvSpec] = []
+        self.denses: list[tuple[str, int, int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        packet = func.overloadpacket
+        if packet is torch.ops.aten.convolution:
+            x, w = args[0], args[1]  # NCHW input, OIHW weight
+            self.convs.append(ConvSpec(
+                f"conv{len(self.convs)}", in_ch=int(x.shape[1]),
+                out_ch=int(out.shape[1]), kh=int(w.shape[2]),
+                kw=int(w.shape[3]), stride=int(args[3][0]),
+                groups=int(args[8]), out_h=int(out.shape[2]),
+                out_w=int(out.shape[3])))
+        elif packet in (torch.ops.aten.mm, torch.ops.aten.addmm):
+            a, b = args[-2], args[-1]
+            self.denses.append((f"dense{len(self.denses)}", int(a.shape[1]),
+                                int(b.shape[1])))
+        return out
+
+
+def dispatch_conv_specs(fn, *example_args):
+    """(conv_specs, dense_specs) of ANY callable, recorded at the
+    dispatcher while ``fn(*example_args)`` runs (pass ``meta`` tensors to
+    compute nothing).  Convs are ``aten.convolution`` calls, read in
+    their NCHW/OIHW layout; dense layers are ``aten.mm`` / ``aten.addmm``.
+    Names are positional (``conv0``, ``dense0``, ...)."""
+    rec = _OpRecorder()
+    with rec:
+        fn(*example_args)
+    return rec.convs, rec.denses
 
 
 def specs_for(model_mod, image: int | None = None) -> list[ConvSpec]:
