@@ -2468,7 +2468,7 @@ def phase_cnn_zoo(torch, tmp: Path):
     program's logits against the JAX package's (EXPECTED_ZOO), each conv
     card against CPU on the same input, the boundary flips, the bf16 mode
     within the JAX test's class, the sweep's columns against ``results/``
-    and its scales against the JAX package's."""
+    and its scales against the JAX package's; images/s at batch 64."""
     from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply,
                                       static_conv_layer_settings)
     from tq_tpu_torch.data.imagenet import find_imagenet_val
@@ -2549,14 +2549,31 @@ def phase_cnn_zoo(torch, tmp: Path):
         misses += [f"{arch}: {m}" for m in jax_misses]
         _sweep_columns_hold(arch, out_file)
         near_ties = _sweep_scales_hold(torch, arch, calibrated)
+        check_s = time.perf_counter() - t0
+        # A forward's throughput at batch 64: unquantized, TR f32, TR bf16
+        # (the depthwise convs stay cuDNN float32 convs with groups).
+        x64 = torch.randn(64, f["image"], f["image"], 3, device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(1))
+        f32_fwd = make_cnn_apply(m, qc, track=False)
+        bf16_fwd = make_cnn_apply(m, qc, track=False,
+                                  compute_dtype=torch.bfloat16)
+        images_per_s = {
+            "fp32_unquantized": _images_per_s(
+                torch, lambda: m.apply(params, x64), 64),
+            "tr_f32": _images_per_s(torch, lambda: f32_fwd(qp, qs, x64), 64),
+            "tr_bf16": _images_per_s(torch, lambda: bf16_fwd(qp, qs, x64),
+                                     64)}
+        del x64
         results[arch] = dict(
             program_seconds=program_s, sweep_seconds=sweep_s,
             settings=sum(len(v["accs"]) for v in sweep.values()),
-            check_seconds=time.perf_counter() - t0, launches=launches,
+            check_seconds=check_s, launches=launches,
             logit_stat_max_rel_err_vs_jax=jax_err, limit=limit,
             top1=logits.argmax(1).tolist(), bf16_vs_f32_rel_norm=bf16_rel,
             sf_equal=len(EXPECTED_ZOO[arch]["sweep_sf"]["sf"])
-            - len(near_ties), sf_near_ties=near_ties, **lw)
+            - len(near_ties), sf_near_ties=near_ties,
+            images_per_s_batch64=images_per_s, **lw)
         del qp, qs, params, logits, logits_bf16, logits_g
         torch.cuda.empty_cache()
         ckpt.unlink()  # VGG's is 553 MB
