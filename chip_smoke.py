@@ -98,12 +98,35 @@ non-zero without printing a result:
 14. ``group_size``: ``evals/group_size.py``'s ``run_grid('resnet18')``
     over all 25 settings (64 synthetic images): tmacs and avg_terms equal
     to ``results/resnet18-group-size-results.json``, the grouped body
-    launched at every g > 1.
+    launched at every g > 1;
+15. ``tfm_kernels``: B1 (g = 1, bits 5 and 9) and B2 (g = 8, axis 0, bits
+    8, 24 terms, read in place; B5 on as many elements) bit for bit on the
+    Transformer's weights (650, 650) and (650, 33278), and the streaming
+    ``term_matmul`` at (1, 650, 650) and (1, 650, 33278) in its three
+    raw-input variants within rtol 1e-5, atol 1e-4 * max|ref|; each timed
+    (device warm and cold, eager, plain, ``torch.matmul``) beside its bound;
+16. ``tfm_sweep``: the Transformer LM at full width (vocab 33278, emsize
+    650, nhead 2, nhid 650, two layers, ``transformer_checkpoint``'s
+    seeded weights) through ``run_sweep(model="Transformer")`` over the
+    lstm-quant settings and one TR setting: tmacs and param_bits equal to
+    the JAX package's, ppl within rtol 1e-3 (``EXPECTED_TFM_SWEEPS``);
+17. ``tfm_generation``: the fp32 sampler (the full prefix every token) and
+    the TR KV-cache sampler in u8s, int16 and int8, 100 tokens each, every
+    raw-input streaming variant launched; each serving model card against
+    CPU (equal scales and packs, teacher-forced log-probs over 16 tokens
+    within atol 1e-4), ``decode_step`` against the full prefix (1e-5 fp32,
+    2e-4 packed); tokens/s;
+18. ``tfm_export``: the u8s Transformer ``decode_step`` and the u8s LSTM
+    step exported with ``torch.export``, saved, reloaded and run beside
+    the direct step over 16 steps (log-probs and carry within 1e-6), the
+    streaming kernel (and the LSTM's B1) launched inside the loaded
+    program.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo`` runs the
-build and those groups of phases only (phases 2-5, 6-8, 9-11, 12-14).
+device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm`` runs the
+build and those groups of phases only (phases 2-5, 6-8, 9-11, 12-14,
+15-18).
 """
 
 from __future__ import annotations
@@ -173,6 +196,34 @@ EXPECTED_LSTM_SWEEPS = {
         "ppls": [33321.728110999145],
         "tmacs": [181697880000],
         "param_bits": [301505100],
+    },
+}
+
+# The Transformer LM at the JAX package's full width (vocab 33278, emsize
+# 650, nhead 2, nhid 650, two layers) on transformer_checkpoint(TFM_SEED)'s
+# weights, the same synthetic stream and the same two sweeps as the LSTM:
+# the README lstm-quant settings and the lstm-tr one.  The JAX package's
+# run_sweep(model="Transformer") on the CPU over the same npz, printed by
+# ``JAX_PLATFORMS=cpu python -m tests.test_torch_port_transformer
+# --expected``.
+TFM_SEED = 0
+TFM_NHEAD = 2
+EXPECTED_TFM_SWEEPS = {
+    "lstm-quant": {
+        "settings": dict(wb=[5, 6, 7, 8, 9], wt=[5, 6, 7, 8, 9],
+                         db=[8] * 5, dt=[8] * 5, gs=[1] * 5),
+        "ppls": [38301.12794993621, 38293.68166475003, 38274.1186807632,
+                 38283.20693096072, 38277.821040745206],
+        "tmacs": [338319800000, 405983760000, 473647720000, 541311680000,
+                  608975640000],
+        "param_bits": [120828500, 144994200, 169159900, 193325600,
+                       217491300],
+    },
+    "lstm-tr": {
+        "settings": dict(wb=[8], wt=[24], db=[8], dt=[8], gs=[8]),
+        "ppls": [38283.58097925396],
+        "tmacs": [202991880000],
+        "param_bits": [340892205],
     },
 }
 
@@ -553,6 +604,41 @@ def lstm_checkpoint(path, seed: int = LSTM_SEED, vocab: int = 33278,
             "b_ih": uniform((4 * nhid,), k),
             "b_hh": uniform((4 * nhid,), k)})
     params["decoder"] = {"b": np.zeros(vocab, np.float32)}
+    save_params(path, params)
+
+
+def transformer_checkpoint(path, seed: int = TFM_SEED, vocab: int = 33278,
+                           emsize: int = 650, nhid: int = 650,
+                           nlayers: int = 2) -> None:
+    """Save random Transformer LM weights made with numpy from ``seed``, in
+    ``transformer_lm.init``'s distributions (encoder U(-0.1, 0.1), every
+    dense weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) stored (in,
+    out), layer norms at scale 1, bias 0), with the port's
+    ``save_params``: the same file loads in both packages."""
+    from tq_tpu_torch.utils.checkpoint import save_params
+
+    rng = np.random.default_rng(seed)
+
+    def dense(fi, fo):
+        bound = 1.0 / np.sqrt(fi)
+        return {"w": rng.uniform(-bound, bound, (fi, fo)).astype(np.float32),
+                "b": rng.uniform(-bound, bound, fo).astype(np.float32)}
+
+    def norm():
+        return {"scale": np.ones(emsize, np.float32),
+                "bias": np.zeros(emsize, np.float32)}
+
+    params = {"encoder": {"w": rng.uniform(-0.1, 0.1, (vocab, emsize))
+                          .astype(np.float32)}}
+    for i in range(nlayers):
+        pre = f"transformer_encoder.layers.{i}"
+        params[f"{pre}.self_attn.in_proj"] = dense(emsize, 3 * emsize)
+        params[f"{pre}.self_attn.out_proj"] = dense(emsize, emsize)
+        params[f"{pre}.linear1"] = dense(emsize, nhid)
+        params[f"{pre}.linear2"] = dense(nhid, emsize)
+        params[f"{pre}.norm1"] = norm()
+        params[f"{pre}.norm2"] = norm()
+    params["decoder"] = dense(emsize, vocab)
     save_params(path, params)
 
 
@@ -1254,6 +1340,53 @@ def _offset_weight(torch, w):
     return shift(w)
 
 
+def _serving_row_times(torch, variant: str, weight, x,
+                       tiled: bool = False) -> dict:
+    """A ``term_matmul`` serving row at x's shape: device ms warm (the same
+    weights every call) and cold (copies past the L2), eager ms, the plain
+    version's and ``torch.matmul``'s ms on the same operands (the
+    already-quantized input and the integer weights, or the raw input and
+    the decoded float32 weights), the bound, and with ``tiled`` the tiled
+    kernel warm and cold.  ``weight``: ``_tm_weights``' triple."""
+    from tq_tpu_torch.kernels.term_matmul import (VARIANTS, launch,
+                                                  term_matmul_ref)
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
+
+    mode, fmt, quantize_x = VARIANTS[variant]
+    w, w_sf, wv = weight
+    (M, K), N = x.shape, wv.shape[1]
+    sf = torch.tensor(0.03, device=x.device)
+    bits, terms = (7, 3) if mode == "int8" else (8, 3)
+    kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
+              quantize_x=quantize_x)
+
+    def call(wc, kernel=None):
+        return lambda: launch(x, wc, sf, bits, terms, kernel=kernel, **kw)
+
+    if quantize_x:
+        xa = tr_quantize_int_ref(x, sf, bits, terms).to(torch.float32)
+        wa = wv
+    else:
+        xa = x
+        wa = wv * (w.w_sf if fmt == "packed8" else w_sf)
+    wbytes = _weight_bytes(fmt, K, N)
+    b, by = bound_ms(4 * M * K + wbytes + 4 * M * N, 2 * M * K * N,
+                     PEAK_OPS[mode])
+    copies = [w] + [_copy_weight(w) for _ in range(
+        max(1, int(-(-COLD_BYTES // wbytes)) - 1))]
+    out = dict(**timings(torch, call(w),
+                         lambda: term_matmul_ref(x, w, sf, bits, terms, **kw),
+                         lambda: torch.matmul(xa, wa)),
+               cold_ms=device_ms(torch, [call(c) for c in copies]),
+               cold_copies=len(copies), bound_ms=b, bound_by=by)
+    out["bound_share_cold"] = b / out["cold_ms"]
+    if tiled:
+        out["tiled_ms"] = device_ms(torch, call(w, "tiled"))
+        out["tiled_cold_ms"] = device_ms(torch, [call(c, "tiled")
+                                                 for c in copies])
+    return out
+
+
 def phase_term_matmul_modes(torch):
     from tq_tpu_torch.kernels.term_matmul import (STREAM_MAX_M, VARIANTS,
                                                   launch, term_matmul,
@@ -1326,43 +1459,10 @@ def phase_term_matmul_modes(torch):
         row_shapes = [(1, 650, VOCAB)]
         if fmt == "packed8" and mode == "f32":
             row_shapes.append((1, 650, 2600))  # the packed recurrent weights
-        per_shape = {}
-        for M, K, N in row_shapes:
-            w, w_sf, wv = weights[(fmt, K, N)]
-            x = torch.randn(M, K, generator=gen, device=dev)
-            sf = torch.tensor(0.03, device=dev)
-            bits, terms = (7, 3) if mode == "int8" else (8, 3)
-            quantize_x = mode != "f32"
-            kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
-                      quantize_x=quantize_x)
-            # The library call's operands: the already-quantized input and
-            # the integer weights, or the raw input and the decoded weights.
-            if quantize_x:
-                xa = tr_quantize_int_ref(x, sf, bits, terms).to(torch.float32)
-                wa = wv
-            else:
-                xa = x
-                wa = wv * (w.w_sf if fmt == "packed8" else w_sf)
-            wbytes = _weight_bytes(fmt, K, N)
-            b, by = bound_ms(4 * M * K + wbytes + 4 * M * N,
-                             2 * M * K * N, PEAK_OPS[mode])
-            copies = [w] + [_copy_weight(w)
-                            for _ in range(max(1, int(-(-COLD_BYTES //
-                                                       wbytes)) - 1))]
-            t = timings(torch, call(w, x, sf, bits, terms, kw),
-                        lambda: term_matmul_ref(x, w, sf, bits, terms, **kw),
-                        lambda: torch.matmul(xa, wa))
-            cold = device_ms(torch, [call(c, x, sf, bits, terms, kw)
-                                     for c in copies])
-            per_shape[f"{M}x{K}x{N}"] = dict(
-                **t, cold_ms=cold, cold_copies=len(copies),
-                tiled_ms=device_ms(torch, call(w, x, sf, bits, terms, kw,
-                                                "tiled")),
-                tiled_cold_ms=device_ms(torch, [
-                    call(c, x, sf, bits, terms, kw, "tiled")
-                    for c in copies]),
-                bound_ms=b, bound_by=by, bound_share_cold=b / cold)
-            del copies
+        per_shape = {f"{M}x{K}x{N}": _serving_row_times(
+            torch, variant, weights[(VARIANTS[variant][1], K, N)],
+            torch.randn(M, K, generator=gen, device=dev), tiled=True)
+            for M, K, N in row_shapes}
         head = per_shape[f"1x650x{VOCAB}"]
         results[row] = dict(shape=[1, 650, VOCAB], variant=variant,
                             per_shape=per_shape, max_abs_err=max_err[variant],
@@ -2641,10 +2741,438 @@ def phase_group_size(torch, ckpt: Path, tmp: Path):
     return total
 
 
+# --------------------------------------------------------------- phase 15
+
+
+# The Transformer's converted weights, stored (in, out): out_proj, linear1
+# and linear2 of each layer, and the decoder read in place (its own
+# weight, not the encoder's transpose).
+TFM_WEIGHTS = [(650, 650), (650, VOCAB)]
+# The streaming kernel's variants on the Transformer's serving path.
+TFM_STREAM_ROWS = ("term_matmul_raw_packed8", "term_matmul_raw_int16",
+                   "term_matmul_raw_int8")
+# TR serving generation of the Transformer (raw input, no fixed decoder):
+# (name, (wb, gs, wt, db, dt), pack).
+TFM_GEN_CONFIGS = [
+    ("u8s", (8, 8, 24, 8, 8), "u8s"),
+    ("int16", (8, 8, 24, 8, 8), "int"),
+    ("int8", (7, 8, 12, 7, 3), "int"),
+]
+
+
+def phase_tfm_kernels(torch):
+    """B1, B2 and the streaming ``term_matmul`` at the Transformer's
+    shapes, against the plain versions first, then timed: B1 (g = 1, bits
+    5 and 9, as many terms) and B2 (g = 8, axis 0, bits 8, 24 terms, read
+    in place; B5 on as many elements) bit for bit on TFM_WEIGHTS; the
+    streaming kernel at (1, 650, 650) and (1, 650, 33278) in the three
+    raw-input variants within rtol 1e-5, atol 1e-4 * max|ref|, warm and
+    cold beside ``torch.matmul`` on the float32 weights."""
+    from tq_tpu_torch.kernels.term_matmul import (VARIANTS, term_matmul,
+                                                  term_matmul_ref)
+    from tq_tpu_torch.kernels.tr_quantize import (tr_quantize,
+                                                  tr_quantize_ref,
+                                                  tr_scale_copy)
+    from tq_tpu_torch.layers.common import weight_scale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = {"tr_quantize_elementwise": {}, "tr_quantize_grouped": {}}
+    cases = 0
+    for K, N in TFM_WEIGHTS:
+        w = (torch.rand(K, N, generator=gen, device=dev) * 2 - 1) / K ** 0.5
+        key = f"{K}x{N}"
+        for bits in (5, 9):
+            wsf = weight_scale(w, bits)
+            _exact(torch, f"tfm B1 {key} bits={bits}",
+                   tr_quantize(w, wsf, bits, 1, bits),
+                   tr_quantize_ref(w, wsf, bits, 1, bits))
+            cases += 1
+            rows["tr_quantize_elementwise"][f"{key}_bits{bits}"] = dict(
+                bits=bits, terms=bits, **_cell(
+                    torch, lambda: tr_quantize(w, wsf, bits, 1, bits),
+                    lambda: tr_quantize_ref(w, wsf, bits, 1, bits),
+                    8 * w.numel(), w.numel(), big=N == VOCAB))
+        wsf = weight_scale(w, 8)
+        _exact(torch, f"tfm B2 {key} g=8", tr_quantize(w, wsf, 8, 8, 24, 0),
+               tr_quantize_ref(w, wsf, 8, 8, 24, 0))
+        cases += 1
+        rows["tr_quantize_grouped"][f"{key}_g8"] = dict(
+            group_size=8, bits=8, terms=24, **_cell(
+                torch, lambda: tr_quantize(w, wsf, 8, 8, 24, 0),
+                lambda: tr_quantize_ref(w, wsf, 8, 8, 24, 0), 8 * w.numel(),
+                w.numel(), big=N == VOCAB),
+            copy_ceiling_ms=device_ms(torch, lambda: tr_scale_copy(w, wsf)))
+    max_err = {}
+    for row in TFM_STREAM_ROWS:
+        variant = TERM_MATMUL_ROWS[row]
+        mode, fmt, quantize_x = VARIANTS[variant]
+        cells = rows.setdefault(row, {})
+        for K, N in TFM_WEIGHTS:
+            weight = _tm_weights(torch, fmt, K, N, gen, dev)
+            w, w_sf, _ = weight
+            x = torch.randn(1, K, generator=gen, device=dev)
+            kw = dict(w_sf=w_sf, quantize_x=False)
+            before = term_matmul.kernel_launches["stream"]
+            out = term_matmul(x, w, 1.0, **kw)
+            ref = term_matmul_ref(x, w, 1.0, **kw)
+            torch.cuda.synchronize()
+            if term_matmul.kernel_launches["stream"] != before + 1:
+                fail(f"term_matmul {variant} (1, {K}, {N}) did not take the "
+                     "streaming kernel")
+            err, scale = float((out - ref).abs().max()), float(
+                ref.abs().max())
+            if not torch.allclose(out, ref, rtol=1e-5, atol=1e-4 * scale):
+                fail(f"term_matmul {variant} (1, {K}, {N}): max |diff| {err} "
+                     f"(max |ref| {scale})")
+            max_err[row] = max(max_err.get(row, 0.0), err)
+            cases += 1
+            cells[f"1x{K}x{N}"] = dict(max_abs_err=err, **_serving_row_times(
+                torch, variant, weight, x))
+            del weight, w
+    emit({"phase": "tfm_kernels", "ok": True, "cases": cases,
+          "max_abs_err": max_err, "results": rows})
+    return rows
+
+
+def phase_tfm_sweep(torch, ckpt: Path):
+    """``run_sweep(model="Transformer")`` on the card over
+    EXPECTED_TFM_SWEEPS' settings: tmacs and param_bits equal, ppl within
+    rtol 1e-3; B1 and B2 launched."""
+    from tq_tpu_torch.data.wikitext import load_corpus
+    from tq_tpu_torch.evals.lstm import run_sweep
+
+    if load_corpus()[1] != "synthetic":
+        fail("EXPECTED_TFM_SWEEPS hold the synthetic test stream's numbers; "
+             "unset TQ_DATA_DIR")
+    _reset_counts()
+    t0 = time.perf_counter()
+    got, setting_seconds = {}, {}
+    for name, exp in EXPECTED_TFM_SWEEPS.items():
+        s = exp["settings"]
+        t1 = time.perf_counter()
+        got[name] = run_sweep(s["wb"], s["wt"], s["db"], s["dt"], s["gs"],
+                              checkpoint=str(ckpt), verbose=False,
+                              model="Transformer", device="cuda")
+        torch.cuda.synchronize()
+        setting_seconds[name] = ((time.perf_counter() - t1)
+                                 / len(exp["ppls"]))
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    gap = 0.0
+    for name, exp in EXPECTED_TFM_SWEEPS.items():
+        for key in ("tmacs", "param_bits"):
+            if got[name][key] != [float(v) for v in exp[key]]:
+                fail(f"Transformer {name} {key}: {got[name][key]} != JAX "
+                     f"{exp[key]}")
+        for a, b in zip(got[name]["ppls"], exp["ppls"]):
+            gap = max(gap, abs(a - b) / abs(b))
+    if gap > 1e-3:
+        fail(f"Transformer sweep ppl differs from the JAX package's by {gap} "
+             "(relative)")
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped"], "Transformer sweep")
+    emit({"phase": "tfm_sweep", "ok": True, "seconds": seconds,
+          "seconds_per_setting": setting_seconds,
+          "settings": sum(len(e["ppls"]) for e in
+                          EXPECTED_TFM_SWEEPS.values()),
+          "ppl_max_rel_gap": gap, "launches": launches, "results": got})
+    return launches
+
+
+def _tokens_per_s(torch, sample) -> float:
+    """``sample(words)`` after a 5-token warm-up: GEN_WORDS / seconds."""
+    sample(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sample(GEN_WORDS)
+    return GEN_WORDS / (time.perf_counter() - t0)
+
+
+def _decode_run(torch, params, tokens, device, qcfg=None, qstate=None):
+    """Teacher-forced KV-cache decoding over ``tokens`` on ``device``:
+    the (len, vocab) log-probs, and the cache at the end."""
+    from tq_tpu_torch.models import transformer_lm
+
+    d = params["encoder"]["w"].shape[1]
+    nlayers = sum(1 for k in params if k.endswith(".linear1"))
+    cache = transformer_lm.decode_init_cache(len(tokens), 1, d, TFM_NHEAD,
+                                             nlayers, device=device)
+    rows = []
+    for pos, t in enumerate(tokens):
+        logp, cache = transformer_lm.decode_step(
+            params, torch.tensor([[t]], device=device), pos, cache,
+            nhead=TFM_NHEAD, qcfg=qcfg, qstate=qstate)
+        rows.append(logp)
+    return torch.cat(rows), cache
+
+
+def _converted_equal(a, b, names) -> bool:
+    from tq_tpu_torch.utils.checkpoint import flatten_tree
+
+    fa = flatten_tree({n: a[n] for n in names})
+    fb = flatten_tree({n: b[n] for n in names})
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+def phase_tfm_generation(torch, ckpt: Path, card: str, smi: str):
+    """The Transformer's serving paths at full width: the fp32 sampler
+    (``generate_transformer``, the full prefix every token) and the TR
+    sampler (``generate_transformer_tr``, a KV-cache step a token) in each
+    of TFM_GEN_CONFIGS, 100 tokens each, every raw-input streaming variant
+    launched; then each serving model on the card and on the CPU from the
+    card's converted weights (equal scales and packs, teacher-forced
+    log-probs over 16 sampled tokens within atol 1e-4), ``decode_step``
+    against the full-prefix forward on the card at every one of the 16
+    positions (1e-5 fp32, 2e-4 packed), and tokens/s of each sampler.
+    Returns (launches, the u8s model and its tokens for phase 17)."""
+    from tq_tpu_torch.evals.generate import (calibrate_transformer,
+                                             generate_transformer,
+                                             generate_transformer_tr,
+                                             sample_transformer)
+    from tq_tpu_torch.models import transformer_lm
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params_np, stream = _lstm_inputs(ckpt)
+    params = params_from_jax(params_np, "cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    tokens, seconds = {}, {}
+    t1 = time.perf_counter()
+    tokens["fp32"] = generate_transformer(params, VOCAB, GEN_WORDS,
+                                          seed=GEN_SEED, nhead=TFM_NHEAD,
+                                          device="cuda")
+    seconds["fp32"] = time.perf_counter() - t1
+    for name, tr, pack in TFM_GEN_CONFIGS:
+        t1 = time.perf_counter()
+        tokens[name] = generate_transformer_tr(
+            params, VOCAB, GEN_WORDS, seed=GEN_SEED, nhead=TFM_NHEAD, tr=tr,
+            pack_fmt=pack, calib_stream=stream, device="cuda")
+        seconds[name] = time.perf_counter() - t1
+    for name, toks in tokens.items():
+        if len(toks) != GEN_WORDS or not all(0 <= t < VOCAB for t in toks):
+            fail(f"Transformer generation {name}: tokens out of range or "
+                 "missing")
+    generation_seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    _require_launched(launches, ["tr_quantize_grouped", *TFM_STREAM_ROWS,
+                                 "term_matmul_kernel_stream"],
+                      "Transformer generation")
+
+    # fp32: the KV-cache step against the full prefix, and tokens/s.
+    toks = tokens["fp32"][:TEACHER_TOKENS]
+    full = transformer_lm.apply(params, torch.tensor(toks, device="cuda")[
+        :, None], nhead=TFM_NHEAD)
+    inc, _ = _decode_run(torch, params, toks, "cuda")
+    fp32_gap = float((inc - full).abs().max())
+    if fp32_gap > 1e-5:
+        fail(f"Transformer fp32 decode_step differs from the full prefix by "
+             f"{fp32_gap}")
+    results = {"fp32": dict(decode_vs_full_prefix=fp32_gap,
+                            tokens_per_s=_tokens_per_s(
+                                torch, lambda n: generate_transformer(
+                                    params, VOCAB, n, seed=GEN_SEED,
+                                    nhead=TFM_NHEAD, device="cuda")))}
+    served = {}
+    groups: dict = {}
+    for name, tr, pack in TFM_GEN_CONFIGS:
+        groups.setdefault(tr, []).append((name, pack))
+    for tr, packs in groups.items():
+        qp, qc, qs0 = transformer_lm.convert(params, *tr)
+        qs = calibrate_transformer(qp, qc, qs0, stream, nhead=TFM_NHEAD)
+        # The CPU path starts from the card's converted weights (the
+        # conversion kernels are bit-exact: phase tfm_kernels).
+        qp_c = params_from_jax(qp, "cpu")
+        qs_c = calibrate_transformer(qp_c, qc, params_from_jax(qs0, "cpu"),
+                                     stream, nhead=TFM_NHEAD)
+        for n in qc:
+            if float(qs[n]["sf"]) != float(qs_c[n]["sf"]):
+                fail(f"Transformer serving {tr}: calibrated {n} sf "
+                     f"{float(qs[n]['sf'])} (card) != {float(qs_c[n]['sf'])} "
+                     "(cpu)")
+        for name, pack in packs:
+            qpk = transformer_lm.pack(qp, qc, fmt=pack)
+            qpk_c = transformer_lm.pack(qp_c, qc, fmt=pack)
+            if not _converted_equal(qpk, qpk_c, list(qc)):
+                fail(f"Transformer serving {name}: packed weights differ card "
+                     "vs cpu")
+            toks = tokens[name][:TEACHER_TOKENS]
+            inc, _ = _decode_run(torch, qpk, toks, "cuda", qc, qs)
+            inc_c, _ = _decode_run(torch, qpk_c, toks, "cpu", qc, qs_c)
+            qfull, _ = transformer_lm.make_quantized_apply(
+                qc, track=False, nhead=TFM_NHEAD)(
+                    qp, qs, torch.tensor(toks, device="cuda")[:, None])
+            cpu_gap = float((inc.cpu() - inc_c).abs().max())
+            full_gap = float((inc - qfull).abs().max())
+            if cpu_gap > 1e-4:
+                fail(f"Transformer serving {name}: teacher-forced log-probs "
+                     f"differ by {cpu_gap} card vs cpu")
+            if full_gap > 2e-4:
+                fail(f"Transformer serving {name}: decode_step differs from "
+                     f"the full prefix by {full_gap}")
+            results[name] = dict(
+                tr=list(tr), pack=pack,
+                sf={n: float(qs[n]["sf"]) for n in qc},
+                logp_max_abs_err_cpu=cpu_gap, decode_vs_full_prefix=full_gap,
+                tokens_per_s=_tokens_per_s(
+                    torch, lambda n, qpk=qpk: sample_transformer(
+                        qpk, qc, qs, VOCAB, n, seed=GEN_SEED,
+                        nhead=TFM_NHEAD)))
+            if name == "u8s":
+                served = dict(qparams=qpk, qcfg=qc, qstate=qs,
+                              tokens=tokens[name])
+    emit({"phase": "tfm_generation", "ok": True, "card": card,
+          "nvidia_smi": smi, "seconds": time.perf_counter() - t0,
+          "generation_seconds": generation_seconds,
+          "config_seconds": seconds, "words": GEN_WORDS,
+          "teacher_tokens": TEACHER_TOKENS, "launches": launches,
+          "first_tokens": {k: v[:8] for k, v in tokens.items()},
+          "results": results})
+    return launches, served
+
+
+def _reloaded_steps(torch, direct, loaded, inputs, carry):
+    """Run ``direct`` and ``loaded`` side by side over ``inputs`` from
+    the same carry; returns (max |diff| of the log-probs and of the carry,
+    streaming and B1 launches inside the loaded program)."""
+    from tq_tpu_torch.kernels.term_matmul import term_matmul
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+
+    logp_err = carry_err = 0.0
+    launches = {"term_matmul_kernel_stream": 0, "tr_quantize_elementwise": 0}
+    cd = ce = carry
+    for args in inputs:
+        ld, cd = direct(*args, cd)
+        s0 = term_matmul.kernel_launches["stream"]
+        e0 = tr_quantize.launches["elementwise"]
+        le, ce = loaded(*args, ce)
+        torch.cuda.synchronize()
+        launches["term_matmul_kernel_stream"] += (
+            term_matmul.kernel_launches["stream"] - s0)
+        launches["tr_quantize_elementwise"] += (
+            tr_quantize.launches["elementwise"] - e0)
+        logp_err = max(logp_err, float((ld - le).abs().max()))
+        flat_d = list(cd.values()) if isinstance(cd, dict) else list(cd)
+        flat_e = list(ce.values()) if isinstance(ce, dict) else list(ce)
+        carry_err = max([carry_err] + [float((a - b).abs().max())
+                                       for a, b in zip(flat_d, flat_e)])
+    return logp_err, carry_err, launches
+
+
+def _step_ms(torch, step, inputs, carry) -> float:
+    """Host ms a step of ``step`` over ``inputs`` from ``carry``, ending
+    in a synchronize (after one warm-up pass)."""
+    def run():
+        c = carry
+        for args in inputs:
+            _, c = step(*args, c)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    return (time.perf_counter() - t0) * 1e3 / len(inputs)
+
+
+def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
+    """The serving steps as ``torch.export`` programs on the card: the
+    Transformer's u8s ``decode_step`` at cache length GEN_WORDS + 1 and the
+    LSTM's u8s step (``export_lm_step``), each saved, reloaded and run
+    beside the direct step over 16 steps: the same log-probs and carry,
+    bit for bit or within 1e-6, and the streaming kernel launched inside
+    the loaded program (and B1, the LSTM's activation quantizer); host ms
+    a step of each."""
+    from tq_tpu_torch.evals.generate import (export_transformer_step,
+                                             serving_model)
+    from tq_tpu_torch.models import lstm_lm, transformer_lm
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.export import export_lm_step, load_serving
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    results = {}
+    qp, qc, qs = served["qparams"], served["qcfg"], served["qstate"]
+    L = GEN_WORDS + 1
+    t0 = time.perf_counter()
+    data = export_transformer_step(qp, qc, qs, L, nhead=TFM_NHEAD)
+    export_s = time.perf_counter() - t0
+    loaded = load_serving(data)
+    cache0 = transformer_lm.decode_init_cache(
+        L, 1, qp["encoder"]["w"].shape[1], TFM_NHEAD,
+        sum(1 for k in qp if k.endswith(".linear1")), device="cuda")
+
+    def direct(tok, pos, cache):
+        return transformer_lm.decode_step(qp, tok, pos, cache,
+                                          nhead=TFM_NHEAD, qcfg=qc,
+                                          qstate=qs)
+
+    inputs = [(torch.tensor([[t]], device="cuda"),
+               torch.tensor(pos, device="cuda"))
+              for pos, t in enumerate(served["tokens"][:TEACHER_TOKENS])]
+    results["transformer_u8s"] = dict(zip(
+        ("logp_max_abs_err", "cache_max_abs_err", "loaded_launches"),
+        _reloaded_steps(torch, direct, loaded, inputs, cache0)),
+        export_seconds=export_s, bytes=len(data), cache_length=L,
+        step_ms_direct=_step_ms(torch, direct, inputs, cache0),
+        step_ms_loaded=_step_ms(torch, loaded, inputs, cache0))
+
+    lstm = params_from_jax(load_params(lstm_ckpt), "cuda")
+    lqp, lqc, lqs = serving_model(lstm, (8, 8, 24, 8, 8), "u8s", stream)
+    t0 = time.perf_counter()
+    data = export_lm_step(lqp, lqc, lqs)
+    export_s = time.perf_counter() - t0
+    loaded = load_serving(data)
+    fwd = lstm_lm.make_quantized_apply(lqc, track=False)
+
+    def lstm_direct(tok, hidden):
+        logp, hidden, _ = fwd(lqp, lqs, tok, hidden)
+        return logp, hidden
+
+    toks = np.random.default_rng(GEN_SEED).integers(0, VOCAB, TEACHER_TOKENS)
+    inputs = [(torch.tensor([[int(t)]], device="cuda"),) for t in toks]
+    hidden0 = lstm_lm.init_hidden(1, nhid=lqp["rnn"][0]["b_hh"].shape[0] // 4,
+                                  nlayers=len(lqp["rnn"]), device="cuda")
+    results["lstm_u8s"] = dict(zip(
+        ("logp_max_abs_err", "cache_max_abs_err", "loaded_launches"),
+        _reloaded_steps(torch, lstm_direct, loaded, inputs, hidden0)),
+        export_seconds=export_s, bytes=len(data),
+        step_ms_direct=_step_ms(torch, lstm_direct, inputs, hidden0),
+        step_ms_loaded=_step_ms(torch, loaded, inputs, hidden0))
+    for name, r in results.items():
+        worst = max(r["logp_max_abs_err"], r["cache_max_abs_err"])
+        if worst > 1e-6:
+            fail(f"exported {name} step differs from the direct step by "
+                 f"{worst}")
+        r["bit_exact"] = worst == 0.0
+        if r["loaded_launches"]["term_matmul_kernel_stream"] <= 0:
+            fail(f"exported {name} step: the loaded program launched no "
+                 "streaming term_matmul kernel")
+    if results["lstm_u8s"]["loaded_launches"]["tr_quantize_elementwise"] <= 0:
+        fail("exported LSTM step: the loaded program launched no tr_quantize")
+    emit({"phase": "tfm_export", "ok": True, "steps": TEACHER_TOKENS,
+          "results": results})
+
+
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn", "zoo")
+GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm")
+
+
+def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
+    """Put a group's per-shape cells under ``key`` of each kernel row; a
+    row no earlier group timed (``--only``) is headed by its first
+    cell."""
+    for name, cells in rows.items():
+        row = kernel_results.setdefault(name, {})
+        row[key] = cells
+        if "ms" not in row:
+            head = next(iter(cells.values()))
+            row.update(max_abs_err=head.get("max_abs_err", 0.0),
+                       library_ms=head.get("library_ms"),
+                       **{k: head[k] for k in ("ms", "eager_ms", "plain_ms",
+                                               "bound_ms", "bound_by")})
 
 
 def main(argv=None) -> None:
@@ -2702,20 +3230,24 @@ def main(argv=None) -> None:
             by_path["resnet_flagship"] = phase_flagship(torch, ckpt)
             by_path["resnet_sweep"] = phase_cnn_sweep(torch, ckpt)
     if "zoo" in groups:
-        for name, cells in phase_zoo_kernels(torch).items():
-            row = kernel_results.setdefault(name, {})
-            row["zoo_shapes"] = cells
-            if "ms" not in row:  # --only zoo: the first cell heads the row
-                head = next(iter(cells.values()))
-                row.update(max_abs_err=0.0, library_ms=None,
-                           **{k: head[k] for k in ("ms", "eager_ms",
-                                                   "plain_ms", "bound_ms",
-                                                   "bound_by")})
+        _attach_cells(kernel_results, phase_zoo_kernels(torch), "zoo_shapes")
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = Path(tmp) / "resnet_seeded.npz"
             resnet_checkpoint(ckpt)
             by_path["group_size"] = phase_group_size(torch, ckpt, Path(tmp))
             by_path["cnn_zoo"] = phase_cnn_zoo(torch, Path(tmp))
+    if "tfm" in groups:
+        _attach_cells(kernel_results, phase_tfm_kernels(torch), "tfm_shapes")
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "transformer_seeded.npz"
+            transformer_checkpoint(ckpt)
+            sweep = phase_tfm_sweep(torch, ckpt)
+            gen, served = phase_tfm_generation(torch, ckpt, card, smi)
+            by_path["tfm"] = {k: sweep[k] + gen[k] for k in sweep}
+            lstm_ckpt = Path(tmp) / "lstm_seeded.npz"
+            lstm_checkpoint(lstm_ckpt)
+            phase_tfm_export(torch, served, lstm_ckpt,
+                             _lstm_inputs(ckpt)[1])
 
     lines = []
     for name, meta in KERNELS.items():
@@ -2732,6 +3264,7 @@ def main(argv=None) -> None:
                       **{k: r[k] for k in ("cold_ms", "tiled_ms",
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
+                                           "tfm_shapes",
                                            "modes_m_gt_8", "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
                                            "clusters_at_once")

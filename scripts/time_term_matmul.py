@@ -12,7 +12,9 @@ CUDA-graph replay (``chip_smoke.device_ms``):
   inputs like those of ``chip_smoke.py``'s ``kernels`` phase (bits 4, 2
   terms);
 * the six M = 1 serving rows at the decoder shape (1, 650, 33278), warm,
-  on weights made as in phase ``term_matmul_modes``.
+  on weights made as in phase ``term_matmul_modes``, and the same calls'
+  eager time (``chip_smoke.eager_ms``: back to back from Python, the
+  wrapper's host cost included).
 
 Each call takes whatever kernel the checkout's route gives it.  To
 compare two commits on one card, run it once per checkout in the order
@@ -45,7 +47,7 @@ def main() -> None:
         sys.exit("no CUDA device: this script times the port on the GPU")
     sys.path.insert(0, str(REPO))
     from chip_smoke import (TERM_MATMUL_ROWS, VOCAB, _tm_weights, device_ms,
-                            nvidia_smi_line)
+                            eager_ms, nvidia_smi_line)
 
     sys.path.insert(0, str(root))
     import tq_tpu_torch
@@ -64,7 +66,7 @@ def main() -> None:
         sf = torch.tensor(0.2, device=dev)
         ms[f"{M}x{K}x{N}"] = device_ms(
             torch, lambda: term_matmul(x, w, sf, 4, 2))
-    serving = {}
+    serving, serving_eager = {}, {}
     wgen = torch.Generator(device=dev).manual_seed(1)
     for variant in TERM_MATMUL_ROWS.values():
         mode, fmt, quantize_x = VARIANTS[variant]
@@ -72,11 +74,17 @@ def main() -> None:
         x = torch.randn(1, 650, generator=wgen, device=dev)
         sf = torch.tensor(0.03, device=dev)
         bits, terms = (7, 3) if mode == "int8" else (8, 3)
-        serving[variant] = device_ms(torch, lambda: term_matmul(
-            x, w, sf, bits, terms, bf16=mode == "bf16", int8=mode == "int8",
-            w_sf=w_sf, quantize_x=quantize_x))
+
+        def call():
+            return term_matmul(x, w, sf, bits, terms, bf16=mode == "bf16",
+                               int8=mode == "int8", w_sf=w_sf,
+                               quantize_x=quantize_x)
+
+        serving[variant] = device_ms(torch, call)
+        serving_eager[variant] = eager_ms(torch, call)
     print(json.dumps({"root": str(root), "card": nvidia_smi_line(),
-                      "ms": ms, "serving_1x650x33278_ms": serving}),
+                      "ms": ms, "serving_1x650x33278_ms": serving,
+                      "serving_1x650x33278_eager_ms": serving_eager}),
           flush=True)
 
 

@@ -516,14 +516,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        teval.run_sweep([8], [8], [8], [8], [1], model="Transformer",
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tgen.main(["--model", "Transformer", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="export"):
+    """What still raises: the JAX package's multi-platform export
+    (``--export-platforms``), which a torch.export program, holding its
+    constants on one device, has no counterpart of (ROADMAP)."""
+    with pytest.raises(ValueError, match="ROADMAP"):
         tgen.generate_tr(_np_params(), VOCAB, words=2, export_path="x",
-                         device="cpu")
+                         export_platforms=["cpu", "cuda"], device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tgen.main(["--tr", "8", "8", "24", "8", "8", "--export",
+                   str(tmp_path / "x"), "--export-platforms", "cpu,cuda",
+                   "--device", "cpu"])
+    assert not (tmp_path / "x").exists()
     # Torch checkpoints load now (utils/torch_import), as in the JAX package.
     p = _np_params()
     sd = {"encoder.weight": torch.from_numpy(p["encoder"]["w"]),

@@ -1,13 +1,15 @@
-"""Wikitext-2 LSTM UQ/TR perplexity sweep on the card.
+"""Wikitext-2 LSTM / Transformer UQ/TR perplexity sweep on the card.
 
 Port of ``tq_tpu.evals.lstm``.  Per (wb, wt, db, dt, gs) setting: convert
 -> a calibration pass over the whole test stream -> MSE scale search ->
 perplexity -> profile.  bptt=35 chunks of a batchified (T, 10) token
-stream, the hidden state carried across chunks.
+stream, the hidden state carried across chunks (recurrent cells).
 
-tmacs/param_bits follow the reference profile: only the decoder linear on
-one bptt chunk counts (``35*10*vocab*650`` MACs), and param_bits count only
-the decoder weight (g=1: nelement*wb; g>1: compressed HESE).
+tmacs/param_bits follow the reference profile: for the recurrent cells
+only the decoder linear on one bptt chunk counts (``35*10*vocab*650``
+MACs), and param_bits count only the decoder weight (g=1: nelement*wb;
+g>1: compressed HESE); for the Transformer every converted linear counts
+(out_proj and the feed-forward pair of each layer, and the decoder).
 
 Output schema: ``{"ppls": [], "tmacs": [], "param_bits": []}``, flushed
 after every setting; a partial file resumes.  Runs on ``--device cuda`` by
@@ -27,14 +29,15 @@ import torch
 
 from tq_tpu_torch.data.wikitext import batchify, load_corpus
 from tq_tpu_torch.layers.common import TRParams
-from tq_tpu_torch.models import lstm_lm
+from tq_tpu_torch.models import lstm_lm, transformer_lm
 from tq_tpu_torch.profilers import dense_param_bits, dense_term_macs
 from tq_tpu_torch.utils.checkpoint import load_params
 from tq_tpu_torch.utils.device import resolve_device
 from tq_tpu_torch.utils.params import params_from_jax
 from tq_tpu_torch.utils.torch_import import load_torch_checkpoint
 
-__all__ = ["evaluate_setting", "run_sweep", "main", "EVAL_BATCH", "BPTT"]
+__all__ = ["evaluate_setting", "evaluate_setting_transformer", "run_sweep",
+           "main", "EVAL_BATCH", "BPTT"]
 
 EVAL_BATCH = 10
 BPTT = 35
@@ -115,10 +118,39 @@ def evaluate_setting(params, wb, wt, db, dt, gs, stream, vocab,
     return ppl, tmacs, param_bits
 
 
-def _not_ported_model(model: str) -> None:
-    if model == "Transformer":
-        raise NotImplementedError(
-            "the Transformer LM is not ported yet (ROADMAP slice 4)")
+def evaluate_setting_transformer(params, wb, wt, db, dt, gs, stream, vocab,
+                                 bptt: int = BPTT):
+    """One Transformer setting on the parameters' device; returns (ppl,
+    tmacs, bits).  Every chunk starts from an empty context (no state
+    crosses chunks); the loss is summed on the device, one host fetch.
+
+    tmacs counts every converted linear on one bptt chunk (out_proj and
+    the feed-forward pair of each layer, and the decoder); param_bits the
+    same weights.
+    """
+    device = params["encoder"]["w"].device
+    qparams, qcfg, qstate = transformer_lm.convert(params, wb, gs, wt, db,
+                                                   dt)
+    track = transformer_lm.make_quantized_apply(qcfg, track=True)
+    for x, _ in _chunks(stream, bptt):
+        _, qstate = track(qparams, qstate, torch.as_tensor(x, device=device))
+    qstate = transformer_lm.finalize(qstate, qcfg)
+    ev = transformer_lm.make_quantized_apply(qcfg, track=False)
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for x, y in _chunks(stream, bptt):
+        logp, _ = ev(qparams, qstate, torch.as_tensor(x, device=device))
+        total = total + len(x) * _nll(logp, torch.as_tensor(y,
+                                                            device=device))
+    ppl = math.exp(float(total) / (len(stream) - 1))
+
+    tr = TRParams(wb, gs, wt, db, dt)
+    tmacs = bits = 0
+    B = stream.shape[1]
+    for name in qcfg:
+        w = qparams[name]["w"]
+        tmacs += dense_term_macs(bptt * B * w.shape[1], w.shape[0], tr)
+        bits += dense_param_bits(w, qparams[name]["w_sf"], tr)
+    return ppl, tmacs, bits
 
 
 def _load_checkpoint(path, vocab: int, with_meta: bool = False):
@@ -143,9 +175,10 @@ def run_sweep(wb, wt, db, dt, gs, out_file=None, checkpoint=None,
               model: str = "LSTM", merge_hack=True, device="cuda"):
     """Evaluate every setting of the zipped lists; returns the results
     dict.  Skips the settings a partial ``out_file`` already holds.
-    Without a checkpoint the model is a random init (a torch generator
-    seeded 0; not the JAX package's init values)."""
-    _not_ported_model(model)
+    ``model``: a recurrent cell or "Transformer" (whose checkpoint is an
+    ``.npz``).  Without a checkpoint the model is a random init at full
+    width (a torch generator seeded 0; not the JAX package's init
+    values)."""
     device = resolve_device(device)
     corpus, source = load_corpus(data_dir)
     vocab = len(corpus.dictionary.idx2word)
@@ -154,6 +187,9 @@ def run_sweep(wb, wt, db, dt, gs, out_file=None, checkpoint=None,
     if checkpoint:
         params = params_from_jax(_load_checkpoint(checkpoint, vocab),
                                  device)
+    elif model == "Transformer":
+        params = transformer_lm.init(torch.Generator().manual_seed(0),
+                                     vocab=vocab, device=device)
     else:
         params = lstm_lm.init(torch.Generator().manual_seed(0), vocab=vocab,
                               cell=model, device=device)
@@ -172,9 +208,13 @@ def run_sweep(wb, wt, db, dt, gs, out_file=None, checkpoint=None,
     for i, setting in enumerate(zip(wb, wt, db, dt, gs)):
         if i < skip:
             continue
-        ppl, tmacs, bits = evaluate_setting(
-            params, *setting, stream=stream, vocab=vocab,
-            merge_hack=merge_hack, cell=model)
+        if model == "Transformer":
+            ppl, tmacs, bits = evaluate_setting_transformer(
+                params, *setting, stream=stream, vocab=vocab)
+        else:
+            ppl, tmacs, bits = evaluate_setting(
+                params, *setting, stream=stream, vocab=vocab,
+                merge_hack=merge_hack, cell=model)
         results["ppls"].append(ppl)
         results["tmacs"].append(float(tmacs))
         results["param_bits"].append(float(bits))
@@ -203,7 +243,7 @@ def main(argv=None):
                              "Transformer"],
                     help="the reference main.py model families; the "
                          "recurrent cells share the shared-quantizer "
-                         "protocol (Transformer: not ported yet)")
+                         "protocol")
     ap.add_argument("--sound-hese", action="store_true",
                     help="count param_bits with the sound HESE automaton "
                          "instead of the reference's merging-neighbors hese()")

@@ -25,6 +25,11 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
   other variant on the tiled kernel of ``csrc/term_matmul.cu``.  It
   raises on what the kernels do not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
+* While ``torch.export`` traces it, it calls the operator
+  ``tq::term_matmul`` (:func:`term_matmul_op`) instead, whose CUDA
+  implementation is the kernel (counted as a launch) and whose CPU
+  implementation the plain version, so that an exported program keeps
+  the kernel; an eager call never pays the operator's dispatch.
 
 The packing functions are plain tensor code (no kernel) on the weights'
 device.  Their overflow checks can be deferred and fetched in one
@@ -34,7 +39,7 @@ device-to-host copy per model (:func:`flush_pack_checks`).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,10 +49,10 @@ from tq_tpu_torch.kernels.tr_quantize import (MAX_BITS, _sm_count,
                                               tr_quantize_ref)
 from tq_tpu_torch.ops.term_reveal import as_scale
 
-__all__ = ["term_matmul", "term_matmul_ref", "launch", "plan", "Plan",
-           "STREAM_MAX_M", "pack_weight_int", "pack_weight_u8s",
-           "unpack_weight_u8s", "flush_pack_checks", "PackedWeight8",
-           "VARIANTS", "variant"]
+__all__ = ["term_matmul", "term_matmul_ref", "term_matmul_op", "launch",
+           "plan", "Plan", "STREAM_MAX_M", "pack_weight_int",
+           "pack_weight_u8s", "unpack_weight_u8s", "flush_pack_checks",
+           "PackedWeight8", "VARIANTS", "variant"]
 
 # M up to which term_matmul takes the weight-streaming kernel: the
 # crossover with the tiled kernel measured on the card (PERF.md).
@@ -332,11 +337,66 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     mode on float32 weights and the tiled one otherwise (:func:`plan`).
     """
     del interpret, bm, bk, bn, pipeline, bsub
+    if torch.compiler.is_exporting():
+        return _call_op(x, w, sf, bits, num_keep_terms, bf16, int8, w_sf,
+                        quantize_x)
     if not x.is_cuda:
         return term_matmul_ref(x, w, sf, bits, num_keep_terms, bf16, int8,
                                w_sf, quantize_x)
     return launch(x, w, sf, bits, num_keep_terms, bf16, int8, w_sf,
                   quantize_x)
+
+
+@torch.library.custom_op("tq::term_matmul", mutates_args=(),
+                         device_types="cpu")
+def term_matmul_op(x: torch.Tensor, w: torch.Tensor,
+                   signs: Optional[torch.Tensor], sf: Optional[torch.Tensor],
+                   w_sf: Optional[torch.Tensor], bits: int,
+                   num_keep_terms: int, bf16: bool, int8: bool,
+                   quantize_x: bool) -> torch.Tensor:
+    """:func:`term_matmul` as an operator of plain tensors, the one an
+    exported program calls: ``w`` is the weight tensor, or the ``lo``
+    plane of a :class:`PackedWeight8` whose sign plane is ``signs`` and
+    scale ``w_sf``; ``sf`` is None for raw input.  This CPU
+    implementation is the plain version; the CUDA one launches the
+    kernel."""
+    return term_matmul_ref(*_op_operands(x, w, signs, sf, w_sf, bits,
+                                         num_keep_terms, bf16, int8,
+                                         quantize_x))
+
+
+@term_matmul_op.register_kernel("cuda")
+def _term_matmul_op_cuda(x, w, signs, sf, w_sf, bits, num_keep_terms, bf16,
+                         int8, quantize_x):
+    return launch(*_op_operands(x, w, signs, sf, w_sf, bits, num_keep_terms,
+                                bf16, int8, quantize_x))
+
+
+@term_matmul_op.register_fake
+def _term_matmul_op_fake(x, w, signs, sf, w_sf, bits, num_keep_terms, bf16,
+                         int8, quantize_x):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.float32)
+
+
+def _op_operands(x, w, signs, sf, w_sf, bits, num_keep_terms, bf16, int8,
+                 quantize_x):
+    """The operator's arguments as :func:`term_matmul`'s."""
+    if signs is not None:
+        w, w_sf = PackedWeight8(w, signs, w_sf), None
+    return (x, w, sf if quantize_x else 1.0, bits, num_keep_terms, bf16, int8,
+            w_sf, quantize_x)
+
+
+def _call_op(x, w, sf, bits, num_keep_terms, bf16, int8, w_sf, quantize_x):
+    """:func:`term_matmul` through ``tq::term_matmul`` (while exporting)."""
+    _check(x, w, bits, bf16, int8, w_sf, quantize_x)
+    packed = isinstance(w, PackedWeight8)
+    wsf = w.w_sf if packed else w_sf
+    return term_matmul_op(
+        x, w.lo if packed else w, w.signs if packed else None,
+        as_scale(sf, x.device) if quantize_x else None,
+        as_scale(wsf, x.device) if wsf is not None else None, bits,
+        num_keep_terms, bf16, int8, quantize_x)
 
 
 def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,

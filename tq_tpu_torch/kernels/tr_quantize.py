@@ -6,7 +6,11 @@ exactly :func:`tq_tpu_torch.ops.term_reveal.term_reveal`:
 * on a CUDA tensor it launches a kernel of ``csrc/tr_quantize.cu`` (the
   element-wise body for ``group_size == 1``, the grouped body otherwise)
   and raises on what the kernel does not take;
-* on a CPU tensor it runs :func:`tr_quantize_ref`, the plain version.
+* on a CPU tensor it runs :func:`tr_quantize_ref`, the plain version;
+* while ``torch.export`` traces it, it calls the operator
+  ``tq::tr_quantize`` (:func:`tr_quantize_op`), whose CUDA implementation
+  is the kernel and CPU implementation the plain version, so that an
+  exported program keeps the kernel.
 
 The element-wise body also takes bfloat16 input (the serving mode's
 activations): it quantizes in float32 and returns bfloat16, with the kept
@@ -36,10 +40,10 @@ import torch
 from tq_tpu_torch.kernels import _build
 from tq_tpu_torch.ops.term_reveal import as_scale, term_reveal, uniform_quantize
 
-__all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_int",
-           "tr_quantize_int_ref", "tr_scale_copy", "tr_scale_copy_ref",
-           "max_hese_terms", "MAX_BITS", "plan", "ElementwisePlan",
-           "grouped_view"]
+__all__ = ["tr_quantize", "tr_quantize_ref", "tr_quantize_op",
+           "tr_quantize_int", "tr_quantize_int_ref", "tr_scale_copy",
+           "tr_scale_copy_ref", "max_hese_terms", "MAX_BITS", "plan",
+           "ElementwisePlan", "grouped_view"]
 
 _KEEP_MODES = ("largest", "serial")
 MAX_BITS = 24  # q and its term masks stay exact in float32 and int32
@@ -154,17 +158,18 @@ def _kept(x: torch.Tensor, sf, bits: int, budget: int, keep_mode: str):
 def tr_quantize_ref(x: torch.Tensor, sf, bits: int, group_size: int = 1,
                     num_keep_terms: int = 8, axis: int = 1,
                     keep_mode: str = "largest") -> torch.Tensor:
-    """Plain PyTorch version of :func:`tr_quantize`."""
+    """Plain PyTorch version of :func:`tr_quantize`; contiguous, as the
+    kernels' output, whatever x's layout."""
     _check_keep_mode(keep_mode)
     if group_size > 1:
         return term_reveal(x, sf, bits, group_size, num_keep_terms, axis,
-                           keep_mode)
+                           keep_mode).contiguous()
     acc, sign = _kept(x, sf, bits, num_keep_terms, keep_mode)
     sf = as_scale(sf, x.device)
     if x.dtype == torch.bfloat16:
         kept = acc.to(torch.bfloat16).to(torch.float32)
-        return (sign * kept * sf).to(torch.bfloat16)
-    return sign * acc.to(x.dtype) * sf
+        return (sign * kept * sf).to(torch.bfloat16).contiguous()
+    return (sign * acc.to(x.dtype) * sf).contiguous()
 
 
 def _kernel_scale(x: torch.Tensor, sf, bits: int, keep_mode: str,
@@ -329,14 +334,45 @@ def tr_quantize(x: torch.Tensor, sf, bits: int, group_size: int = 1,
     """
     if group_size < 1:
         raise ValueError(f"group_size must be >= 1, got {group_size}")
+    if torch.compiler.is_exporting():
+        _check_keep_mode(keep_mode)
+        return tr_quantize_op(x, as_scale(sf, x.device), bits, group_size,
+                              num_keep_terms, axis, keep_mode)
     if not x.is_cuda:
         return tr_quantize_ref(x, sf, bits, group_size, num_keep_terms, axis,
                                keep_mode)
+    return _launch(x, sf, bits, group_size, num_keep_terms, axis, keep_mode)
+
+
+def _launch(x, sf, bits, group_size, num_keep_terms, axis, keep_mode):
     if group_size == 1:
         return _launch_elementwise(x, sf, bits, num_keep_terms, keep_mode,
                                    int_out=False)
     return _launch_grouped(x, sf, bits, group_size, num_keep_terms, axis,
                            keep_mode)
+
+
+@torch.library.custom_op("tq::tr_quantize", mutates_args=(),
+                         device_types="cpu")
+def tr_quantize_op(x: torch.Tensor, sf: torch.Tensor, bits: int,
+                   group_size: int, num_keep_terms: int, axis: int,
+                   keep_mode: str) -> torch.Tensor:
+    """:func:`tr_quantize` as the operator an exported program calls: this
+    CPU implementation is the plain version, the CUDA one the kernel."""
+    return tr_quantize_ref(x, sf, bits, group_size, num_keep_terms, axis,
+                           keep_mode)
+
+
+@tr_quantize_op.register_kernel("cuda")
+def _tr_quantize_op_cuda(x, sf, bits, group_size, num_keep_terms, axis,
+                         keep_mode):
+    return _launch(x, sf, bits, group_size, num_keep_terms, axis, keep_mode)
+
+
+@tr_quantize_op.register_fake
+def _tr_quantize_op_fake(x, sf, bits, group_size, num_keep_terms, axis,
+                         keep_mode):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 tr_quantize.launches = {"elementwise": 0, "elementwise_bf16": 0,

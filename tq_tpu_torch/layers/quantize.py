@@ -157,7 +157,8 @@ def mse_search_scale(hist: torch.Tensor, bits: int, terms: int,
                                   terms)
         d = x_grid - xh
         errs.append((hist * (d * d)).sum(dim=1, dtype=torch.float64))
-    return sfs[torch.argmin(torch.cat(errs))]
+    # a scale of its own, not a view of the candidates
+    return sfs[torch.argmin(torch.cat(errs))].clone()
 
 
 def act_quantize(x: torch.Tensor, sf, bits: int, terms: int) -> torch.Tensor:
