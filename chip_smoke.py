@@ -39,11 +39,16 @@ non-zero without printing a result:
    checks admit against ``term_matmul_ref`` on the card at ragged shapes,
    at the LSTM serving shapes and at small M on the weight-streaming
    kernel (M in {1, 2, STREAM_MAX_M}, N = 2 mod 16, K off a multiple of
-   8, unaligned weight data; the f32 mode on float32 weights at M > 8 on
-   the tensor-core kernel; the int8 mode bit for bit, the rest within
-   rtol=1e-5, atol=1e-4*max|ref|); the M = 1 serving rows timed warm and
-   cold (weight copies past the L2) beside bound, plain version, library
-   call and the tiled kernel; both kernels timed at M in CROSSOVER_M;
+   8, unaligned weight data; at M > 8 the f32 mode on float32 weights on
+   the ``mma`` kernel, the bf16 and int8 modes on the ``mma_lp`` kernel,
+   the rest on the tiled one, each counted; the int8 mode bit for bit,
+   the rest within rtol=1e-5, atol=1e-4*max|ref|); the M = 1 serving
+   rows timed warm and cold (weight copies past the L2) beside bound,
+   plain version, library call and the tiled kernel; the streaming
+   kernel and those above it timed at M in CROSSOVER_M; the ``mma_lp``
+   kernel timed beside the tiled one, the bound, the plain version and
+   ``torch.matmul`` / ``torch._int_mm`` at (128, 784, 512), (350, 650,
+   2600) and ``bench.py``'s (8192, 2048, 512) (MMA_LP_CELLS);
 6. the LSTM LM at full width (650/650/33278, ``lstm_checkpoint``'s seeded
    weights): the README ``lstm-quant`` sweep and one TR setting through
    ``run_sweep`` on the card; tmacs and param_bits equal to the JAX
@@ -526,9 +531,16 @@ KERNELS = {
     "term_matmul_kernel_mma": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
-    # Every other variant at M > STREAM_MAX_M; no path runs one.  Held in
-    # phase term_matmul_modes, timed in phase kernels beside the mma
-    # kernel on the f32 mode.
+    # The bf16 and int8 modes at M > STREAM_MAX_M, on the tensor cores; no
+    # path runs one.  Held in phase term_matmul_modes (every variant) and
+    # timed there beside the tiled kernel it replaced.
+    "term_matmul_kernel_mma_lp": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma_lp.cu",
+        replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
+    # The f32 mode on the other weight formats at M > STREAM_MAX_M; no
+    # path runs one.  Held in phase term_matmul_modes, timed in phase
+    # kernels beside the mma kernel on the f32 mode and in phase
+    # term_matmul_modes beside the mma_lp kernel.
     "term_matmul_kernel_tiled": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
@@ -1387,7 +1399,17 @@ def _serving_row_times(torch, variant: str, weight, x,
     return out
 
 
-def phase_term_matmul_modes(torch):
+# The mma_lp kernel's timed cells: (M, K, N, variants); the kernels line
+# heads its row with MMA_LP_HEAD.
+MMA_LP_CELLS = [
+    (128, 784, 512, ("bf16", "bf16_int16", "bf16_packed8", "int8_int8")),
+    (350, 650, 2600, ("bf16", "bf16_int16", "bf16_packed8", "int8_int8")),
+    (8192, 2048, 512, ("bf16", "bf16_raw", "int8_int8")),
+]
+MMA_LP_HEAD = "int8_int8 350x650x2600"
+
+
+def phase_term_matmul_modes(torch, smi: str):
     from tq_tpu_torch.kernels.term_matmul import (STREAM_MAX_M, VARIANTS,
                                                   launch, term_matmul,
                                                   term_matmul_ref)
@@ -1407,7 +1429,8 @@ def phase_term_matmul_modes(torch):
     weights = {}
     cases, max_err = 0, {}
     kernel_before = dict(term_matmul.kernel_launches)
-    want_stream = want_mma = 0
+    want_stream = want_mma = want_mma_lp = want_tiled = 0
+    mma_lp_err = 0.0
     for variant, (mode, fmt, quantize_x) in VARIANTS.items():
         bits, terms = (7, 3) if mode == "int8" else (8, 3)
         for M, K, N, offset in [(*sh, False) for sh in shapes] + [
@@ -1438,6 +1461,35 @@ def phase_term_matmul_modes(torch):
             cases += 1
             want_stream += M <= T
             want_mma += M > T and (mode, fmt) == ("f32", "f32")
+            want_mma_lp += M > T and mode != "f32"
+            want_tiled += M > T and mode == "f32" and fmt != "f32"
+            if M > T and mode != "f32":
+                mma_lp_err = max(mma_lp_err, err)
+    # The mma_lp kernel's other reveal paths: the kept value computed
+    # above its table's 8 bits (bf16 at 12 bits), and +128 saturated at
+    # 127 (int8, 7 bits, one term).
+    for variant in VARIANTS:
+        mode, fmt, quantize_x = VARIANTS[variant]
+        if mode == "f32" or not quantize_x:
+            continue
+        bits, terms = (7, 1) if mode == "int8" else (12, 5)
+        w, w_sf, _ = weights[(fmt, 300, 45)]
+        x = torch.randn(77, 300, generator=gen, device=dev)
+        sf = torch.tensor(0.03 if mode == "int8" else 0.001, device=dev)
+        kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf)
+        out = term_matmul(x, w, sf, bits, terms, **kw)
+        ref = term_matmul_ref(x, w, sf, bits, terms, **kw)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if mode == "int8" and not torch.equal(out, ref):
+            fail(f"term_matmul {variant} bits 7, 1 term: not bit-exact")
+        if not torch.allclose(out, ref, rtol=1e-5,
+                              atol=1e-4 * float(ref.abs().max())):
+            fail(f"term_matmul {variant} bits {bits}: max |diff| {err}")
+        max_err[variant] = max(max_err[variant], err)
+        mma_lp_err = max(mma_lp_err, err)
+        cases += 1
+        want_mma_lp += 1
     by_kernel = {k: term_matmul.kernel_launches[k] - kernel_before[k]
                  for k in kernel_before}
     if by_kernel["stream"] != want_stream:
@@ -1446,6 +1498,12 @@ def phase_term_matmul_modes(torch):
     if by_kernel["mma"] != want_mma:
         fail(f"term_matmul: {by_kernel['mma']} launches of the mma kernel "
              f"for {want_mma} f32 cases on float32 weights with M > {T}")
+    if by_kernel["mma_lp"] != want_mma_lp:
+        fail(f"term_matmul: {by_kernel['mma_lp']} launches of the mma_lp "
+             f"kernel for {want_mma_lp} bf16 and int8 cases with M > {T}")
+    if by_kernel["tiled"] != want_tiled:
+        fail(f"term_matmul: {by_kernel['tiled']} launches of the tiled "
+             f"kernel for {want_tiled} f32 cases on other weights, M > {T}")
 
     def call(w, x, sf, bits, terms, kw, kernel=None):
         return lambda: launch(x, w, sf, bits, terms, kernel=kernel, **kw)
@@ -1471,8 +1529,10 @@ def phase_term_matmul_modes(torch):
                                 "plain_ms", "library_ms", "bound_ms",
                                 "bound_by", "bound_share_cold")})
 
-    # The crossover: both kernels (warm) at M in CROSSOVER_M on the
-    # decoder and recurrent widths, for the six decoder variants.
+    # The crossover: the streaming kernel and the kernels above it (warm)
+    # at M in CROSSOVER_M on the decoder and recurrent widths, for the six
+    # decoder variants; "faster up to" compares it with the one the route
+    # takes above STREAM_MAX_M (mma_lp in the bf16 and int8 modes).
     crossover, faster_up_to = {}, {}
     for N in (VOCAB, 2600):
         K = 650
@@ -1484,47 +1544,60 @@ def phase_term_matmul_modes(torch):
             kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
                       quantize_x=quantize_x)
             sf = torch.tensor(0.03, device=dev)
+            above = "tiled" if mode == "f32" else "mma_lp"
             table = {}
             for M in CROSSOVER_M:
                 x = torch.randn(M, K, generator=gen, device=dev)
                 table[M] = {k: device_ms(torch, call(w, x, sf, bits, terms,
                                                     kw, k))
-                            for k in ("stream", "tiled")}
+                            for k in ("stream", "tiled", above)}
             crossover.setdefault(f"{K}x{N}", {})[variant] = table
             faster = 0  # the largest M up to which the stream kernel wins
             for M in CROSSOVER_M:
-                if table[M]["stream"] >= table[M]["tiled"]:
+                if table[M]["stream"] >= table[M][above]:
                     break
                 faster = M
             up_to = min(up_to, faster)
         faster_up_to[f"{K}x{N}"] = up_to
-    # The tiled kernel's bf16 and int8 modes at M > STREAM_MAX_M, which no
-    # path runs: device time beside the bound, the plain version and the
-    # library call on the already-quantized input (bf16 torch.matmul;
-    # torch._int_mm on operands zero-padded to its multiples of 8).
-    tiled_modes = {}
-    for M, K, N in [(128, 784, 512), (350, 650, 2600)]:
-        for variant in ("bf16_int16", "bf16_packed8", "int8_int8"):
+    # The bf16 and int8 modes at M > STREAM_MAX_M, which no path runs, on
+    # the mma_lp kernel (the route), beside the tiled kernel it replaced,
+    # the bound, the plain version and the library call on the
+    # already-quantized input (bf16 torch.matmul; torch._int_mm on
+    # operands zero-padded to its multiples of 8): the MLP and LSTM-chunk
+    # eval shapes, and bench.py::bench_matmul's (8192, 2048, 512).
+    mma_lp = {}
+    for M, K, N, variants in MMA_LP_CELLS:
+        for variant in variants:
             mode, fmt, quantize_x = VARIANTS[variant]
-            if (fmt, K, N) not in weights:
-                weights[(fmt, K, N)] = _tm_weights(torch, fmt, K, N, gen, dev)
-            w, w_sf, wv = weights[(fmt, K, N)]
+            w, w_sf, wv = weights.get((fmt, K, N)) or _tm_weights(
+                torch, fmt, K, N, gen, dev)
             x = torch.randn(M, K, generator=gen, device=dev)
             sf = torch.tensor(0.03, device=dev)
             bits, terms = (7, 3) if mode == "int8" else (8, 3)
             kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
                       quantize_x=quantize_x)
-            before = term_matmul.kernel_launches["tiled"]
+            before = term_matmul.kernel_launches["mma_lp"]
             out = term_matmul(x, w, sf, bits, terms, **kw)
             ref = term_matmul_ref(x, w, sf, bits, terms, **kw)
+            tiled_out = launch(x, w, sf, bits, terms, kernel="tiled", **kw)
             torch.cuda.synchronize()
-            if term_matmul.kernel_launches["tiled"] != before + 1:
+            if term_matmul.kernel_launches["mma_lp"] != before + 1:
                 fail(f"term_matmul {variant} {(M, K, N)} did not take the "
-                     "tiled kernel")
+                     "mma_lp kernel")
+            scale = float(ref.abs().max())
+            for name, got in (("mma_lp", out), ("tiled", tiled_out)):
+                if mode == "int8" and not torch.equal(got, ref):
+                    fail(f"term_matmul {name} {variant} {(M, K, N)}: not "
+                         f"bit-exact")
+                if not torch.allclose(got, ref, rtol=1e-5,
+                                      atol=1e-4 * scale):
+                    fail(f"term_matmul {name} {variant} {(M, K, N)}: max "
+                         f"|diff| {float((got - ref).abs().max())}")
             xq = tr_quantize_int_ref(x, sf, bits, terms)
             if mode == "int8":
                 pk = -K % 8
-                a = torch.nn.functional.pad(xq.to(torch.int8), (0, pk))
+                a = torch.nn.functional.pad(xq.clamp(max=127).to(torch.int8),
+                                            (0, pk))
                 b = torch.nn.functional.pad(wv.to(torch.int8), (0, 0, 0, pk))
                 b = b.t().contiguous().t()  # column-major, as cuBLASLt takes
 
@@ -1537,19 +1610,34 @@ def phase_term_matmul_modes(torch):
                     return torch.matmul(a, b)
             bnd, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N)
                                + 4 * M * N, 2 * M * K * N, PEAK_OPS[mode])
-            tiled_modes[f"{variant} {M}x{K}x{N}"] = dict(
+            t = timings(torch, lambda: launch(x, w, sf, bits, terms, **kw),
+                        lambda: term_matmul_ref(x, w, sf, bits, terms,
+                                                **kw), library)
+            mma_lp[f"{variant} {M}x{K}x{N}"] = dict(
                 max_abs_err=float((out - ref).abs().max()),
-                **timings(torch, lambda: launch(x, w, sf, bits, terms, **kw),
-                          lambda: term_matmul_ref(x, w, sf, bits, terms,
-                                                  **kw), library),
-                bound_ms=bnd, bound_by=by)
+                tiled_max_abs_err=float((tiled_out - ref).abs().max()),
+                **t, tiled_ms=device_ms(torch, lambda: launch(
+                    x, w, sf, bits, terms, kernel="tiled", **kw)),
+                bound_ms=bnd, bound_by=by, card=smi)
+            mma_lp_err = max(mma_lp_err, mma_lp[f"{variant} {M}x{K}x{N}"][
+                "max_abs_err"])
+            del x, out, ref, tiled_out, xq, a, b, library
+    torch.cuda.empty_cache()  # bench.py's shape: x alone is 67 MB
     emit({"phase": "term_matmul_modes", "ok": True, "cases": cases,
           "variants": len(VARIANTS), "stream_max_m": T,
           "launches_by_kernel": by_kernel, "max_abs_err": max_err,
           "results": results, "crossover_ms": crossover,
           "stream_faster_up_to_m": faster_up_to,
-          "tiled_modes_ms": tiled_modes})
-    results["tiled_modes"] = tiled_modes
+          "mma_lp_ms": mma_lp, "card": smi})
+    head = mma_lp[MMA_LP_HEAD]
+    big = {v: mma_lp[f"{v} 8192x2048x512"]["ms"] for v in ("bf16",
+                                                            "bf16_raw")}
+    results["term_matmul_kernel_mma_lp"] = dict(
+        shape=[350, 650, 2600], variant="int8_int8", modes_m_gt_8=mma_lp,
+        max_abs_err=mma_lp_err, raw_ms=big["bf16_raw"],
+        reveal_share=(big["bf16"] - big["bf16_raw"]) / big["bf16"],
+        **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "tiled_ms")})
     return results
 
 
@@ -3205,9 +3293,7 @@ def main(argv=None) -> None:
     kernel_results, by_path = {}, {}
     if "mlp" in groups:
         kernel_results.update(phase_kernels(torch))
-        kernel_results.update(phase_term_matmul_modes(torch))
-        kernel_results["term_matmul_kernel_tiled"]["modes_m_gt_8"] = \
-            kernel_results.pop("tiled_modes")
+        kernel_results.update(phase_term_matmul_modes(torch, smi))
         by_path["mnist_mlp"] = phase_main_path(torch)
         phase_fixed_linear(torch)
     if "lstm" in groups:

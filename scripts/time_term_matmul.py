@@ -14,7 +14,11 @@ CUDA-graph replay (``chip_smoke.device_ms``):
 * the six M = 1 serving rows at the decoder shape (1, 650, 33278), warm,
   on weights made as in phase ``term_matmul_modes``, and the same calls'
   eager time (``chip_smoke.eager_ms``: back to back from Python, the
-  wrapper's host cost included).
+  wrapper's host cost included);
+* with ``--modes``, instead of both: the bf16 and int8 modes at M > 8,
+  ``chip_smoke.MMA_LP_CELLS`` ((128, 784, 512), (350, 650, 2600) and
+  ``bench.py``'s (8192, 2048, 512)), bits 8 (int8: 7) and 3 terms, on
+  weights made as in phase ``term_matmul_modes``.
 
 Each call takes whatever kernel the checkout's route gives it.  To
 compare two commits on one card, run it once per checkout in the order
@@ -39,15 +43,19 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True,
                     help="checkout whose tq_tpu_torch is timed")
-    root = ap.parse_args().root.resolve()
+    ap.add_argument("--modes", action="store_true",
+                    help="time the bf16 and int8 modes at M > 8 instead")
+    args = ap.parse_args()
+    root = args.root.resolve()
 
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script times the port on the GPU")
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (TERM_MATMUL_ROWS, VOCAB, _tm_weights, device_ms,
-                            eager_ms, nvidia_smi_line)
+    from chip_smoke import (MMA_LP_CELLS, TERM_MATMUL_ROWS, VOCAB,
+                            _tm_weights, device_ms, eager_ms,
+                            nvidia_smi_line)
 
     sys.path.insert(0, str(root))
     import tq_tpu_torch
@@ -58,6 +66,12 @@ def main() -> None:
                  f"not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.modes:
+        print(json.dumps({"root": str(root), "card": nvidia_smi_line(),
+                          "modes_ms": _modes_ms(torch, term_matmul, VARIANTS,
+                                                MMA_LP_CELLS, _tm_weights,
+                                                device_ms)}), flush=True)
+        return
     gen = torch.Generator(device="cpu").manual_seed(0)
     ms = {}
     for M, K, N in SHAPES:
@@ -86,6 +100,30 @@ def main() -> None:
                       "ms": ms, "serving_1x650x33278_ms": serving,
                       "serving_1x650x33278_eager_ms": serving_eager}),
           flush=True)
+
+
+def _modes_ms(torch, term_matmul, variants, cells, make_weights,
+              device_ms) -> dict:
+    """ms per call of each (variant, shape) of ``cells``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ms = {}
+    for M, K, N, names in cells:
+        for variant in names:
+            mode, fmt, quantize_x = variants[variant]
+            w, w_sf, _ = make_weights(torch, fmt, K, N, gen, dev)
+            x = torch.randn(M, K, generator=gen, device=dev)
+            sf = torch.tensor(0.03, device=dev)
+            bits = 7 if mode == "int8" else 8
+
+            def call():
+                return term_matmul(x, w, sf, bits, 3, bf16=mode == "bf16",
+                                   int8=mode == "int8", w_sf=w_sf,
+                                   quantize_x=quantize_x)
+
+            ms[f"{variant} {M}x{K}x{N}"] = device_ms(torch, call)
+            del x, w
+    return ms
 
 
 if __name__ == "__main__":

@@ -106,7 +106,8 @@ def test_cpu_tensor_counts_no_launch(rng):
     assert set(tm.term_matmul.launches) == set(tm.VARIANTS)
     assert len(tm.VARIANTS) == 21
     assert not any(tm.term_matmul.launches.values())
-    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled", "mma"}
+    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled", "mma",
+                                                   "mma_lp"}
     assert not any(tm.term_matmul.kernel_launches.values())
 
 
@@ -136,7 +137,8 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
             p = tm.plan(M, N, K, fmt, mode, sms)
             assert p.kernel == (
                 "stream" if M <= tm.STREAM_MAX_M else
-                "mma" if (mode, fmt) == ("f32", "f32") else "tiled")
+                "mma_lp" if mode in ("bf16", "int8") else
+                "mma" if fmt == "f32" else "tiled")
             ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
                       for s in range(p.splits)]  # the kernels' K ranges
             assert len(ranges) == p.splits >= 1
@@ -155,6 +157,12 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
                 assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
                 assert p.row_tile == 32
                 assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
+                assert p.ws_shape is None and p.ws_dtype is None
+            elif p.kernel == "mma_lp":  # K splits in whole mma chunks
+                assert 1 <= p.splits <= 8
+                assert p.k_per_split % (16 if mode == "bf16" else 32) == 0
+                assert p.row_tile == 64
+                assert p.grid == (-(-N // 128) * p.splits, -(-M // 64), 1)
                 assert p.ws_shape is None and p.ws_dtype is None
             else:
                 assert p.k_per_split % 16 == 0
@@ -221,6 +229,120 @@ def test_plan_mma_takes_the_largest_cluster_that_fits(M, K, N, splits,
     p = tm.plan(M, N, K, "f32", "f32", 132, clusters=h100)
     assert (p.splits, p.k_per_split) == (splits, k_per_split)
     assert -(-M // 32) * -(-N // 128) <= h100[p.splits - 1] or p.splits == 1
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("M,K,N,splits,k_per_split", [
+    (128, 784, 512, 7, {"bf16": 112, "int8": 128}),
+    (77, 300, 45, {"bf16": 7, "int8": 5}, {"bf16": 48, "int8": 64}),
+    (9, 650, 2600, 6, {"bf16": 112, "int8": 128}),
+    (350, 650, 2600, 1, {"bf16": 656, "int8": 672}),
+    (8192, 2048, 512, 1, 2048)])
+def test_plan_mma_lp_fills_one_wave(M, K, N, splits, k_per_split, mode):
+    """The bf16 and int8 modes at M > 8 take the mma_lp kernel in every
+    weight format and input, on 64 x 128 tiles; K splits over a cluster
+    while the tiles times the splits fit one wave of a 132-SM card (the
+    MLP's 8 tiles take 7 splits of whole mma chunks), and tiles that
+    fill the card (the LSTM chunk, bench.py's shape) take none."""
+    splits = splits[mode] if isinstance(splits, dict) else splits
+    kps = k_per_split[mode] if isinstance(k_per_split, dict) else k_per_split
+    for fmt in (("int8",) if mode == "int8" else FORMATS):
+        p = tm.plan(M, N, K, fmt, mode, 132)
+        assert (p.kernel, p.splits, p.k_per_split) == ("mma_lp", splits, kps)
+        tiles = -(-M // 64) * -(-N // 128)
+        assert tiles * p.splits <= max(132, tiles)
+    with pytest.raises(ValueError, match="mma_lp kernel takes"):
+        tm.plan(M, N, K, "f32", "f32", 132, kernel="mma_lp")
+    # The f32 mode's other weight formats stay on the tiled kernel.
+    if mode == "bf16":
+        for fmt in FORMATS[1:]:
+            assert tm.plan(M, N, K, fmt, "f32", 132).kernel == "tiled"
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_plan_mma_lp_takes_the_largest_cluster_that_fits(mode):
+    """With a card's cluster occupancy (an H100 runs 22 clusters of 5
+    blocks of a 512-thread kernel, 17 of 6), the 21 tiles of 9 x 650 x
+    2600 take clusters of 5, not 6."""
+    h100 = (132, 66, 39, 30, 22, 17, 15, 15)
+    p = tm.plan(9, 2600, 650, "int8", mode, 132, clusters=h100)
+    assert (p.splits, p.k_per_split) == (5, {"bf16": 144, "int8": 160}[mode])
+
+
+def _bf16(v: np.ndarray) -> np.ndarray:
+    """float32 rounded to bfloat16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
+def _mma_lp_emulation(xa, wa, p, mode: str, epi: np.float32) -> np.ndarray:
+    """The mma_lp kernel's sum order: each K split of ``p`` on its own
+    (bf16: every mma's 16 exact bf16 products added to a float32
+    accumulator; int8: an exact integer sum), the splits' partials added
+    in rank order (float32; int32, exact), times ``epi``."""
+    K = xa.shape[1]
+    total = None
+    for s in range(p.splits):
+        kb, ke = s * p.k_per_split, min(K, (s + 1) * p.k_per_split)
+        if mode == "int8":
+            part = xa[:, kb:ke].astype(np.int64) @ wa[kb:ke].astype(np.int64)
+        else:
+            part = np.zeros((xa.shape[0], wa.shape[1]), np.float32)
+            for c in range(kb, ke, 16):
+                e = min(ke, c + 16)
+                part = (part + xa[:, c:e].astype(np.float64)
+                        @ wa[c:e].astype(np.float64)).astype(np.float32)
+        total = part if total is None else total + part
+    return total.astype(np.float32) * np.float32(epi)
+
+
+@pytest.mark.parametrize("variant,fmt,quantize_x,bits,terms", [
+    ("bf16", "f32", True, 8, 3), ("bf16", "f32", False, 8, 3),
+    ("bf16", "int16", True, 8, 3), ("int8", "int8", True, 7, 3),
+    ("int8", "int8", True, 7, 1)])
+@pytest.mark.parametrize("M,K,N", [(128, 784, 512), (16, 512, 10),
+                                   (77, 300, 45)])
+def test_mma_lp_sum_order_matches_jax(rng, M, K, N, variant, fmt, quantize_x,
+                                      bits, terms):
+    """The mma_lp kernel's numerics, emulated on its plan's K splits,
+    against the JAX package's term_matmul (interpret mode): the int8 mode
+    bit for bit (at 7 bits and one term, q >= 96 keeps +128, which the
+    JAX kernel's int8 cast saturates to 127), the bf16 mode within
+    rtol 1e-5, atol 1e-4 * max|ref| (float32 sums in another order)."""
+    mode = variant
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jw, tw, w_sf = _weights(rng, fmt, K, N)
+    sf = np.float32(0.03)
+    kw = dict(bf16=mode == "bf16", int8=mode == "int8",
+              quantize_x=quantize_x)
+    want = np.asarray(jm.term_matmul(
+        jnp.asarray(x), jw, jnp.float32(sf), bits, terms,
+        w_sf=None if w_sf is None else jnp.float32(w_sf), bm=64, bk=128,
+        bn=128, **kw))
+    tw_sf = None if w_sf is None else torch.tensor(w_sf)
+    ref = tm.term_matmul_ref(torch.from_numpy(x), tw, torch.tensor(sf), bits,
+                             terms, w_sf=tw_sf, **kw).numpy()
+    if quantize_x:
+        xa = tm.tr_quantize_int_ref(torch.from_numpy(x), torch.tensor(sf),
+                                    bits, terms).numpy()
+        if mode == "int8":
+            xa = np.minimum(xa, 127)
+            assert terms > 1 or (xa == 127).any()  # saturated +128s
+    else:
+        xa = x
+    wa = tw.to(torch.float32).numpy()
+    epi = np.float32(sf if quantize_x else 1) * np.float32(
+        1 if w_sf is None else w_sf)
+    p = tm.plan(M, N, K, fmt, mode, 132)
+    assert p.kernel == "mma_lp"
+    if mode == "bf16":
+        got = _mma_lp_emulation(_bf16(xa), _bf16(wa), p, mode, epi)
+        _close(torch.from_numpy(got), want)
+        _close(torch.from_numpy(ref), want)
+    else:
+        got = _mma_lp_emulation(xa, wa, p, mode, epi)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(ref, want)
 
 
 def _tf32_rna(v: np.ndarray) -> np.ndarray:

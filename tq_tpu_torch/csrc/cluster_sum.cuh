@@ -22,9 +22,18 @@
 
 namespace tq {
 
-// Partial sums of float4 quads (cluster_reduce<float4>); declared before
-// the templates that use it.
+// Partial sums of float4 and int4 quads (cluster_reduce<float4>,
+// cluster_reduce<int4>: exact); declared before the templates that use
+// them.
 __device__ __forceinline__ float4& operator+=(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+  return a;
+}
+
+__device__ __forceinline__ int4& operator+=(int4& a, const int4& b) {
   a.x += b.x;
   a.y += b.y;
   a.z += b.z;

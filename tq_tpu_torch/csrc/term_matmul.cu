@@ -8,7 +8,8 @@
 // tile xa is
 //   * f32 mode:  tr_quantize(x, sf, bits, 1, budget), sign * kept * sf;
 //   * bf16 mode: the signed integer sign * kept, rounded to bfloat16;
-//   * int8 mode: sign * kept as an integer (bits <= 7);
+//   * int8 mode: sign * kept as an integer (bits <= 7), +128 saturated
+//     to 127 as the TPU kernel's int8 cast saturates it;
 //   * raw input (quantize_x = 0): x itself (bf16 mode: rounded to bf16).
 // The weight tile wa is float32, bf16-stored, int8, int16 or the 9-bit
 // pack (magnitude lo + 128, sign bit k & 7 of sign row k / 8), widened as
@@ -27,10 +28,11 @@
 //
 // Two kernels here compute it; the wrapper picks one by M (plan() in
 // kernels/term_matmul.py).  At M > STREAM_MAX_M the f32 mode on float32
-// weights takes a third, on the tensor cores (csrc/term_matmul_mma.cu).
+// weights and the bf16 and int8 modes take tensor-core kernels instead
+// (csrc/term_matmul_mma.cu, csrc/term_matmul_mma_lp.cu).
 //
-// The tiled kernel (every other variant at M > the wrapper's
-// STREAM_MAX_M): a plain tiled shared-memory GEMM on CUDA cores, 64x64
+// The tiled kernel (the f32 mode on the other weight formats at M > the
+// wrapper's STREAM_MAX_M; every mode when forced, for timing): a plain tiled shared-memory GEMM on CUDA cores, 64x64
 // output tiles, a K step of 16, 256 threads each holding a 4x4 block of
 // accumulators; the ragged M, N
 // and K edges are masked here (packed weights have K8 >= K rows; the rows
@@ -39,8 +41,7 @@
 // writes its partial tile to a workspace (int32 in the int8 mode, so the
 // sum stays exact) and a second kernel sums the splits in a fixed order
 // and applies the epilogue (deterministic; with one split the tile kernel
-// writes the output itself).  Tensor cores (mma.sync / wgmma for the bf16
-// and int8 modes) and TMA are later work.
+// writes the output itself).
 //
 // The weight-streaming kernel (small M): every weight byte is read once,
 // with 16-byte loads that skip L1, and a thread owns a run of 16 bytes of
@@ -151,8 +152,8 @@ __device__ __forceinline__ Tile<MODE> act_tile(float xv, float sf, float maxq,
     } else if constexpr (MODE == kBF16) {
       const float s = static_cast<float>(v);
       return round_bf16(xv < 0.f ? -s : s);
-    } else {
-      return xv < 0.f ? -v : v;
+    } else {  // +128 (one term of q >= 96) saturates, as an int8 cast
+      return xv < 0.f ? -v : min(v, 127);
     }
   }
 }

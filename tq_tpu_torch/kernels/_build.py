@@ -62,6 +62,12 @@ SIGNATURES = {
                            _I, _P],
     # splits -> clusters of the mma kernel the card runs at once
     "tq_term_matmul_mma_clusters": [_I],
+    # x, w, signs, sf, w_sf, out, M, N, K, bits, budget, mode, wfmt,
+    # quantize_x, splits, k_per_split, stream
+    "tq_term_matmul_mma_lp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _P],
+    # mode, splits -> clusters of the mma_lp kernel the card runs at once
+    "tq_term_matmul_mma_lp_clusters": [_I, _I],
 }
 
 _LIB: ctypes.CDLL | None = None

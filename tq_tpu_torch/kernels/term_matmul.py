@@ -10,7 +10,9 @@ kernel:
 * **bf16** (``bf16=True``): the signed integer activations and the
   weights rounded to bfloat16, float32 accumulation, ``* (sf * w_sf)``;
 * **int8** (``int8=True``): int8 x int8 -> int32, exact, ``* (sf * w_sf)``;
-  int8 weights and ``bits <= 7`` only;
+  int8 weights and ``bits <= 7`` only.  A kept value of +128 (one term
+  of q >= 96 at 7 bits) saturates to 127, as the JAX package's cast to
+  int8 does;
 * **raw input** (``quantize_x=False``): ``x`` itself feeds the product and
   ``sf`` is taken as 1.
 
@@ -18,12 +20,13 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
 :func:`pack_weight_int`) or a :class:`PackedWeight8` (9 bits per weight,
 :func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
-* On a CUDA tensor :func:`term_matmul` launches one of three kernels
+* On a CUDA tensor :func:`term_matmul` launches one of four kernels
   (see :func:`plan`): the weight-streaming kernel of
-  ``csrc/term_matmul.cu`` for small M; above it, the f32 mode on float32
-  weights on the tensor cores (``csrc/term_matmul_mma.cu``) and every
-  other variant on the tiled kernel of ``csrc/term_matmul.cu``.  It
-  raises on what the kernels do not take.
+  ``csrc/term_matmul.cu`` for small M; above it, on the tensor cores,
+  the f32 mode on float32 weights (``csrc/term_matmul_mma.cu``) and the
+  bf16 and int8 modes (``csrc/term_matmul_mma_lp.cu``), and the f32 mode
+  on the other weight formats on the tiled kernel of
+  ``csrc/term_matmul.cu``.  It raises on what the kernels do not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 * While ``torch.export`` traces it, it calls the operator
   ``tq::term_matmul`` (:func:`term_matmul_op`) instead, whose CUDA
@@ -59,9 +62,11 @@ __all__ = ["term_matmul", "term_matmul_ref", "term_matmul_op", "launch",
 STREAM_MAX_M = 8
 
 _TILE, _K_STEP = 64, 16  # the tiled kernel's output tile and K step
-# The tensor-core kernel's output tile (rows, columns), its K splits'
-# multiple and most blocks in a cluster.
+# The tensor-core kernels' output tiles (rows, columns) and their K
+# splits' multiple (the f32 kernel's, and the bf16 / int8 kernel's by
+# mode: one mma's K), and most blocks in a cluster.
 _MMA_TILE, _MMA_K_STEP, _MMA_MAX_SPLITS = (32, 128), 8, 8
+_MMA_LP_TILE, _MMA_LP_K_STEP = (64, 128), {"bf16": 16, "int8": 32}
 # The streaming kernel's lanes owning columns (of 16 bytes each), K rows
 # per step, most rows of x a block and most blocks in a cluster.
 _STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
@@ -71,8 +76,9 @@ _STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
 _MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
 _FORMAT_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int16": 2, "packed8": 1}
-# The kernel codes of tq_term_matmul; "mma" has its own entry point.
-_KERNELS = {"tiled": 0, "stream": 1, "mma": 2}
+# The kernel codes of tq_term_matmul; "mma" and "mma_lp" have their own
+# entry points.
+_KERNELS = {"tiled": 0, "stream": 1, "mma": 2, "mma_lp": 3}
 _DTYPE_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.int8: "int8", torch.int16: "int16"}
 
@@ -262,9 +268,10 @@ def term_matmul_ref(x: torch.Tensor, w, sf, bits: int = 8,
                     int8: bool = False, w_sf=None,
                     quantize_x: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`term_matmul`, every mode, with the
-    kernel's scale association.  The int8 mode multiplies the integers in
-    float64 (exact: ``|acc| <= 127 * 127 * K``), so it is bit-exact on any
-    device."""
+    kernel's scale association.  The int8 mode saturates the activations
+    at 127, as the JAX kernel's int8 cast, and multiplies the integers in
+    float64 (exact: ``|acc| <= 128 * 127 * K``), so it is bit-exact on
+    any device."""
     _check(x, w, bits, bf16, int8, w_sf, quantize_x)
     mode = _mode(bf16, int8)
     sf_s, epi = _scales(x, w, sf, w_sf, mode, quantize_x)
@@ -273,8 +280,10 @@ def term_matmul_ref(x: torch.Tensor, w, sf, bits: int = 8,
     elif mode == "f32":
         xa = tr_quantize_ref(x, sf_s, bits, 1, num_keep_terms)
     else:  # the signed integer quantized values; sf goes to the epilogue
-        xa = tr_quantize_int_ref(x, sf_s, bits, num_keep_terms).to(
-            torch.float32)
+        xa = tr_quantize_int_ref(x, sf_s, bits, num_keep_terms)
+        if mode == "int8":
+            xa = xa.clamp(max=127)
+        xa = xa.to(torch.float32)
     if isinstance(w, PackedWeight8):
         wa = _decode_u8s(w)[:x.shape[1]].to(torch.float32)
     else:
@@ -333,8 +342,9 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     or a :class:`PackedWeight8`.  ``sf`` is read from device memory by the
     kernel (no host sync) and ignored for raw input.  Returns (M, N)
     float32.  On the card, M <= :data:`STREAM_MAX_M` takes the
-    weight-streaming kernel; larger M the tensor-core kernel in the f32
-    mode on float32 weights and the tiled one otherwise (:func:`plan`).
+    weight-streaming kernel; larger M a tensor-core kernel in the bf16
+    and int8 modes and in the f32 mode on float32 weights, the tiled one
+    otherwise (:func:`plan`).
     """
     del interpret, bm, bk, bn, pipeline, bsub
     if torch.compiler.is_exporting():
@@ -405,9 +415,10 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
            ) -> torch.Tensor:
     """:func:`term_matmul` on CUDA tensors: check, plan, launch, count.
 
-    ``kernel`` ("stream", "tiled" or "mma") overrides the route, to time
-    one kernel at a shape the route gives another; :func:`term_matmul`
-    never passes it.  Raises on what the kernels do not take.
+    ``kernel`` ("stream", "tiled", "mma" or "mma_lp") overrides the
+    route, to time one kernel at a shape the route gives another;
+    :func:`term_matmul` never passes it.  Raises on what the kernels do
+    not take.
     """
     _check(x, w, bits, bf16, int8, w_sf, quantize_x)
     packed = isinstance(w, PackedWeight8)
@@ -434,9 +445,10 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     M, K = x.shape
     N = wt.shape[1]
     mode = _mode(bf16, int8)
-    clusters = (_mma_clusters(x.device.index)
-                if (mode, fmt) == ("f32", "f32") else None)
-    p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), kernel, clusters)
+    route = kernel or _route(M, mode, fmt)
+    clusters = (_mma_clusters(x.device.index, route, mode)
+                if route in ("mma", "mma_lp") else None)
+    p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), route, clusters)
     if max(M, N, K) >= 2**31 or max(p.grid[1:]) > 65535:
         raise ValueError(f"term_matmul kernel: shape {(M, K, N)} too large")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
@@ -460,6 +472,12 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
             x.data_ptr(), wt.data_ptr(), ptr(sf_t), ptr(wsf_t),
             out.data_ptr(), M, N, K, bits, budget, int(quantize_x),
             p.splits, p.k_per_split, stream), "tq_term_matmul_mma")
+    elif p.kernel == "mma_lp":
+        _build.check(_build.load().tq_term_matmul_mma_lp(
+            x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
+            out.data_ptr(), M, N, K, bits, budget, _MODES[mode],
+            _FORMATS[fmt], int(quantize_x), p.splits, p.k_per_split,
+            stream), "tq_term_matmul_mma_lp")
     else:
         _build.check(_build.load().tq_term_matmul(
             x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
@@ -472,24 +490,43 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_clusters(index: int) -> tuple[int, ...]:
-    """How many clusters of s = 1 .. 8 blocks of the mma kernel the card
-    ``index`` runs at once (the occupancy API; ragged GPCs hold fewer
-    large clusters than the SM count suggests)."""
+def _mma_clusters(index: int, kernel: str = "mma",
+                  mode: str = "f32") -> tuple[int, ...]:
+    """How many clusters of s = 1 .. 8 blocks of the tensor-core kernel
+    ``kernel`` ("mma", or "mma_lp" in ``mode``) the card ``index`` runs at
+    once (the occupancy API; ragged GPCs hold fewer large clusters than
+    the SM count suggests)."""
     lib = _build.load()
     with torch.cuda.device(index):
-        n = tuple(lib.tq_term_matmul_mma_clusters(s)
-                  for s in range(1, _MMA_MAX_SPLITS + 1))
+        if kernel == "mma":
+            n = tuple(lib.tq_term_matmul_mma_clusters(s)
+                      for s in range(1, _MMA_MAX_SPLITS + 1))
+        else:
+            n = tuple(lib.tq_term_matmul_mma_lp_clusters(_MODES[mode], s)
+                      for s in range(1, _MMA_MAX_SPLITS + 1))
     for v in n:
         if v < 0:
-            _build.check(-v, "tq_term_matmul_mma_clusters")
+            _build.check(-v, f"tq_term_matmul_{kernel}_clusters")
     return n
+
+
+def _route(M: int, mode: str, fmt: str) -> str:
+    """The kernel :func:`plan` takes by default: the weight-streaming
+    kernel for M <= STREAM_MAX_M; above it the tensor cores for the f32
+    mode on float32 weights ("mma") and for the bf16 and int8 modes
+    ("mma_lp"), the tiled kernel for the f32 mode on the other
+    formats."""
+    if M <= STREAM_MAX_M:
+        return "stream"
+    if mode in ("bf16", "int8"):
+        return "mma_lp"
+    return "mma" if fmt == "f32" else "tiled"
 
 
 class Plan(NamedTuple):
     """How :func:`term_matmul` launches at one shape (see :func:`plan`)."""
 
-    kernel: str                  # "stream", "tiled" or "mma"
+    kernel: str                  # "stream", "tiled", "mma" or "mma_lp"
     grid: tuple[int, int, int]   # blocks along x, y, z
     row_tile: int                # rows of x a block takes
     splits: int                  # K splits (cluster blocks or blockIdx.z)
@@ -504,10 +541,12 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
          clusters: tuple[int, ...] | None = None) -> Plan:
     """The kernel, grid, K splits and workspace for an (M, K) x (K, N)
     product in weight format ``fmt`` and mode ``mode`` on a card of
-    ``sms`` SMs.  ``kernel`` None routes by M, mode and format: the
-    weight-streaming kernel for M <= STREAM_MAX_M; above it the
-    tensor-core kernel for the f32 mode on float32 weights (quantized or
-    raw input) and the tiled kernel for every other variant.
+    ``sms`` SMs.  ``kernel`` None routes by M, mode and format
+    (:func:`_route`): the weight-streaming kernel for M <= STREAM_MAX_M;
+    above it the tensor-core kernels, ``mma`` for the f32 mode on float32
+    weights and ``mma_lp`` for every bf16 and int8 variant (quantized or
+    raw input), and the tiled kernel for the f32 mode on the other
+    weight formats.
 
     * stream: a block per strip of 31 lanes x 16 bytes of columns and per
       row group of ``row_tile`` rows of x (1 for M = 1, else 8 with the
@@ -524,10 +563,12 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
       the card runs one per tile at once (``clusters[s - 1]``: clusters of
       s blocks it runs at once; by default ``sms // s``, one block an SM);
       the partials meet in the cluster's shared memory, no workspace.
+    * mma_lp: the same with a 64x128 output tile and K split in
+      multiples of one mma's K (16 in the bf16 mode, 32 in the int8
+      mode).
     """
     if kernel is None:
-        kernel = ("stream" if M <= STREAM_MAX_M else
-                  "mma" if (mode, fmt) == ("f32", "f32") else "tiled")
+        kernel = _route(M, mode, fmt)
     if kernel == "stream":
         cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
         strips = -(-N // cols)
@@ -543,25 +584,21 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
         return Plan("stream", (strips * splits, row_groups, 1), row_tile,
                     splits, k_per_split, None, None)
     if kernel not in _KERNELS:
-        raise ValueError(f"kernel must be 'stream', 'tiled' or 'mma', got "
-                         f"{kernel!r}")
+        raise ValueError(f"kernel must be 'stream', 'tiled', 'mma' or "
+                         f"'mma_lp', got {kernel!r}")
     tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
     if kernel == "mma":
         if (mode, fmt) != ("f32", "f32"):
             raise ValueError(f"the mma kernel takes the f32 mode on float32 "
                              f"weights, got mode {mode!r}, weights {fmt!r}")
-        rows, cols = _MMA_TILE
-        tiles_n, tiles_m = -(-N // cols), -(-M // rows)
-        k_steps = -(-K // _MMA_K_STEP)
-        fits = clusters or tuple(sms // s
-                                 for s in range(1, _MMA_MAX_SPLITS + 1))
-        splits = max([1] + [s for s in range(1, min(_MMA_MAX_SPLITS,
-                                                    k_steps) + 1)
-                            if tiles_m * tiles_n <= fits[s - 1]])
-        k_per_split = max(1, -(-k_steps // splits)) * _MMA_K_STEP
-        splits = max(1, -(-K // k_per_split))
-        return Plan("mma", (tiles_n * splits, tiles_m, 1), rows, splits,
-                    k_per_split, None, None)
+        return _cluster_plan("mma", M, N, K, _MMA_TILE, _MMA_K_STEP, sms,
+                             clusters)
+    if kernel == "mma_lp":
+        if mode not in _MMA_LP_K_STEP:
+            raise ValueError(f"the mma_lp kernel takes the bf16 and int8 "
+                             f"modes, got mode {mode!r}")
+        return _cluster_plan("mma_lp", M, N, K, _MMA_LP_TILE,
+                             _MMA_LP_K_STEP[mode], sms, clusters)
     k_steps = -(-K // _K_STEP)
     splits = max(1, min(k_steps, -(-2 * sms // max(1, tiles_m * tiles_n))))
     k_per_split = max(1, -(-k_steps // splits)) * _K_STEP
@@ -571,6 +608,25 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
                 k_per_split, (splits, M, N) if ws else None,
                 (torch.int32 if mode == "int8" else torch.float32)
                 if ws else None)
+
+
+def _cluster_plan(kernel: str, M: int, N: int, K: int,
+                  tile: tuple[int, int], k_step: int, sms: int,
+                  clusters: tuple[int, ...] | None) -> Plan:
+    """A tensor-core kernel's plan: a block per ``tile`` of the output and
+    K split in multiples of ``k_step`` over the largest cluster of up to
+    8 blocks of which the card runs one per tile at once (``clusters[s -
+    1]``, by default ``sms // s``)."""
+    rows, cols = tile
+    tiles_n, tiles_m = -(-N // cols), -(-M // rows)
+    k_steps = -(-K // k_step)
+    fits = clusters or tuple(sms // s for s in range(1, _MMA_MAX_SPLITS + 1))
+    splits = max([1] + [s for s in range(1, min(_MMA_MAX_SPLITS, k_steps) + 1)
+                        if tiles_m * tiles_n <= fits[s - 1]])
+    k_per_split = max(1, -(-k_steps // splits)) * k_step
+    splits = max(1, -(-K // k_per_split))
+    return Plan(kernel, (tiles_n * splits, tiles_m, 1), rows, splits,
+                k_per_split, None, None)
 
 
 def _stream_splits(blocks: int, groups: int, sms: int, per_sm: int) -> int:

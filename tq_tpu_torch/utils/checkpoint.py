@@ -88,6 +88,10 @@ def unflatten_tree(flat: dict):
     return listify(root)
 
 
+# The meta names save_params writes itself (read back by load_params).
+RESERVED_META = frozenset({"store_dtype"})
+
+
 def save_params(path: str | Path, tree, store_dtype=None, meta=None):
     """Save a tree of tensors or arrays.
 
@@ -95,7 +99,8 @@ def save_params(path: str | Path, tree, store_dtype=None, meta=None):
     :func:`load_params` widens them back to float32; a
     ``__meta__/store_dtype`` marker records which convention applies.
     ``meta``: optional {str: str} side channel, read back with
-    ``load_params(with_meta=True)``.
+    ``load_params(with_meta=True)``; a name in :data:`RESERVED_META`
+    raises ``ValueError``.
     """
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -106,6 +111,13 @@ def save_params(path: str | Path, tree, store_dtype=None, meta=None):
         raise ValueError(
             "param tree uses the reserved '__meta__' key; rename the "
             "branch or pass the data via the meta= argument")
+    reserved = RESERVED_META & set(meta or {})
+    if reserved:
+        # load_params reads this marker to decide how to widen floats: a
+        # user value under its name would silently change that.
+        raise ValueError(
+            f"meta uses the reserved name(s) {sorted(reserved)}; save_params "
+            "writes them itself")
     if store_dtype is not None:
         flat = {k: (v.astype(store_dtype)
                     if np.issubdtype(v.dtype, np.floating) else v)
