@@ -7,9 +7,10 @@ switched off.
 Copies ``tq_tpu_torch/csrc`` to a temporary directory, inserts an early
 exit into each of three parts of ``term_matmul_mma_lp.cu`` (bit 1: the
 MMA warps' fragment loads and MMAs; bit 2: the load warps' reveal,
-conversion and shared-memory stores; bit 4: their global loads), builds
-the file once for every combination of the bits with ``nvcc`` (all at
-once), and times each build's ``tq_term_matmul_mma_lp`` by CUDA events
+conversion and shared-memory stores, with the loaded words XOR-ed into
+one stored word so that the loads stay live; bit 4: their global
+loads), builds the file once for every combination of the bits with
+``nvcc`` (all at once), and times each build's ``tq_term_matmul_mma_lp`` by CUDA events
 (20 launches after 3) at the shape (default ``bench.py::bench_matmul``'s
 (8192, 2048, 512)) in three variants: ``bf16_raw`` and ``bf16`` on
 float32 weights (bits 8, 3 terms) and ``int8_int8`` (bits 7, 3 terms).
@@ -38,9 +39,20 @@ SOURCE = "term_matmul_mma_lp.cu"
 SWITCHES = [
     ("        if (c * kChunkK<MODE> >= rows) break;",
      "        if (c * kChunkK<MODE> >= rows || (TQ_PROBE & 1)) break;"),
+    # The loads stay live: their words, XOR-ed, are stored instead.
     ("    auto store = [&](int s, const Regs& g) {",
      "    auto store = [&](int s, const Regs& g) {\n"
-     "      if (TQ_PROBE & 2) return;"),
+     "      if (TQ_PROBE & 2) {\n"
+     "        uint32_t h = g.s[0] ^ g.s[1];\n"
+     "        for (int i = 0; i < R; ++i)\n"
+     "          for (int j = 0; j < 4; ++j) h ^= g.x[i][j];\n"
+     "        for (int c = 0; c < 2; ++c)\n"
+     "          for (int i = 0; i < R; ++i)\n"
+     "            for (int j = 0; j < E; ++j) h ^= g.w[c][i][j];\n"
+     "        *reinterpret_cast<uint32_t*>(smem + (s & 1) * kSlot + 4 * p) ="
+     " h;\n"
+     "        return;\n"
+     "      }"),
     ("    auto load = [&](int s, Regs& g) {",
      "    auto load = [&](int s, Regs& g) {\n"
      "      if (TQ_PROBE & 4) return;"),
@@ -95,7 +107,7 @@ def main() -> None:
         tmp = Path(d)
         for f in _build.CSRC.iterdir():
             shutil.copy(f, tmp / f.name)
-        libs = build(tmp, _build._nvcc(), [a for a in _build.ARCH_FLAGS])
+        libs = build(tmp, _build._nvcc(), list(_build.ARCH_FLAGS))
         for bits, path in libs.items():
             fn = ctypes.CDLL(str(path)).tq_term_matmul_mma_lp
             fn.argtypes = _build.SIGNATURES["tq_term_matmul_mma_lp"]
