@@ -125,13 +125,38 @@ non-zero without printing a result:
     step exported with ``torch.export``, saved, reloaded and run beside
     the direct step over 16 steps (log-probs and carry within 1e-6), the
     streaming kernel (and the LSTM's B1) launched inside the loaded
-    program.
+    program;
+19. ``st_kernels``: ``term_reveal_st`` (the straight-through op of QAT)
+    on the card at (784, 512) g = 1 bits 1, (784, 512) g = 8 axis 0 bits 4
+    and a (64, 784) input at bits 6: the forward bit for bit with the
+    plain version (one B1 or B2 launch), the backward the upstream
+    gradient itself and zero for sf (no launch); timed forward and
+    forward plus backward; ``qat_apply`` with quantized inputs, forward
+    and backward, card against CPU (boundary flips counted);
+20. ``mlp_train``: 20 steps of the MLP trainer (Adadelta, dropout 0) from
+    ``mlp_checkpoint``'s seeded weights, card against CPU and against the
+    JAX package's (``EXPECTED_TRAIN``) within rtol 1e-4; one full epoch of
+    ``train`` on the card, samples/s;
+21. ``qat``: 20 steps of ``train_qat``'s recipe at (wb, gs, wt) = (1, 1,
+    1) and (4, 8, 6): each card step against the CPU's on the same
+    parameters, the free-running losses against the CPU's and the JAX
+    package's wherever the term-revealed weights agree (a fingerprint of
+    their codes; the rest counted as boundary flips); ``run_demo``;
+22. ``lm_train``: 5 chunks of the LSTM (650/650/33278, tied) and the
+    Transformer (650/2/650/2/33278) trainers at batch 20, bptt 35, dropout
+    0 from the seeded checkpoints, card against CPU and ``EXPECTED_TRAIN``
+    within rtol 1e-4, tokens/s; one epoch of ``train`` at dropout 0.2 for
+    all five families (GRU and the vanilla RNNs at width 200, lr 5), each
+    validation loss below its init's; the trained LSTM and Transformer
+    through ``run_sweep`` on the card.  Phases 20-22 are the train path:
+    B1 and B2 must launch there, and no plain version of a kernel may run
+    on the card.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm`` runs the
-build and those groups of phases only (phases 2-5, 6-8, 9-11, 12-14,
-15-18).
+device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm|train``
+runs the build and those groups of phases only (phases 2-5, 6-8, 9-11,
+12-14, 15-18, 19-22).
 """
 
 from __future__ import annotations
@@ -587,10 +612,151 @@ GEN_CONFIGS = [
     ("fixed-bf16-u8s", (8, 8, 24, 8, 3), "u8s", True),
     ("fixed-int8", (7, 8, 12, 7, 3), "int", True),
 ]
+# The train group: the trainers' first steps from seeded npz inits
+# (``mlp_checkpoint``, ``lstm_checkpoint``, ``transformer_checkpoint``) at
+# dropout 0, held against the JAX package's steps (``EXPECTED_TRAIN``).
+TRAIN_SEED = 0
+TRAIN_STEPS = 20       # MLP and QAT steps, batch 64
+TRAIN_ORDER_SEED = 1   # train()'s default seed: its batch order
+QAT_SETTINGS = {"qat_1_1_1": (1, 1, 1, 6, 6),   # (wb, gs, wt, db, dt)
+                "qat_4_8_6": (4, 8, 6, 6, 6)}
+LM_CHUNKS = 5          # batch 20, bptt 35, lr 20, clip 0.25
+LM_BATCH, LM_BPTT, LM_LR, LM_CLIP = 20, 35, 20.0, 0.25
+# The JAX package's losses on the CPU from the same npz inits and batches
+# (and, for QAT, the fingerprints of the weight codes each step multiplies,
+# ``code_fingerprint``): MLP and QAT from
+#   JAX_PLATFORMS=cpu python -m tests.test_torch_port_train --expected
+# (the recipes of ``train`` / ``train_qat`` composed from ``mlp.apply``,
+# ``qat_apply``, ``nll_loss`` and optax), the LMs from
+#   JAX_PLATFORMS=cpu python -m tests.test_torch_port_train_lm --expected
+# (``tq_tpu.evals.train_lstm._train_step`` / ``_train_step_transformer``).
+EXPECTED_TRAIN = {
+    "mlp": {
+        "losses": [
+            2.340346336364746, 2.1422595977783203, 2.26145339012146,
+            2.538465976715088, 2.0869035720825195, 1.910818099975586,
+            2.683718204498291, 2.5247631072998047, 1.7177691459655762,
+            1.2656594514846802, 1.7482414245605469, 2.2535643577575684,
+            2.2622923851013184, 3.509107828140259, 2.2515196800231934,
+            1.3436834812164307, 1.0503469705581665, 0.9075230360031128,
+            0.7390603423118591, 0.8014461398124695],
+    },
+    "qat_1_1_1": {
+        "losses": [
+            2.3923234939575195, 2.063591718673706, 1.9947314262390137,
+            1.558609962463379, 1.3547056913375854, 1.0227080583572388,
+            0.7864927053451538, 0.51963210105896, 0.275044322013855,
+            0.22162574529647827, 0.15847274661064148, 0.0850851833820343,
+            0.05594148486852646, 0.04343414306640625, 0.017537269741296768,
+            0.009128954261541367, 0.010488063097000122, 0.010341886430978775,
+            0.004144440405070782, 0.010413908399641514],
+        "codes": [
+            [-463108395229, 460702790470, 31923348662], [-1175578622030,
+            476811512392, -4647581955], [-1792392918069, 506360649183,
+            -28635709728], [-2460937086678, 406974438536, -53172598404],
+            [-2636250073021, 434354493939, -53290784265], [-2277690761247,
+            481992971806, -53429745047], [-1395765888752, 759435021380,
+            -52836125736], [-495781730680, 996063694063, -66377342834],
+            [289574325799, 1184812572304, -81128786898], [1142533397438,
+            1425567053785, -85795054081], [1848070540337, 1752681347317,
+            -89842853176], [2678691343774, 1972196696508, -111610646502],
+            [3448164095642, 2080129215454, -97033343379], [4104331266810,
+            2244358386352, -98430698089], [4725762641633, 2392330249283,
+            -106335630731], [5300247588525, 2659714573344, -107022163258],
+            [5480016022339, 2769551872181, -110662552091], [5744121591669,
+            2967555619699, -117192259056], [5938150562062, 3089937795260,
+            -130157405676], [6110853041706, 3112860785480, -133667623000]],
+    },
+    "qat_4_8_6": {
+        "losses": [
+            2.3559975624084473, 2.125419855117798, 2.100918769836426,
+            1.6072494983673096, 1.5448088645935059, 1.1676900386810303,
+            0.9730697870254517, 0.6599692106246948, 0.38821548223495483,
+            0.3297141194343567, 0.2674213647842407, 0.16160708665847778,
+            0.1335744708776474, 0.057832181453704834, 0.038100920617580414,
+            0.040834181010723114, 0.04981238394975662, 0.041166238486766815,
+            0.021615803241729736, 0.021954061463475227],
+        "codes": [
+            [-3637638243627, 5454162064611, 11015531161], [-8577830907918,
+            4841955631257, -9786361666], [-10171130560722, 5200345954268,
+            -145179652834], [-11530150502788, 5430605211008, -220709019383],
+            [-9082964185235, 5609714920932, -325612910205], [-1697506259724,
+            7024575137110, -485695250378], [7298147078780, 9302370871601,
+            -532030256946], [15549396382313, 12157802154230, -619868537384],
+            [21874039440305, 15262156701126, -819792079707], [28131743620337,
+            18861363636065, -920225725910], [33447193365273, 21164508929230,
+            -961590098391], [38487811063815, 22492374183022, -1003389621208],
+            [42876449956450, 23974023286731, -1050199365169], [45425426041273,
+            24989736295863, -1116160920789], [49104796253309, 25864018668604,
+            -1103629863938], [51692861140263, 26294932143247, -1086318521931],
+            [53657062685800, 27699468042434, -1070441905051], [55115478871150,
+            28109811936633, -1128513833797], [56121836838225, 29022305170276,
+            -1140643396505], [57037409549470, 29704467355745, -1117736224703]],
+    },
+    "lstm": {
+        "losses": [
+            10.41455364227295, 9.789587020874023, 23.250526428222656,
+            9.758983612060547, 11.971420288085938],
+    },
+    "transformer": {
+        "losses": [
+            10.561786651611328, 17.414812088012695, 17.80320930480957,
+            9.969773292541504, 13.494918823242188],
+    },
+}
+
 GEN_WORDS = 100
 GEN_SEED = 1111
 TEACHER_TOKENS = 16
 VOCAB = 33278
+
+
+def mlp_checkpoint(path, seed: int = TRAIN_SEED) -> None:
+    """Save random MNIST MLP weights made with numpy from ``seed``, in
+    ``mlp.init``'s distributions (every weight and bias U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)), weights stored (in, out)), with the port's
+    ``save_params``: the same file loads in both packages."""
+    from tq_tpu_torch.models.mlp import DIMS, LAYER_NAMES
+    from tq_tpu_torch.utils.checkpoint import save_params
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, (fan_in, fan_out) in zip(LAYER_NAMES, DIMS):
+        bound = 1.0 / np.sqrt(fan_in)
+        params[name] = {
+            "w": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(
+                np.float32),
+            "b": rng.uniform(-bound, bound, fan_out).astype(np.float32)}
+    save_params(path, params)
+
+
+def code_fingerprint(q) -> int:
+    """An integer hash of an integer array (the term-revealed codes of a
+    weight): sum of q[i] * c[i] over a fixed sequence c of odd-looking
+    integers in [1, 2^31], exact in int64.  Equal arrays give equal hashes;
+    one differing code always changes it."""
+    q = np.asarray(q).reshape(-1).astype(np.int64)
+    c = (np.arange(q.size, dtype=np.int64) * 2654435761) % (1 << 31) + 1
+    return int((q * c).sum())
+
+
+def qat_fingerprints(torch, params, setting) -> list:
+    """Per MLP layer, :func:`code_fingerprint` of the weight codes
+    ``qat_apply`` multiplies at ``setting`` (wb, gs, wt, ...), computed on
+    the CPU by the plain version (no kernel launch)."""
+    from tq_tpu_torch.evals.qat_mlp import _st_scale
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.models.mlp import LAYER_NAMES
+
+    wb, gs, wt = setting[:3]
+    out = []
+    with torch.no_grad():
+        for name in LAYER_NAMES:
+            w = params[name]["w"].detach().cpu()
+            sf = _st_scale(w, wb)
+            q = torch.round(tr_quantize(w, sf, wb, gs, wt, 0) / sf)
+            out.append(code_fingerprint(q.numpy()))
+    return out
 
 
 def lstm_checkpoint(path, seed: int = LSTM_SEED, vocab: int = 33278,
@@ -3242,10 +3408,463 @@ def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
           "results": results})
 
 
+# ------------------------------------------------------------- train group
+
+# term_reveal_st's shapes on the train path: (name, shape, bits, g, terms):
+# QAT's weights at its two settings (axis 0) and a dense input (g = 1).
+TRAIN_ST_CASES = [("784x512_g1_bits1", (784, 512), 1, 1, 1),
+                  ("784x512_g8_bits4", (784, 512), 4, 8, 6),
+                  ("64x784_act_bits6", (64, 784), 6, 1, 6)]
+LM_SHORT_TOKENS = 140000  # the dropout-0.2 runs at full width: 199 chunks
+# GRU, RNN_TANH and RNN_RELU: one epoch of 99 chunks at width 200 and lr 5.
+# At the recipe's lr 20 one epoch at this width does not improve on the
+# init (the whole stream on an H100: GRU 10.88 against 10.41, RNN_TANH
+# 13.17, RNN_RELU NaN; at lr 5 all three reach 7.77-7.84); the JAX
+# package's own training tests use lr 5 on their small models too.
+LM_SMALL_WIDTH, LM_SMALL_TOKENS, LM_SMALL_LR = 200, 70000, 5.0
+
+
+# Gradients card against CPU, relative in norm.  A ReLU's gradient jumps
+# at its kink, and float32 sum order can put a pre-activation within noise
+# of 0 on the other side (found on the card at batch 64: the fc2 gradient
+# off by 14% of its largest in one column) while the loss, continuous
+# there, stays within 1e-6.
+GRAD_NORM_RTOL = 5e-2
+
+
+def _norm_gap(got, want) -> float:
+    return float((got.cpu() - want).norm() / want.norm())
+
+
+def _rel_gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want), initial=0.0))
+
+
+def _qat_input_codes(torch, params, x, setting):
+    """Per layer of ``qat_apply(..., act_quant=True)``: the integer codes
+    of its term-revealed input (its values over its scale; the scale is
+    max|input| / 2^(db-1), which an ulp of sum order in the largest input
+    moves by an ulp)."""
+    from tq_tpu_torch.evals.qat_mlp import _st_scale
+    from tq_tpu_torch.models.mlp import LAYER_NAMES
+    from tq_tpu_torch.ops.term_reveal import term_reveal_st
+
+    wb, gs, wt, db, dt = setting
+    out = []
+    with torch.no_grad():
+        h = x.reshape(x.shape[0], -1)
+        for i, name in enumerate(LAYER_NAMES):
+            p = params[name]
+            wq = term_reveal_st(p["w"], _st_scale(p["w"], wb), wb, gs, wt, 0)
+            sf = _st_scale(h, db)
+            h = term_reveal_st(h, sf, db, 1, dt, 0)
+            out.append(torch.round(h / sf).to(torch.int32))
+            h = torch.matmul(h, wq) + p["b"]
+            if i < len(LAYER_NAMES) - 1:
+                h = torch.relu(h)
+    return out
+
+
+def phase_st_kernels(torch, ckpt: Path):
+    """``term_reveal_st`` on the card at TRAIN_ST_CASES: the forward bit for
+    bit with ``tr_quantize_ref`` (one launch of B1 at g = 1, of B2 above),
+    the backward the upstream gradient itself and a zero for sf, with no
+    launch; timed (forward device and eager, forward plus backward eager)
+    beside the B1/B2 rows.  Then ``qat_apply(..., act_quant=True)`` forward
+    and backward on ``ckpt``'s weights and 512 samples, card against CPU:
+    rows with a differing input code counted (at most 1%), the others'
+    log-probs within atol 1e-4, the gradients within GRAD_NORM_RTOL in
+    norm."""
+    from tq_tpu_torch.evals.qat_mlp import _st_scale, qat_apply
+    from tq_tpu_torch.evals.train_mlp import nll_loss, trainable
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_quantize_ref
+    from tq_tpu_torch.models.mlp import LAYER_NAMES
+    from tq_tpu_torch.ops.term_reveal import term_reveal_st
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    rows = {"tr_quantize_elementwise": {}, "tr_quantize_grouped": {}}
+    for name, shape, bits, g, terms in TRAIN_ST_CASES:
+        x = torch.randn(shape, generator=gen, device=dev) / shape[0] ** 0.5
+        sf = _st_scale(x, bits).requires_grad_(True)
+        sfd = sf.detach()
+        xg = x.clone().requires_grad_(True)
+        up = torch.randn(shape, generator=gen, device=dev)
+        row = "tr_quantize_elementwise" if g == 1 else "tr_quantize_grouped"
+        before = _read_counts()
+        y = term_reveal_st(xg, sf, bits, g, terms, 0)
+        mid = _read_counts()
+        gx, gsf = torch.autograd.grad(y, (xg, sf), up)
+        after = _read_counts()
+        _exact(torch, f"term_reveal_st {name}", y.detach(),
+               tr_quantize_ref(x, sfd, bits, g, terms, 0))
+        if not torch.equal(gx, up) or float(gsf) != 0.0:
+            fail(f"term_reveal_st {name}: the backward is not (upstream "
+                 f"gradient, 0) (sf gradient {float(gsf)})")
+        if mid[row] != before[row] + 1 or after != mid:
+            fail(f"term_reveal_st {name}: launches {before} -> {mid} -> "
+                 f"{after}, not one {row} in the forward and none after")
+
+        def fwd_bwd():
+            torch.autograd.grad(term_reveal_st(xg, sfd, bits, g, terms, 0),
+                                xg, up)
+
+        rows[row][name] = dict(
+            bits=bits, group_size=g, terms=terms, max_abs_err=0.0, **_cell(
+                torch, lambda: term_reveal_st(x, sfd, bits, g, terms, 0),
+                lambda: tr_quantize_ref(x, sfd, bits, g, terms, 0),
+                8 * x.numel(), x.numel()),
+            kernel_eager_ms=eager_ms(
+                torch, lambda: tr_quantize(x, sfd, bits, g, terms, 0)),
+            fwd_bwd_eager_ms=eager_ms(torch, fwd_bwd))
+
+    # qat_apply with quantized activations, once, card against CPU.
+    from tq_tpu_torch.data import load_mnist
+
+    (xtr, ytr), _, _ = load_mnist()
+    x, y = xtr[:512], ytr[:512]
+    setting = QAT_SETTINGS["qat_1_1_1"]
+    runs = {}
+    for d in ("cuda", "cpu"):
+        params = params_from_jax(load_params(ckpt), d)
+        trainable(params)
+        logp = qat_apply(params, torch.as_tensor(x, device=d), *setting,
+                         act_quant=True)
+        nll_loss(logp, torch.as_tensor(y, device=d)).backward()
+        runs[d] = dict(logp=logp.detach().cpu(), grads={
+            n: params[n]["w"].grad.cpu() for n in LAYER_NAMES},
+            codes=[h.cpu() for h in _qat_input_codes(
+                torch, params, torch.as_tensor(x, device=d), setting)])
+    flipped = torch.zeros(len(y), dtype=torch.bool)
+    for hg, hc in zip(runs["cuda"]["codes"], runs["cpu"]["codes"]):
+        flipped |= (hg != hc).any(dim=1)
+    n_flipped = int(flipped.sum())
+    if n_flipped > len(y) // 100:
+        fail(f"qat_apply act_quant: {n_flipped} of {len(y)} rows with a "
+             "differing input code, more than sum-order flips explain")
+    logp_err = float((runs["cuda"]["logp"] - runs["cpu"]["logp"])[
+        ~flipped].abs().max())
+    grad_err = max(_norm_gap(runs["cuda"]["grads"][n], runs["cpu"]["grads"][n])
+                   for n in LAYER_NAMES)
+    if logp_err > 1e-4 or grad_err > GRAD_NORM_RTOL:
+        fail(f"qat_apply act_quant: log-probs differ by {logp_err}, "
+             f"gradients by {grad_err} in norm")
+    emit({"phase": "st_kernels", "ok": True, "cases": len(TRAIN_ST_CASES),
+          "act_quant": dict(rows_with_boundary_flip=n_flipped,
+                            logp_max_abs_err=logp_err,
+                            grad_max_rel_err=grad_err),
+          "results": rows})
+    return rows
+
+
+def _mnist_batches(steps: int):
+    """``train``'s first ``steps`` batches of 64 (its default seed's
+    permutation of the synthetic training set), as numpy arrays."""
+    from tq_tpu_torch.data import load_mnist
+
+    (xtr, ytr), _, source = load_mnist()
+    if source != "synthetic":
+        fail("EXPECTED_TRAIN holds the synthetic training set's numbers; "
+             "unset TQ_DATA_DIR")
+    perm = np.random.default_rng(TRAIN_ORDER_SEED).permutation(len(ytr))
+    return [(xtr[perm[i * 64:(i + 1) * 64]], ytr[perm[i * 64:(i + 1) * 64]])
+            for i in range(steps)]
+
+
+def phase_mlp_train(torch, ckpt: Path):
+    """The MLP trainer's step (Adadelta, dropout 0) over ``train``'s first
+    TRAIN_STEPS batches from ``ckpt``, on the card and on the CPU: losses
+    within rtol 1e-4 of each other and of EXPECTED_TRAIN; then ``train``
+    for one full epoch on the card (dropout 0.2), its samples/s."""
+    from tq_tpu_torch.data import load_mnist
+    from tq_tpu_torch.evals.train_mlp import make_optimizer, train, train_step
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    start = time.perf_counter()
+    batches = _mnist_batches(TRAIN_STEPS)
+    losses = {}
+    for d in ("cuda", "cpu"):
+        params = params_from_jax(load_params(ckpt), d)
+        opt, _ = make_optimizer(params)
+        losses[d] = torch.stack([
+            train_step(params, opt, torch.as_tensor(x, device=d),
+                       torch.as_tensor(y, device=d), dropout=False)
+            for x, y in batches]).cpu().tolist()
+    gap_cpu = _rel_gap(losses["cuda"], losses["cpu"])
+    gap_jax = _rel_gap(losses["cuda"], EXPECTED_TRAIN["mlp"]["losses"])
+    if gap_cpu > 1e-4 or gap_jax > 1e-4:
+        fail(f"MLP train steps: losses {gap_cpu} from the CPU's, {gap_jax} "
+             "from the JAX package's (relative)")
+    t0 = time.perf_counter()
+    (_, ytr), _, _ = load_mnist()
+    data_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, acc = train(epochs=1, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    samples = (len(ytr) // 64) * 64
+    if not acc > 50.0:
+        fail(f"one epoch of train: test accuracy {acc}%")
+    emit({"phase": "mlp_train", "ok": True,
+          "seconds": time.perf_counter() - start, "steps": TRAIN_STEPS,
+          "loss_max_rel_gap_cpu": gap_cpu, "loss_max_rel_gap_jax": gap_jax,
+          "losses": losses["cuda"], "epoch_steps": samples // 64,
+          "epoch_seconds": seconds, "data_seconds": data_seconds,
+          "samples_per_s": samples / (seconds - data_seconds),
+          "test_acc": acc})
+
+
+def _held_where_codes_agree(losses, codes, ref_losses, ref_codes):
+    """(steps compared, their largest relative loss gap, steps whose weight
+    codes differ): a step is compared where both runs multiplied the same
+    term-revealed weights."""
+    same = [k for k in range(len(losses)) if codes[k] == ref_codes[k]]
+    gap = _rel_gap([losses[k] for k in same], [ref_losses[k] for k in same])
+    return len(same), gap, len(losses) - len(same)
+
+
+def phase_qat(torch, ckpt: Path):
+    """``train_qat``'s step (Adam 1e-3, the clip) at each QAT_SETTINGS
+    setting over TRAIN_STEPS batches from ``ckpt``, on the card and on the
+    CPU.  Each card step held given the same parameters (the CPU's loss and
+    gradients on the card's parameters, within rtol 1e-4 and GRAD_NORM_RTOL
+    in norm); the free-running losses within rtol 1e-4 of the
+    CPU's and of EXPECTED_TRAIN at the steps whose weight codes agree
+    (``code_fingerprint``), the others counted as boundary flips.  Then
+    ``run_demo`` (one epoch each) on the card."""
+    from torch.utils._pytree import tree_map
+
+    from tq_tpu_torch.evals.qat_mlp import qat_apply, qat_step, run_demo
+    from tq_tpu_torch.evals.train_mlp import nll_loss, trainable
+    from tq_tpu_torch.models.mlp import LAYER_NAMES
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    start = time.perf_counter()
+    batches = _mnist_batches(TRAIN_STEPS)
+    results = {}
+    for name, setting in QAT_SETTINGS.items():
+        params = params_from_jax(load_params(ckpt), "cuda")
+        opt = torch.optim.Adam(trainable(params), lr=1e-3)
+        snaps, grads, losses = [], [], []
+        t0 = time.perf_counter()
+        for x, y in batches:
+            snaps.append(tree_map(lambda t: t.detach().clone(), params))
+            losses.append(qat_step(params, opt, torch.as_tensor(x).cuda(),
+                                   torch.as_tensor(y).cuda(), *setting))
+            grads.append({n: params[n]["w"].grad.clone()
+                          for n in LAYER_NAMES})
+        torch.cuda.synchronize()
+        card_seconds = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu().tolist()
+        codes = [qat_fingerprints(torch, s, setting) for s in snaps]
+
+        step_gap = grad_gap = 0.0
+        for snap, g, loss, (x, y) in zip(snaps, grads, losses, batches):
+            p = tree_map(lambda t: t.cpu().requires_grad_(True), snap)
+            ref = nll_loss(qat_apply(p, torch.as_tensor(x), *setting),
+                           torch.as_tensor(y))
+            ref.backward()
+            step_gap = max(step_gap, _rel_gap([loss], [ref.item()]))
+            grad_gap = max([grad_gap] + [_norm_gap(g[n], p[n]["w"].grad)
+                                         for n in LAYER_NAMES])
+        if step_gap > 1e-4 or grad_gap > GRAD_NORM_RTOL:
+            fail(f"QAT {name}: a card step given the CPU's parameters: loss "
+                 f"{step_gap} (relative), gradients {grad_gap} in norm")
+
+        cparams = params_from_jax(load_params(ckpt), "cpu")
+        copt = torch.optim.Adam(trainable(cparams), lr=1e-3)
+        cpu_codes, cpu_losses = [], []
+        for x, y in batches:
+            cpu_codes.append(qat_fingerprints(torch, cparams, setting))
+            cpu_losses.append(float(qat_step(
+                cparams, copt, torch.as_tensor(x), torch.as_tensor(y),
+                *setting)))
+        exp = EXPECTED_TRAIN[name]
+        held = {"cpu": _held_where_codes_agree(losses, codes, cpu_losses,
+                                               cpu_codes),
+                "jax": _held_where_codes_agree(losses, codes, exp["losses"],
+                                               exp["codes"])}
+        for ref, (n_same, gap, _) in held.items():
+            if n_same == 0 or gap > 1e-4:
+                fail(f"QAT {name}: losses {gap} (relative) from the {ref} "
+                     f"run's over the {n_same} steps with equal weight codes")
+        results[name] = dict(
+            setting=setting, card_seconds=card_seconds, losses=losses,
+            same_params_loss_gap=step_gap, same_params_grad_gap=grad_gap,
+            **{f"{ref}_{k}": v for ref, h in held.items()
+               for k, v in zip(("steps_held", "loss_max_rel_gap",
+                                "steps_with_flipped_codes"), h)})
+    t0 = time.perf_counter()
+    fp32_acc, ptq_acc, qat_acc = run_demo(epochs=1, verbose=False,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    demo = dict(seconds=time.perf_counter() - t0, fp32_acc=fp32_acc,
+                ptq_acc=ptq_acc, qat_acc=qat_acc)
+    if not all(0.0 <= v <= 100.0 for v in (fp32_acc, ptq_acc, qat_acc)):
+        fail(f"run_demo: accuracies out of range {demo}")
+    emit({"phase": "qat", "ok": True,
+          "seconds": time.perf_counter() - start, "steps": TRAIN_STEPS,
+          "results": results, "run_demo": demo})
+
+
+def _init_val_loss(torch, model: str, width: int, limit_tokens):
+    """``evaluate`` of the init ``train`` starts from (its default seed)
+    on its validation stream."""
+    from tq_tpu_torch.data.wikitext import batchify, load_corpus
+    from tq_tpu_torch.evals.train_lstm import evaluate
+    from tq_tpu_torch.models import lstm_lm, transformer_lm
+
+    corpus, _ = load_corpus()
+    val = np.asarray(corpus.valid)
+    if limit_tokens:
+        val = val[:max(limit_tokens // 10, 400)]
+    gen = torch.Generator().manual_seed(1111)
+    if model == "Transformer":
+        params = transformer_lm.init(gen, emsize=width, nhid=width,
+                                     device="cuda")
+    else:
+        params = lstm_lm.init(gen, emsize=width, nhid=width, cell=model,
+                              device="cuda")
+    return evaluate(params, batchify(val, 10), model=model)
+
+
+def phase_lm_train(torch, tmp: Path):
+    """The LM trainer's step at full width (LSTM 650/650/33278 tied,
+    Transformer 650/2/650/2/33278; batch 20, bptt 35, lr 20, clip 0.25,
+    dropout 0) over the first LM_CHUNKS chunks of the synthetic training
+    stream from the seeded checkpoints, card against CPU and against
+    EXPECTED_TRAIN within rtol 1e-4; tokens/s of the card's steps.  Then
+    ``train`` at dropout 0.2 for one epoch: the LSTM and the Transformer
+    at full width on LM_SHORT_TOKENS tokens (lr 20), GRU, RNN_TANH and
+    RNN_RELU at LM_SMALL_WIDTH on LM_SMALL_TOKENS (lr LM_SMALL_LR), each
+    validation loss below its init's; the best LSTM and Transformer checkpoints through
+    ``evals/lstm.run_sweep`` on the card."""
+    from tq_tpu_torch.data.wikitext import batchify, load_corpus
+    from tq_tpu_torch.evals.lstm import run_sweep
+    from tq_tpu_torch.evals.train_lstm import (_train_step,
+                                               _train_step_transformer, train)
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    start = time.perf_counter()
+    corpus, source = load_corpus()
+    if source != "synthetic":
+        fail("EXPECTED_TRAIN holds the synthetic stream's numbers; unset "
+             "TQ_DATA_DIR")
+    stream = batchify(np.asarray(corpus.train), LM_BATCH)
+    chunks = [(stream[i:i + LM_BPTT], stream[i + 1:i + 1 + LM_BPTT]
+               .reshape(-1)) for i in range(0, LM_CHUNKS * LM_BPTT, LM_BPTT)]
+    steps = {}
+    for name, make, model in (("lstm", lstm_checkpoint, "LSTM"),
+                              ("transformer", transformer_checkpoint,
+                               "Transformer")):
+        ckpt = tmp / f"{name}_seeded.npz"
+        make(ckpt)
+        losses, chunk_seconds = {}, []
+        for d in ("cuda", "cpu"):
+            params = params_from_jax(load_params(ckpt), d)
+            hidden = lstm_lm.init_hidden(LM_BATCH, device=d)
+            out = []
+            for x, y in chunks:
+                t0 = time.perf_counter()
+                x, y = torch.as_tensor(x, device=d), torch.as_tensor(
+                    y, device=d)
+                if model == "Transformer":
+                    loss = _train_step_transformer(params, x, y, None, LM_LR,
+                                                   LM_CLIP, 0.0, TFM_NHEAD)
+                else:
+                    loss, hidden = _train_step(params, x, y, hidden, None,
+                                               LM_LR, LM_CLIP, 0.0, model)
+                out.append(loss)
+                if d == "cuda":
+                    torch.cuda.synchronize()
+                    chunk_seconds.append(time.perf_counter() - t0)
+            losses[d] = torch.stack(out).cpu().tolist()
+            del params
+        gap_cpu = _rel_gap(losses["cuda"], losses["cpu"])
+        gap_jax = _rel_gap(losses["cuda"], EXPECTED_TRAIN[name]["losses"])
+        if gap_cpu > 1e-4 or gap_jax > 1e-4:
+            fail(f"{model} train steps: losses {gap_cpu} from the CPU's, "
+                 f"{gap_jax} from the JAX package's (relative)")
+        steady = chunk_seconds[1:]  # the first chunk pays cuBLAS's set-up
+        steps[name] = dict(
+            losses=losses["cuda"], loss_max_rel_gap_cpu=gap_cpu,
+            loss_max_rel_gap_jax=gap_jax, chunk_seconds=chunk_seconds,
+            tokens_per_s=len(steady) * LM_BATCH * LM_BPTT / sum(steady))
+
+    runs = {}
+    small = (LM_SMALL_WIDTH, LM_SMALL_TOKENS, LM_SMALL_LR)
+    for model, (width, limit, lr) in (
+            ("LSTM", (650, LM_SHORT_TOKENS, LM_LR)),
+            ("Transformer", (650, LM_SHORT_TOKENS, LM_LR)),
+            ("GRU", small), ("RNN_TANH", small), ("RNN_RELU", small)):
+        init_val = _init_val_loss(torch, model, width, limit)
+        save = tmp / f"{model}_trained.npz"
+        t0 = time.perf_counter()
+        _, best_val = train(epochs=1, emsize=width, nhid=width, lr=lr,
+                            limit_tokens=limit, verbose=False, model=model,
+                            save_path=save, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not best_val < init_val:
+            fail(f"{model}: validation loss {best_val} after one epoch, "
+                 f"{init_val} at the init")
+        trained = (limit // LM_BATCH - 1) * LM_BATCH
+        runs[model] = dict(width=width, lr=lr, init_val_loss=init_val,
+                           best_val_loss=best_val, seconds=seconds,
+                           tokens=trained, tokens_per_s=trained / seconds)
+    sweeps = {}
+    for model in ("LSTM", "Transformer"):
+        res = run_sweep([8], [8], [8], [8], [1],
+                        checkpoint=str(tmp / f"{model}_trained.npz"),
+                        limit_tokens=2000, verbose=False, model=model,
+                        device="cuda")
+        if not (len(res["ppls"]) == 1 and np.isfinite(res["ppls"][0])):
+            fail(f"run_sweep on the trained {model} checkpoint: {res}")
+        sweeps[model] = res
+    emit({"phase": "lm_train", "ok": True,
+          "seconds": time.perf_counter() - start, "chunks": LM_CHUNKS,
+          "steps": steps, "runs": runs, "sweeps": sweeps})
+
+
+class _NoPlainOnCard:
+    """Inside: the plain version of ``tr_quantize`` or ``term_matmul``
+    called on a CUDA tensor fails the run (the path must launch the
+    kernels); on CPU tensors (the comparisons) they run as usual."""
+
+    def __enter__(self):
+        import tq_tpu_torch.kernels.term_matmul as tm
+        import tq_tpu_torch.kernels.tr_quantize as tq
+
+        def guard(fn):
+            def on_cpu_only(x, *args, **kwargs):
+                if x.is_cuda:
+                    fail(f"{fn.__name__} (the plain version) ran on the card")
+                return fn(x, *args, **kwargs)
+            return on_cpu_only
+
+        self.saved = [(tq, "tr_quantize_ref", tq.tr_quantize_ref),
+                      (tm, "term_matmul_ref", tm.term_matmul_ref)]
+        for module, name, fn in self.saved:
+            setattr(module, name, guard(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+        return False
+
+
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm")
+GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train")
 
 
 def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
@@ -3334,6 +3953,22 @@ def main(argv=None) -> None:
             lstm_checkpoint(lstm_ckpt)
             phase_tfm_export(torch, served, lstm_ckpt,
                              _lstm_inputs(ckpt)[1])
+    if "train" in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "mlp_seeded.npz"
+            mlp_checkpoint(ckpt)
+            _attach_cells(kernel_results, phase_st_kernels(torch, ckpt),
+                          "train_shapes")
+            _reset_counts()
+            with _NoPlainOnCard():
+                phase_mlp_train(torch, ckpt)
+                phase_qat(torch, ckpt)
+                phase_lm_train(torch, Path(tmp))
+            by_path["train"] = _read_counts()
+            # run_demo's evaluations run the reference layer
+            # (quantize_input=False): plain products, no term_matmul.
+            _require_launched(by_path["train"], [
+                "tr_quantize_elementwise", "tr_quantize_grouped"], "train")
 
     lines = []
     for name, meta in KERNELS.items():
@@ -3350,7 +3985,7 @@ def main(argv=None) -> None:
                       **{k: r[k] for k in ("cold_ms", "tiled_ms",
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
-                                           "tfm_shapes",
+                                           "tfm_shapes", "train_shapes",
                                            "modes_m_gt_8", "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
                                            "clusters_at_once")

@@ -63,3 +63,135 @@ def test_mma_lp_kernel_on_the_card(cuda, M, K, N, bf16_bits, int8_terms):
         else:
             torch.testing.assert_close(
                 out, ref, rtol=1e-5, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bits,group_size,terms",
+                         [((784, 512), 1, 1, 1), ((784, 512), 4, 8, 6),
+                          ((64, 784), 6, 1, 6)])
+def test_term_reveal_st_on_the_card(cuda, shape, bits, group_size, terms):
+    """The straight-through op's forward launches B1 (g = 1) or B2 once and
+    equals the plain version bit for bit; its backward is the upstream
+    gradient itself and a zero for sf, and launches nothing."""
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_quantize_ref
+    from tq_tpu_torch.ops.term_reveal import term_reveal_st
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn(shape, generator=gen).to(cuda).requires_grad_(True)
+    sf = (x.detach().abs().max() / 2 ** (bits - 1)).requires_grad_(True)
+    up = torch.randn(shape, generator=gen).to(cuda)
+    key = "elementwise" if group_size == 1 else "grouped"
+    before = dict(tr_quantize.launches)
+    y = term_reveal_st(x, sf, bits, group_size, terms, 0)
+    gx, gsf = torch.autograd.grad(y, (x, sf), up)
+    torch.cuda.synchronize()
+    assert tr_quantize.launches[key] == before[key] + 1
+    assert sum(tr_quantize.launches.values()) == sum(before.values()) + 1
+    assert torch.equal(y, tr_quantize_ref(x.detach(), sf.detach(), bits,
+                                          group_size, terms, 0))
+    assert torch.equal(gx, up) and float(gsf) == 0.0
+
+
+def _mlp_params(device):
+    from tq_tpu_torch.models import mlp
+
+    return mlp.init(torch.Generator().manual_seed(0), device=device)
+
+
+def _mnist_batch():
+    gen = torch.Generator().manual_seed(2)
+    return torch.randn(64, 1, 28, 28, generator=gen), torch.randint(
+        0, 10, (64,), generator=gen)
+
+
+def _norm_gap(got, want) -> float:
+    """Relative gap in norm.  A ReLU's gradient jumps at its kink, and
+    float32 sum order can put a pre-activation within noise of 0 on the
+    other side (seen on the card at batch 64), which moves that unit's
+    gradient: the fc2 gradient off by 14% of its largest in one column."""
+    return float((got.cpu() - want).norm() / want.norm())
+
+
+@pytest.mark.cuda
+def test_mlp_train_step_card_against_cpu(cuda):
+    """Two Adadelta steps of the MLP trainer at dropout 0: losses within
+    rtol 1e-4 of the CPU's, each weight's change within 5e-2 in norm."""
+    from tq_tpu_torch.evals.train_mlp import make_optimizer, train_step
+
+    x, y = _mnist_batch()
+    out = {}
+    for d in ("cpu", cuda):
+        params = _mlp_params(d)
+        opt, _ = make_optimizer(params)
+        losses = [float(train_step(params, opt, x.to(d), y.to(d),
+                                   dropout=False)) for _ in range(2)]
+        out[str(d)] = losses, params
+    (lc, pc), (lg, pg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc), rtol=1e-4,
+                               atol=0)
+    p0 = _mlp_params("cpu")
+    for name in pc:
+        assert _norm_gap(pg[name]["w"] - p0[name]["w"].cuda(),
+                         pc[name]["w"] - p0[name]["w"]) <= 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", [(1, 1, 1, 6, 6), (4, 8, 6, 6, 6)])
+def test_qat_step_card_against_cpu(cuda, setting):
+    """One train_qat step from the same parameters: it launches B1 (g = 1)
+    or B2 for every layer's weights, the loss within rtol 1e-4 of the
+    CPU's, the gradients within 5e-2 in norm."""
+    from tq_tpu_torch.evals.qat_mlp import qat_step
+    from tq_tpu_torch.evals.train_mlp import trainable
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+
+    x, y = _mnist_batch()
+    key = "elementwise" if setting[1] == 1 else "grouped"
+    out = {}
+    for d in ("cpu", cuda):
+        params = _mlp_params(d)
+        opt = torch.optim.Adam(trainable(params), lr=1e-3)
+        before = tr_quantize.launches[key]
+        loss = float(qat_step(params, opt, x.to(d), y.to(d), *setting))
+        if d == cuda:
+            assert tr_quantize.launches[key] == before + 3
+        out[str(d)] = loss, {n: params[n]["w"].grad.cpu() for n in params}
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for n in gc:
+        assert _norm_gap(gg[n], gc[n]) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_lstm_train_step_card_against_cpu(cuda):
+    """Two chunks of the LM trainer's LSTM step (vocab 1000, width 64,
+    batch 4, bptt 8, lr 20, clip 0.25, dropout 0) with the hidden state
+    carried: losses, hidden state and parameters within rtol 1e-4 of the
+    CPU's."""
+    from tq_tpu_torch.evals.train_lstm import _train_step
+    from tq_tpu_torch.models import lstm_lm
+
+    gen = torch.Generator().manual_seed(3)
+    stream = torch.randint(0, 1000, (17, 4), generator=gen)
+    out = {}
+    for d in ("cpu", cuda):
+        params = lstm_lm.init(torch.Generator().manual_seed(0), vocab=1000,
+                              emsize=64, nhid=64, device=d)
+        hidden = lstm_lm.init_hidden(4, nhid=64, device=d)
+        losses = []
+        for i in (0, 8):
+            loss, hidden = _train_step(
+                params, stream[i:i + 8].to(d),
+                stream[i + 1:i + 9].reshape(-1).to(d), hidden, None, 20.0,
+                0.25, 0.0, "LSTM")
+            losses.append(float(loss))
+        out[str(d)] = losses, hidden, params
+    (lc, hc, pc), (lg, hg, pg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(torch.tensor(lg), torch.tensor(lc), rtol=1e-4,
+                               atol=0)
+    for a, b in zip(hg, hc):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pg["encoder"]["w"].cpu(), pc["encoder"]["w"],
+                               rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pg["rnn"][0]["w_hh"].cpu(),
+                               pc["rnn"][0]["w_hh"], rtol=1e-4, atol=1e-5)

@@ -223,8 +223,20 @@ def test_run_sweep_cpu_schema_and_resume(tmp_path):
 
 
 def test_load_or_train_without_checkpoint_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="training is not ported"):
-        load_or_train(str(tmp_path / "missing.npz"), device="cpu")
+    """With no checkpoint, load_or_train no longer raises: it trains (here
+    one batch), saves to the path and returns what it saved, which the
+    JAX package loads."""
+    path = tmp_path / "sub" / "missing.npz"
+    params = load_or_train(str(path), device="cpu", dry_run=True,
+                           verbose=False)
+    assert path.exists()
+    saved = jckpt.load_params(path)
+    for name in tmlp.LAYER_NAMES:
+        for k in ("w", "b"):
+            np.testing.assert_array_equal(saved[name][k],
+                                          params[name][k].numpy())
+    again = load_or_train(str(path), device="cpu")
+    assert torch.equal(again["fc1"]["w"], params["fc1"]["w"])
 
 
 def test_checkpoint_round_trip_across_packages(tmp_path, port_params):

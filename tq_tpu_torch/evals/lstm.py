@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from tq_tpu_torch.data.wikitext import batchify, load_corpus
+from tq_tpu_torch.evals.train_mlp import nll_loss
 from tq_tpu_torch.layers.common import TRParams
 from tq_tpu_torch.models import lstm_lm, transformer_lm
 from tq_tpu_torch.profilers import dense_param_bits, dense_term_macs
@@ -48,11 +49,6 @@ def _chunks(stream: np.ndarray, bptt: int = BPTT):
     for i in range(0, len(stream) - 1, bptt):
         seq = min(bptt, len(stream) - 1 - i)
         yield stream[i:i + seq], stream[i + 1:i + 1 + seq].reshape(-1)
-
-
-def _nll(logp: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood of the targets, a 0-d float32 tensor."""
-    return -logp.gather(1, y.long()[:, None]).mean()
 
 
 def _run_epoch(fwd, qparams, qstate, stream: np.ndarray,
@@ -82,14 +78,14 @@ def _run_epoch(fwd, qparams, qstate, stream: np.ndarray,
             logp, hidden, new_qs = fwd(qparams, qstate, x, hidden)
             if update_state:
                 qstate = new_qs
-            tot = tot + BPTT * _nll(logp, y)
+            tot = tot + BPTT * nll_loss(logp, y)
         total_loss += float(tot)
     for x, y in _chunks(stream[n_chunks * BPTT:]):
         logp, hidden, new_qs = fwd(qparams, qstate,
                                    torch.as_tensor(x, device=device), hidden)
         if update_state:
             qstate = new_qs
-        total_loss += len(x) * float(_nll(logp, torch.as_tensor(
+        total_loss += len(x) * float(nll_loss(logp, torch.as_tensor(
             y, device=device)))
     return total_loss / (len(stream) - 1), qstate
 
@@ -139,7 +135,7 @@ def evaluate_setting_transformer(params, wb, wt, db, dt, gs, stream, vocab,
     total = torch.zeros((), dtype=torch.float32, device=device)
     for x, y in _chunks(stream, bptt):
         logp, _ = ev(qparams, qstate, torch.as_tensor(x, device=device))
-        total = total + len(x) * _nll(logp, torch.as_tensor(y,
+        total = total + len(x) * nll_loss(logp, torch.as_tensor(y,
                                                             device=device))
     ppl = math.exp(float(total) / (len(stream) - 1))
 

@@ -13,7 +13,7 @@ import torch
 
 from tq_tpu_torch.kernels.tr_quantize import tr_quantize
 
-__all__ = ["TRParams", "EXEMPT", "weight_scale", "quantize_weight"]
+__all__ = ["TRParams", "EXEMPT", "weight_scale", "quantize_weight", "dropout"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +61,16 @@ def quantize_weight(w: torch.Tensor, tr: TRParams, axis: int):
     w_q = tr_quantize(w, w_sf, tr.weight_bits, tr.group_size, tr.weight_terms,
                       axis=axis)
     return w_q, w_sf
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Train-mode dropout: each element kept with probability
+    ``1 - rate`` (a mask drawn from ``generator``, which lives on ``x``'s
+    device) and scaled by ``1 / (1 - rate)``; ``rate == 0`` returns ``x``
+    itself and draws nothing."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return x * mask.to(x.dtype) / keep

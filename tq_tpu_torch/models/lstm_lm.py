@@ -1,8 +1,8 @@
 """Word-level LSTM language model: embedding encoder -> n-layer LSTM ->
 tied-weight decoder -> log-softmax.
 
-Port of ``tq_tpu.models.lstm_lm`` (eval-mode forward; training waits for
-the training slice).  Parameters are a dict
+Port of ``tq_tpu.models.lstm_lm`` (eval-mode forward; the train-mode
+forward is ``evals/train_lstm.py``'s).  Parameters are a dict
 ``{'encoder': {'w': (vocab, emsize)}, 'rnn': [layer dicts],
 'decoder': {'b': (vocab,)}}`` of tensors, as in the JAX package; a tied
 decoder has no 'w' leaf and uses ``encoder.w.T``.

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from tq_tpu_torch.layers.common import TRParams
+from tq_tpu_torch.layers.common import TRParams, dropout
 from tq_tpu_torch.layers.linear import (
     finalize_quant_state,
     init_quant_state,
@@ -24,6 +24,7 @@ from tq_tpu_torch.profilers import LayerCost
 
 LAYER_NAMES = ("fc1", "fc2", "fc3")
 DIMS = ((784, 512), (512, 512), (512, 10))
+DROPOUT = 0.2
 
 
 def init(generator: torch.Generator, device=None):
@@ -41,13 +42,17 @@ def init(generator: torch.Generator, device=None):
     return params
 
 
-def apply(params, x: torch.Tensor) -> torch.Tensor:
-    """fp32 forward pass -> log-probabilities."""
+def apply(params, x: torch.Tensor, train: bool = False,
+          generator: torch.Generator | None = None) -> torch.Tensor:
+    """fp32 forward pass -> log-probabilities.  ``train`` applies dropout
+    (:data:`DROPOUT`, masks from ``generator``) after each hidden ReLU."""
     x = x.reshape(x.shape[0], -1)
     for i, name in enumerate(LAYER_NAMES):
         x = torch.matmul(x, params[name]["w"]) + params[name]["b"]
         if i < len(LAYER_NAMES) - 1:
             x = torch.relu(x)
+            if train:
+                x = dropout(x, DROPOUT, generator)
     return torch.log_softmax(x, dim=-1)
 
 

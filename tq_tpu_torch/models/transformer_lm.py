@@ -2,8 +2,8 @@
 encoding -> N post-LN encoder layers (causal self-attention, ReLU
 feed-forward) -> linear decoder -> log-softmax.
 
-Port of ``tq_tpu.models.transformer_lm`` (eval-mode forward; training
-waits for the training slice, tensor-parallel serving for ``parallel/``).
+Port of ``tq_tpu.models.transformer_lm`` (the eval and train-mode
+forwards; tensor-parallel serving waits for ``parallel/``).
 Parameters are a flat dict keyed by the torch module names, as in the JAX
 package (``transformer_encoder.layers.{i}.self_attn.in_proj``, ...), dense
 weights stored (in, out), activations laid out (T, B, d).
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from tq_tpu_torch.kernels.term_matmul import flush_pack_checks
-from tq_tpu_torch.layers.common import TRParams
+from tq_tpu_torch.layers.common import TRParams, dropout as _dropout
 from tq_tpu_torch.layers.linear import (
     finalize_quant_state,
     init_quant_state,
@@ -42,7 +42,7 @@ NHEAD = 2
 NHID = 650
 NLAYERS = 2
 
-__all__ = ["init", "apply", "convert", "decode_init_cache", "decode_step",
+__all__ = ["init", "apply", "apply_train", "convert", "decode_init_cache", "decode_step",
            "make_quantized_apply", "finalize", "pack", "VOCAB", "EMSIZE",
            "NHEAD", "NHID", "NLAYERS"]
 
@@ -118,9 +118,13 @@ def _heads(t: torch.Tensor, nhead: int) -> torch.Tensor:
     return t.reshape(T, B, nhead, d // nhead).permute(1, 2, 0, 3)
 
 
-def _attention(params, pre: str, x: torch.Tensor, nhead: int) -> torch.Tensor:
+def _attention(params, pre: str, x: torch.Tensor, nhead: int,
+               dropout: float = 0.0,
+               generator: torch.Generator | None = None) -> torch.Tensor:
     """Causal multi-head self-attention on (T, B, d); masked scores are
-    -inf, so they weigh exactly 0 after the softmax."""
+    -inf, so they weigh exactly 0 after the softmax.  ``dropout`` (on the
+    attention probabilities, torch ``MultiheadAttention``'s site, masks
+    from ``generator``) is train-mode only."""
     T, B, d = x.shape
     hd = d // nhead
     proj = params[f"{pre}.self_attn.in_proj"]
@@ -129,7 +133,7 @@ def _attention(params, pre: str, x: torch.Tensor, nhead: int) -> torch.Tensor:
     scores = torch.einsum("bhtd,bhsd->bhts", q, k) / math.sqrt(hd)
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
     scores = torch.where(mask, scores, -torch.inf)
-    attn = torch.softmax(scores, dim=-1)
+    attn = _dropout(torch.softmax(scores, dim=-1), dropout, generator)
     out = torch.einsum("bhts,bhsd->bhtd", attn, v)
     return out.permute(2, 0, 1, 3).reshape(T, B, d)
 
@@ -158,26 +162,52 @@ def apply(params, tokens: torch.Tensor, nhead: int = NHEAD, qcfg=None,
     through TR dense layers and the result is (logp, new_qstate).
     ``decoder_fn`` overrides the decoder product.
     """
-    d = params["encoder"]["w"].shape[1]
-    T, B = tokens.shape
     new_state = dict(qstate) if qstate is not None else None
     dense = _dense_fn(params, qcfg, qstate, track, new_state)
-
-    h = params["encoder"]["w"][tokens.long()] * math.sqrt(d)
-    h = h + _positional_encoding(T, d, h.device)[:, None, :]
-    for _, pre in _layer_names(_nlayers(params)):
-        a = dense(f"{pre}.self_attn.out_proj", _attention(params, pre, h,
-                                                          nhead))
-        h = _layer_norm(params[f"{pre}.norm1"], h + a)
-        f = dense(f"{pre}.linear2", torch.relu(dense(f"{pre}.linear1", h)))
-        h = _layer_norm(params[f"{pre}.norm2"], h + f)
-    h2 = h.reshape(T * B, d)
+    h2 = _trunk(params, tokens, nhead, dense)
     logits = decoder_fn(h2) if decoder_fn is not None else dense("decoder",
                                                                  h2)
     logp = torch.log_softmax(logits, dim=-1)
     if qcfg is not None:
         return logp, new_state
     return logp
+
+
+def _trunk(params, tokens: torch.Tensor, nhead: int, dense,
+           dropout: float = 0.0,
+           generator: torch.Generator | None = None) -> torch.Tensor:
+    """Embedding, positional encoding and the encoder layers: (T, B)
+    tokens -> (T*B, d).  ``dropout`` (masks from ``generator``) applies
+    at torch's sites: after the positional encoding, on the attention
+    probabilities, on each sublayer output before its residual add and on
+    the feed-forward hidden; at 0 nothing is drawn or changed."""
+    d = params["encoder"]["w"].shape[1]
+    T, B = tokens.shape
+
+    def drop(x):
+        return _dropout(x, dropout, generator)
+
+    h = params["encoder"]["w"][tokens.long()] * math.sqrt(d)
+    h = drop(h + _positional_encoding(T, d, h.device)[:, None, :])
+    for _, pre in _layer_names(_nlayers(params)):
+        a = dense(f"{pre}.self_attn.out_proj",
+                  _attention(params, pre, h, nhead, dropout, generator))
+        h = _layer_norm(params[f"{pre}.norm1"], h + drop(a))
+        f = dense(f"{pre}.linear2",
+                  drop(torch.relu(dense(f"{pre}.linear1", h))))
+        h = _layer_norm(params[f"{pre}.norm2"], h + drop(f))
+    return h.reshape(T * B, d)
+
+
+def apply_train(params, tokens: torch.Tensor, generator: torch.Generator,
+                nhead: int = NHEAD, dropout: float = 0.2) -> torch.Tensor:
+    """Train-mode forward: (T, B) tokens -> (T*B, vocab) log-probs with
+    dropout at torch's sites (masks from ``generator``, on the tokens'
+    device).  Every product is a plain float32 ``torch.matmul``; at
+    ``dropout=0`` this computes exactly what :func:`apply` does."""
+    dense = _dense_fn(params, None, None, False, None)
+    h2 = _trunk(params, tokens, nhead, dense, dropout, generator)
+    return torch.log_softmax(dense("decoder", h2), dim=-1)
 
 
 def decode_init_cache(L: int, batch: int, emsize: int, nhead: int,

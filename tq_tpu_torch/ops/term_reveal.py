@@ -24,7 +24,8 @@ import torch
 from tq_tpu_torch.ops.hese import hese_digit_planes, num_planes
 
 __all__ = ["as_scale", "uniform_quantize", "term_reveal",
-           "term_reveal_elementwise", "term_reveal_elementwise_int"]
+           "term_reveal_elementwise", "term_reveal_elementwise_int",
+           "term_reveal_st"]
 
 
 def as_scale(sf, device) -> torch.Tensor:
@@ -108,3 +109,37 @@ def term_reveal_elementwise_int(x: torch.Tensor, sf, bits: int,
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
 
     return tr_quantize_int_ref(x, sf, bits, num_keep_terms)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """Forward: ``tr_quantize`` (on CUDA the element-wise kernel at
+    ``group_size == 1``, the grouped kernel above it; on the CPU their
+    plain version).  Backward: the upstream gradient unchanged for ``x``,
+    zero for ``sf``; it launches nothing."""
+
+    @staticmethod
+    def forward(ctx, x, sf, bits, group_size, num_keep_terms, axis):
+        from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+
+        return tr_quantize(x, sf, bits, group_size, num_keep_terms, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # sf's zero only where autograd asks for it: None is autograd's
+        # zero and costs no launch.
+        g_sf = torch.zeros((), device=grad.device) \
+            if ctx.needs_input_grad[1] else None
+        return grad, g_sf, None, None, None, None
+
+
+def term_reveal_st(x: torch.Tensor, sf, bits: int, group_size: int = 1,
+                   num_keep_terms: int = 8, axis: int = 1) -> torch.Tensor:
+    """:func:`term_reveal` with a straight-through gradient (d out / d x
+    is the identity, ``sf`` gets none), for quantization-aware training.
+
+    ``sf``: a float32 0-d tensor on ``x``'s device (the kernel reads it
+    from device memory, so a scale computed on the device costs no host
+    sync); anything else is converted by :func:`as_scale`.
+    """
+    return _StraightThrough.apply(x, as_scale(sf, x.device), bits,
+                                  group_size, num_keep_terms, axis)
