@@ -150,13 +150,36 @@ non-zero without printing a result:
     validation loss below its init's; the trained LSTM and Transformer
     through ``run_sweep`` on the card.  Phases 20-22 are the train path:
     B1 and B2 must launch there, and no plain version of a kernel may run
-    on the card.
+    on the card;
+23. ``empirical``: the empirical term-pair profiler
+    (``profilers/empirical.py``) on the flagship model at 224x224, batch
+    16: conversion and ``empirical_cnn_cost`` on the card, the capture and
+    the counting timed apart, the card's captures counted again on the
+    CPU (every pairs, macs and mean count equal), every layer within its
+    analytic budget, its deviation from the avg-terms factorization
+    printed, and on layer4.1.conv1 the plane-pair map summed equal to the
+    count-map total;
+24. ``config``: a RunConfig JSON of two README MLP settings through
+    ``config.run`` on the card, equal to ``run_sweep`` called directly and
+    to EXPECTED_SWEEPS;
+25. ``trace``: one flagship forward inside ``utils/trace.device_trace``:
+    the Chrome trace's kernel events of each of the port's kernels equal
+    its launch counter; where the device time goes, by kernel class;
+26. ``viz``: ``layer_errors`` (every converted conv, UQ and TR) and
+    ``group_term_counts`` on the card against the CPU; matplotlib never
+    imported.  Phases 23-26 are the leaf path (B1 and B2 must launch, no
+    plain version on the card);
+27. ``oracle``: B1 and B2 on a million elements bit for bit against the
+    native C++ oracle (``utils/native.py``) at five (bits, g, budget)
+    settings, each timed beside its plain version;
+28. ``example``: ``python -m tq_tpu_torch.examples.quantize_resnet18`` at
+    224 in its own process: its cost lines and the serving-mode line.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm|train``
+device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm|train|leaf``
 runs the build and those groups of phases only (phases 2-5, 6-8, 9-11,
-12-14, 15-18, 19-22).
+12-14, 15-18, 19-22, 23-28).
 """
 
 from __future__ import annotations
@@ -3833,6 +3856,410 @@ def phase_lm_train(torch, tmp: Path):
           "steps": steps, "runs": runs, "sweeps": sweeps})
 
 
+# ------------------------------------------------------------ phases 23-28
+
+
+# The oracle phase's settings (tests/test_native_oracle.py's and the
+# Python oracle's): (bits, group_size, budget).  A million elements, 1024
+# to a row; g = 5 leaves a short last group in every row.
+ORACLE_SETTINGS = [(8, 1, 3), (9, 8, 12), (9, 32, 40), (4, 16, 14),
+                   (6, 5, 7)]
+ORACLE_SHAPE = (1024, 1024)
+# Two of the README's MLP settings as a RunConfig (wb, wt, db, dt, gs):
+# the first of each sweep of EXPECTED_SWEEPS.
+CONFIG_SETTINGS = {"mnist-quant": [2, 2, 6, 6, 1], "mnist-tr": [4, 6, 6, 6, 16]}
+
+
+def _counted(torch, fn, *args):
+    """(``fn(*args)``, the launches it made): the counts set to 0 before,
+    read after a synchronize."""
+    _reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, _read_counts()
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _leaf_model(torch, ckpt: Path, device: str):
+    """The flagship's converted ResNet-18 (every scale 0.05) and its
+    images, on ``device``."""
+    from tq_tpu_torch.convert import convert_cnn, static_conv_layer_settings
+    from tq_tpu_torch.evals.cnn import load_params
+    from tq_tpu_torch.models import resnet
+
+    f = FLAGSHIP
+    _, params = load_params("resnet18", str(ckpt), device=device)
+    settings = static_conv_layer_settings(resnet.conv_specs(), *f["tr"])
+    qp, qc, qs = convert_cnn(resnet, params, settings, f["db"], f["dt"])
+    x = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(f["batch"], f["image"], f["image"], 3)).astype(np.float32),
+        device=device)
+    return params, qp, qc, _with_sf(torch, qs, f["sf"]), x
+
+
+def phase_empirical(torch, ckpt: Path):
+    """The empirical term-pair profiler on the flagship model at 224x224,
+    batch 16: conversion and ``empirical_cnn_cost`` on the card (counted);
+    its capture and counting halves timed apart; the card's captures
+    counted again on the CPU (equal); every layer within its analytic
+    budget, and its deviation from the avg-terms factorization; on
+    layer4.1.conv1 (a full-channel conv) the plane-pair map summed equal
+    to the count-map total."""
+    from tq_tpu_torch.layers.quantize import act_quantize
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.profilers import conv2d_term_macs
+    from tq_tpu_torch.profilers.empirical import (captured_cost,
+                                                  capture_activations,
+                                                  conv_term_pair_map,
+                                                  conv_term_pair_total,
+                                                  empirical_cnn_cost)
+
+    f = FLAGSHIP
+    specs = resnet.conv_specs(f["image"])
+
+    def drive():
+        _, qp, qc, qs, x = _leaf_model(torch, ckpt, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = empirical_cnn_cost(resnet, qp, qs, qc, x, specs)
+        torch.cuda.synchronize()
+        return (qp, qc, qs, x), report, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ((qp, qc, qs, x), report, call_s), launches = _counted(torch, drive)
+    path_s = time.perf_counter() - t0
+    if launches["tr_quantize_grouped"] != 19 or \
+            launches["tr_quantize_elementwise"] != 2 * 19:
+        fail(f"empirical: launches {launches}, not B2 19 (conversion) and "
+             "B1 38 (the forward and the counting)")
+
+    # A warm call, then its two halves timed apart; the card's counts on
+    # its captures.
+    t0 = time.perf_counter()
+    empirical_cnn_cost(resnet, qp, qs, qc, x, specs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    captured = capture_activations(resnet, qp, qs, qc, x)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = captured_cost(captured, qp, qs, qc, specs, f["batch"])
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    if card != report:
+        fail("empirical: the counts of a second capture differ from "
+             "empirical_cnn_cost's")
+
+    # The same captures counted on the CPU.
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(cpu(v) for v in tree)
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    t0 = time.perf_counter()
+    host = captured_cost(cpu(captured), cpu(qp), cpu(qs), qc, specs,
+                         f["batch"])
+    cpu_count_s = time.perf_counter() - t0
+    if host != card:
+        bad = [n for n in card if host.get(n) != card[n]]
+        fail(f"empirical: card and CPU counts differ on the same captures "
+             f"at {bad}")
+
+    by_name = {s.name: s for s in specs}
+    deviation, budget_share = {}, {}
+    for name, r in card.items():
+        s = by_name[name]
+        analytic = f["batch"] * conv2d_term_macs(s.out_elems, s.in_ch, s.kh,
+                                                 s.kw, qc[name], s.groups)
+        if not 0 < r["pairs"] <= analytic:
+            fail(f"empirical {name}: {r['pairs']} pairs against the "
+                 f"analytic budget {analytic}")
+        budget_share[name] = r["pairs"] / analytic
+        model = r["avg_dt"] * r["avg_wt_elem"] * r["effective_macs"]
+        deviation[name] = model / r["pairs"] - 1.0
+    if len(card) != 19:
+        fail(f"empirical: {len(card)} layers counted, not 19")
+
+    # The plane-pair identity on a whole layer4 conv.
+    name = "layer4.1.conv1"
+    xin, stride, padding, _ = captured[name]
+    tr, sf = qc[name], qs[name]["sf"]
+    xq = act_quantize(xin, sf, tr.data_bits, tr.data_terms)
+    w_q, w_sf = qp[name]["w"], qp[name]["w_sf"]
+    t0 = time.perf_counter()
+    pair_map = conv_term_pair_map(xq, w_q, sf, w_sf, tr.data_bits,
+                                  tr.weight_bits, stride, padding)
+    map_total = int(pair_map.sum())
+    map_s = time.perf_counter() - t0
+    total = conv_term_pair_total(xq, w_q, sf, w_sf, tr.data_bits,
+                                 tr.weight_bits, stride, padding)
+    if map_total != total or total != card[name]["pairs"]:
+        fail(f"empirical {name}: plane-pair map sums to {map_total}, count "
+             f"maps to {total}, the report {card[name]['pairs']}")
+    emit({"phase": "empirical", "ok": True, "image": f["image"],
+          "batch": f["batch"], "setting": f["tr"] + (f["db"], f["dt"]),
+          "path_seconds": path_s, "first_call_seconds": call_s,
+          "warm_call_seconds": warm_s,
+          "capture_seconds": capture_s, "count_seconds": count_s,
+          "cpu_count_seconds": cpu_count_s,
+          "launches": {k: v for k, v in launches.items() if v},
+          "pairs": sum(r["pairs"] for r in card.values()),
+          "budget": sum(r["pairs"] / budget_share[n]
+                        for n, r in card.items()),
+          "max_abs_deviation": max(abs(d) for d in deviation.values()),
+          "deviation": deviation, "budget_share": budget_share,
+          "layer4_map": {"layer": name, "shape": list(pair_map.shape),
+                         "total": total, "seconds": map_s},
+          "report": card})
+    return launches
+
+
+def phase_config(torch, tmp: Path):
+    """A RunConfig of two README MLP settings through ``config.run`` on
+    the card (counted; B1 calibrates and quantizes the activations, B2
+    reveals the weights): its columns equal ``run_sweep`` called directly
+    and EXPECTED_SWEEPS' (the main path's)."""
+    from tq_tpu_torch.config import load_config, run
+    from tq_tpu_torch.evals.mlp import run_sweep
+
+    cfg_path = tmp / "mlp_config.json"
+    cfg_path.write_text(json.dumps({
+        "workload": "mlp", "settings": list(CONFIG_SETTINGS.values()),
+        "checkpoint": str(CHECKPOINT), "out_file": str(tmp / "cfg.json")}))
+    cfg = load_config(cfg_path)
+    t0 = time.perf_counter()
+    got, launches = _counted(torch, run, cfg, "cuda")
+    seconds = time.perf_counter() - t0
+    # The README sweeps multiply the raw dense inputs (the reference
+    # layer, as the JAX package's run does): no term_matmul.
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped"], "config")
+    cols = list(zip(*CONFIG_SETTINGS.values()))
+    direct = run_sweep(*cols, None, checkpoint=str(CHECKPOINT),
+                       verbose=False, device="cuda")
+    if got != direct:
+        fail(f"config: {got} != run_sweep's {direct}")
+    if json.loads((tmp / "cfg.json").read_text()) != got:
+        fail("config: the out_file differs from the returned columns")
+    for i, sweep in enumerate(CONFIG_SETTINGS):
+        exp = EXPECTED_SWEEPS[sweep]
+        for key in ("accs", "tmacs", "param_bits"):
+            if got[key][i] != float(exp[key][0]):
+                fail(f"config {sweep} {key}: {got[key][i]} != "
+                     f"{exp[key][0]}")
+    emit({"phase": "config", "ok": True, "seconds": seconds,
+          "settings": CONFIG_SETTINGS, "results": got,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+# Kernel-name fragments of the port's kernels in a trace, by counter row.
+TRACE_KERNELS = {"tr_quantize_elementwise": "tr_elementwise_kernel",
+                 "tr_quantize_grouped": "tr_grouped_kernel",
+                 "tr_scale_copy": "tr_scale_copy_kernel",
+                 "term_matmul_kernel_mma": "term_matmul_mma_kernel",
+                 "term_matmul_kernel_mma_lp": "term_matmul_mma_lp_kernel"}
+
+
+def _kind(name: str) -> str:
+    """A coarse class of a device kernel by its name."""
+    low = name.lower()
+    for frag in TRACE_KERNELS.values():
+        if frag in name:
+            return frag
+    for kind, words in (("layout transpose", ("nhwctonchw", "nchwtonhwc")),
+                        ("convolution", ("conv", "implicit_gemm", "winograd",
+                                         "cudnn")),
+                        ("matmul", ("gemm", "splitkreduce")),
+                        ("max_pool", ("pool",)),
+                        ("reduction", ("reduce",)),
+                        ("element-wise", ("elementwise", "vectorized",
+                                          "unrolled"))):
+        if any(w in low for w in words):
+            return kind
+    return "other"
+
+
+def phase_trace(torch, ckpt: Path, tmp: Path):
+    """One flagship forward (224x224, batch 16) inside
+    ``utils/trace.device_trace``: the Chrome trace's kernel events of each
+    of the port's kernels equal its launch counter, and where the card's
+    time goes by kernel class."""
+    from tq_tpu_torch.convert import make_cnn_apply
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.utils.trace import TRACE_FILE, device_trace
+
+    _, qp, qc, qs, x = _leaf_model(torch, ckpt, "cuda")
+    forward = make_cnn_apply(resnet, qc, track=False)
+    forward(qp, qs, x)  # warm: cuDNN's first call chooses its kernels
+    torch.cuda.synchronize()
+
+    def traced():
+        with device_trace(tmp, "flagship_forward") as path:
+            t0 = time.perf_counter()
+            logits, _ = forward(qp, qs, x)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        return path, logits, host_ms
+
+    (path, logits, host_ms), launches = _counted(torch, traced)
+    if not bool(torch.isfinite(logits).all()):
+        fail("trace: the traced forward's logits are not finite")
+    events = json.loads((path / TRACE_FILE).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        fail("trace: no kernel events in the trace (no device activity "
+             "recorded)")
+    for row, frag in TRACE_KERNELS.items():
+        n = sum(frag in e["name"] for e in kernels)
+        if n != launches[row]:
+            fail(f"trace: {n} {frag} events against {launches[row]} "
+                 f"launches counted")
+    if launches["tr_quantize_elementwise"] != 19:
+        fail(f"trace: {launches['tr_quantize_elementwise']} B1 launches, "
+             "not 19")
+    by_kind: dict = {}
+    for e in kernels:
+        k = by_kind.setdefault(_kind(e["name"]), {"us": 0.0, "launches": 0})
+        k["us"] += e["dur"]
+        k["launches"] += 1
+    busy = sum(e["dur"] for e in kernels)
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels))
+    top: dict = {}
+    for e in kernels:
+        t = top.setdefault(e["name"][:120], [0.0, 0])
+        t[0] += e["dur"]
+        t[1] += 1
+    emit({"phase": "trace", "ok": True, "host_ms": host_ms, "kernel_events": len(kernels),
+          "device_busy_us": busy, "device_span_us": span,
+          "idle_share_of_span": 1.0 - busy / span,
+          "idle_share_of_host": 1.0 - busy / (host_ms * 1e3),
+          "by_kind": dict(sorted(by_kind.items(),
+                                 key=lambda kv: -kv[1]["us"])),
+          "top_kernels": sorted(([n, us, c] for n, (us, c) in top.items()),
+                                key=lambda r: -r[1])[:10],
+          "memcpy_events": sum(e.get("cat") == "gpu_memcpy" for e in events),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def phase_oracle(torch):
+    """B1 and B2 on the card bit for bit against the native C++ oracle
+    (``utils/native.tr_reveal_native``, a third reference independent of
+    both packages) on a million elements, grouped along the rows, at
+    ORACLE_SETTINGS; each timed there beside its plain version."""
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_quantize_ref
+    from tq_tpu_torch.utils.native import tr_reveal_native
+
+    x_np = (np.random.default_rng(5).normal(size=ORACLE_SHAPE) * 3).astype(
+        np.float32)
+    x = torch.as_tensor(x_np, device="cuda")
+    sf = torch.tensor(0.04, device="cuda")
+    cells = {"tr_quantize_elementwise": {}, "tr_quantize_grouped": {}}
+    native_s = 0.0
+    for bits, g, k in ORACLE_SETTINGS:
+        t0 = time.perf_counter()
+        want = tr_reveal_native(x_np, 0.04, bits, g, k)
+        native_s += time.perf_counter() - t0
+        got = tr_quantize(x, sf, bits, g, k, axis=-1).cpu().numpy()
+        if not np.array_equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"oracle bits={bits} g={g} k={k}: {bad} of {want.size} "
+                 "values differ from the native oracle")
+        row = "tr_quantize_elementwise" if g == 1 else "tr_quantize_grouped"
+        n = x.numel()
+        cells[row][f"1024x1024_b{bits}_g{g}_k{k}"] = dict(
+            bits=bits, group_size=g, terms=k, **_cell(
+                torch, lambda: tr_quantize(x, sf, bits, g, k, axis=-1),
+                lambda: tr_quantize_ref(x, sf, bits, g, k, axis=-1),
+                8 * n, n))
+    emit({"phase": "oracle", "ok": True, "shape": list(ORACLE_SHAPE),
+          "settings": ORACLE_SETTINGS, "native_seconds": native_s,
+          "results": cells})
+    return cells
+
+
+def phase_viz(torch, ckpt: Path):
+    """The figures' compute functions on the card against the CPU:
+    ``layer_errors`` on every converted ResNet-18 conv (the weights term
+    revealed by B2 and B1 on the card, bit for bit with the CPU's; the
+    float64 norms, summed in another order, within 1e-9: one weight code
+    off would move an error by more than 1e-7) and ``group_term_counts``
+    (exact).  Nothing plots and matplotlib is not imported."""
+    from tq_tpu_torch.evals.cnn import load_params
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.viz.quant_error import layer_errors
+    from tq_tpu_torch.viz.term_dist import group_term_counts
+
+    _, params = load_params("resnet18", str(ckpt), device="cuda")
+    _, params_c = load_params("resnet18", str(ckpt), device="cpu")
+    worst = 0.0
+
+    def errors():
+        return {s: layer_errors(resnet, params, s)
+                for s in ((8, 1, 8), (9, 8, 12))}
+
+    card, launches = _counted(torch, errors)
+    for s, errs in card.items():
+        for (name, e), (_, ec) in zip(errs, layer_errors(resnet, params_c,
+                                                         s)):
+            worst = max(worst, abs(e - ec) / ec)
+            if abs(e - ec) > 1e-9 * ec:
+                fail(f"viz layer_errors {s} {name}: card {e} cpu {ec}")
+    counts = 0
+    for name in ("layer1.0.conv1", "layer3.0.conv1", "layer4.1.conv2"):
+        for g in (1, 8, 16):
+            got = group_term_counts(params[name]["w"], 9, g)
+            if not np.array_equal(got, group_term_counts(
+                    params_c[name]["w"], 9, g)):
+                fail(f"viz group_term_counts {name} g={g}: card != cpu")
+            counts += got.size
+    if "matplotlib" in sys.modules:
+        fail("viz: matplotlib was imported")
+    emit({"phase": "viz", "ok": True, "layers": len(card[(9, 8, 12)]),
+          "max_rel_gap": worst, "group_counts": counts,
+          "errors": {str(s): e for s, e in card.items()},
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def phase_example(torch):
+    """``python -m tq_tpu_torch.examples.quantize_resnet18`` at 224 on the
+    card (its own process): its cost lines equal ``cnn_cost`` and
+    ``param_count``, and it prints the serving-mode agreement line."""
+    from tq_tpu_torch.convert import static_conv_layer_settings
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.profilers import cnn_cost, param_count
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "tq_tpu_torch.examples.quantize_resnet18"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"example exited {res.returncode}: {res.stderr[-2000:]}")
+    specs = resnet.conv_specs()
+    tmacs, avg = cnn_cost(specs, static_conv_layer_settings(specs, 9, 8, 12),
+                          9, 3)
+    n_params = param_count(resnet.init(torch.Generator(), device="meta"))
+    out = res.stdout
+    for line in (f"term-pair MACs/img: {tmacs:,}  avg terms/value: {avg}",
+                 f"params: {n_params:,}", "serving-mode top-1 agrees:"):
+        if line not in out:
+            fail(f"example: no line {line!r} in its output:\n{out}")
+    agrees = "serving-mode top-1 agrees: True" in out
+    emit({"phase": "example", "ok": True, "seconds": seconds,
+          "serving_mode_agrees": agrees, "output": out.splitlines()})
+
+
+
 class _NoPlainOnCard:
     """Inside: the plain version of ``tr_quantize`` or ``term_matmul``
     called on a CUDA tensor fails the run (the path must launch the
@@ -3864,7 +4291,7 @@ class _NoPlainOnCard:
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train")
+GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf")
 
 
 def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
@@ -3969,6 +4396,21 @@ def main(argv=None) -> None:
             # (quantize_input=False): plain products, no term_matmul.
             _require_launched(by_path["train"], [
                 "tr_quantize_elementwise", "tr_quantize_grouped"], "train")
+    if "leaf" in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "resnet_seeded.npz"
+            resnet_checkpoint(ckpt)
+            with _NoPlainOnCard():
+                leaf = phase_empirical(torch, ckpt)
+                leaf = _add_counts(leaf, phase_config(torch, Path(tmp)))
+                leaf = _add_counts(leaf, phase_trace(torch, ckpt,
+                                                     Path(tmp)))
+                leaf = _add_counts(leaf, phase_viz(torch, ckpt))
+            by_path["leaf"] = leaf
+            _require_launched(leaf, ["tr_quantize_elementwise",
+                                     "tr_quantize_grouped"], "leaf")
+        _attach_cells(kernel_results, phase_oracle(torch), "leaf_shapes")
+        phase_example(torch)
 
     lines = []
     for name, meta in KERNELS.items():
@@ -3986,6 +4428,7 @@ def main(argv=None) -> None:
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
                                            "tfm_shapes", "train_shapes",
+                                           "leaf_shapes",
                                            "modes_m_gt_8", "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
                                            "clusters_at_once")

@@ -195,3 +195,61 @@ def test_lstm_train_step_card_against_cpu(cuda):
                                rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(pg["rnn"][0]["w_hh"].cpu(),
                                pc["rnn"][0]["w_hh"], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,g,k", [(8, 1, 3), (9, 8, 12), (9, 32, 40),
+                                      (4, 16, 14), (6, 5, 7)])
+def test_tr_quantize_equals_native_oracle_on_the_card(cuda, bits, g, k):
+    """B1 (g = 1) and B2 along the rows bit for bit against the native C++
+    oracle (``utils/native.py``), with a short last group at g = 5."""
+    import numpy as np
+
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.utils.native import tr_reveal_native
+
+    x = (np.random.default_rng(5).normal(size=(256, 1024)) * 3).astype(
+        np.float32)
+    got = tr_quantize(torch.as_tensor(x, device=cuda),
+                      torch.tensor(0.04, device=cuda), bits, g, k, axis=-1)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  tr_reveal_native(x, 0.04, bits, g, k))
+
+
+@pytest.mark.cuda
+def test_empirical_counts_card_equal_cpu(cuda):
+    """The empirical profiler on a converted ResNet-18 at 64 px, batch 2:
+    the card's captures counted on the card and on the CPU give the same
+    report, and the layer4.1.conv1 pair map sums to its total."""
+    from tq_tpu_torch.convert import convert_cnn, static_conv_layer_settings
+    from tq_tpu_torch.layers.quantize import act_quantize
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.profilers import empirical
+
+    params = resnet.init(torch.Generator().manual_seed(0), device=cuda)
+    specs = resnet.conv_specs(64)
+    qp, qc, qs = convert_cnn(resnet, params,
+                             static_conv_layer_settings(specs, 9, 8, 12), 9,
+                             3, image=64)
+    qs = {k: {"sf": torch.tensor(0.05, device=cuda)} for k in qs}
+    x = torch.randn(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    captured = empirical.capture_activations(resnet, qp, qs, qc, x.to(cuda))
+    card = empirical.captured_cost(captured, qp, qs, qc, specs, 2)
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(cpu(v) for v in tree)
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    assert empirical.captured_cost(cpu(captured), cpu(qp), cpu(qs), qc,
+                                   specs, 2) == card
+    assert len(card) == 19
+    xin, stride, padding, _ = captured["layer4.1.conv1"]
+    sf, tr = qs["layer4.1.conv1"]["sf"], qc["layer4.1.conv1"]
+    xq = act_quantize(xin, sf, tr.data_bits, tr.data_terms)
+    w = qp["layer4.1.conv1"]
+    pair_map = empirical.conv_term_pair_map(xq, w["w"], sf, w["w_sf"], 9, 9,
+                                            stride, padding)
+    assert int(pair_map.sum()) == card["layer4.1.conv1"]["pairs"]

@@ -81,3 +81,38 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         port_mlp.main(["--wb", "2", "--wt", "2", "--db", "6", "--dt", "6",
                        "--gs", "1", "--out-file", "unused.json"])
     assert port_mlp.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_viz_and_the_leaf_modules_import_without_matplotlib():
+    """matplotlib is optional (the card's machine has none): every module
+    of the port and ``chip_smoke`` import with it blocked, the compute
+    functions of ``viz`` run, and a plot function asks for it only when
+    called."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "import torch\n"
+        "from types import SimpleNamespace\n"
+        "from tq_tpu_torch.models import resnet\n"
+        "from tq_tpu_torch.viz import gen_frontier, fpga\n"
+        "from tq_tpu_torch.viz.quant_error import layer_errors\n"
+        "from tq_tpu_torch.viz.term_dist import group_term_counts\n"
+        "assert gen_frontier([2, 1], [1, 2]) == ([1], [2])\n"
+        "w = torch.randn(3, 3, 16, 4, generator=torch.Generator()"
+        ".manual_seed(0))\n"
+        "assert group_term_counts(w, 9, 8).shape == (36 * 2,)\n"
+        "spec = resnet.conv_specs()[1]\n"
+        "m = SimpleNamespace(conv_specs=lambda: [spec, spec])\n"
+        "errs = layer_errors(m, {spec.name: {'w': w}}, (9, 8, 12))\n"
+        "assert len(errs) == 1 and 0 < errs[0][1] < 1\n"
+        "try:\n"
+        "    fpga.plot('unused.pdf')\n"
+        "except ImportError:\n"
+        "    print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -9,6 +9,8 @@ efficiency numbers):
          term_ops = min(dt, db) * (wt' / g) * macs, wt' = min(wt, wb) when
          g == 1 else wt; only for in_ch > 3 and groups == 1.
   dense  macs = out_elems * in_features; same term conversion.
+  lstm   no term MACs of its own (the reference's count is the decoder's);
+         the recurrent cost is :func:`lstm_recurrent_term_macs`.
   param bits
          g == 1: nelement * weight_bits
          g > 1 : (ceil(log2(weight_bits)) + 2) bits per HESE term of
@@ -166,3 +168,20 @@ def param_count(params) -> int:
     if params is None:
         return 0
     return int(np.prod(tuple(params.shape)))
+
+
+def lstm_recurrent_term_macs(seq_len: int, batch: int, input_size: int,
+                             hidden: int, num_layers: int,
+                             tr: TRParams) -> int:
+    """True recurrent-path cost (not counted by the reference, whose LSTM
+    cost is its decoder's alone; an extension, left out of the package's
+    exports as in the JAX package).
+
+    Per step and layer: 4 gates of (in + hidden) @ hidden MACs.
+    """
+    wt, dt = _effective_terms(tr)
+    total = 0
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else hidden
+        total += seq_len * batch * 4 * hidden * (in_sz + hidden)
+    return int(dt * (wt / tr.group_size) * total)
