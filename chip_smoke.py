@@ -3879,8 +3879,10 @@ def _counted(torch, fn, *args):
     return out, _read_counts()
 
 
-def _add_counts(a: dict, b: dict) -> dict:
-    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+def _sum_counts(*counts: dict) -> dict:
+    """Launches per kernel row, summed over phases."""
+    return {k: sum(c.get(k, 0) for c in counts)
+            for k in set().union(*counts)}
 
 
 def _leaf_model(torch, ckpt: Path, device: str):
@@ -4090,7 +4092,9 @@ def phase_trace(torch, ckpt: Path, tmp: Path):
     """One flagship forward (224x224, batch 16) inside
     ``utils/trace.device_trace``: the Chrome trace's kernel events of each
     of the port's kernels equal its launch counter, and where the card's
-    time goes by kernel class."""
+    time goes by kernel class.  The device's idle share is its busy time
+    against the host time of the same forward untraced (the median of
+    five warm calls): the profiler adds host time to every operation."""
     from tq_tpu_torch.convert import make_cnn_apply
     from tq_tpu_torch.models import resnet
     from tq_tpu_torch.utils.trace import TRACE_FILE, device_trace
@@ -4099,16 +4103,23 @@ def phase_trace(torch, ckpt: Path, tmp: Path):
     forward = make_cnn_apply(resnet, qc, track=False)
     forward(qp, qs, x)  # warm: cuDNN's first call chooses its kernels
     torch.cuda.synchronize()
+    untraced = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        forward(qp, qs, x)
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
+    host_ms = float(np.median(untraced))
 
     def traced():
         with device_trace(tmp, "flagship_forward") as path:
             t0 = time.perf_counter()
             logits, _ = forward(qp, qs, x)
             torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3
-        return path, logits, host_ms
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        return path, logits, traced_ms
 
-    (path, logits, host_ms), launches = _counted(torch, traced)
+    (path, logits, traced_ms), launches = _counted(torch, traced)
     if not bool(torch.isfinite(logits).all()):
         fail("trace: the traced forward's logits are not finite")
     events = json.loads((path / TRACE_FILE).read_text())["traceEvents"]
@@ -4137,7 +4148,9 @@ def phase_trace(torch, ckpt: Path, tmp: Path):
         t = top.setdefault(e["name"][:120], [0.0, 0])
         t[0] += e["dur"]
         t[1] += 1
-    emit({"phase": "trace", "ok": True, "host_ms": host_ms, "kernel_events": len(kernels),
+    emit({"phase": "trace", "ok": True, "host_ms": host_ms,
+          "host_ms_calls": untraced, "traced_host_ms": traced_ms,
+          "kernel_events": len(kernels),
           "device_busy_us": busy, "device_span_us": span,
           "idle_share_of_span": 1.0 - busy / span,
           "idle_share_of_host": 1.0 - busy / (host_ms * 1e3),
@@ -4231,33 +4244,39 @@ def phase_viz(torch, ckpt: Path):
 
 
 def phase_example(torch):
-    """``python -m tq_tpu_torch.examples.quantize_resnet18`` at 224 on the
-    card (its own process): its cost lines equal ``cnn_cost`` and
-    ``param_count``, and it prints the serving-mode agreement line."""
+    """``tq_tpu_torch.examples.quantize_resnet18`` at 224 on the card, its
+    ``main`` as ``python -m`` calls it, in this process (counted): its
+    cost lines equal ``cnn_cost`` and ``param_count``, and the serving
+    mode's top-1 agrees with the float32 forward's."""
+    import contextlib
+    import io
+
     from tq_tpu_torch.convert import static_conv_layer_settings
+    from tq_tpu_torch.examples.quantize_resnet18 import main as example
     from tq_tpu_torch.models import resnet
     from tq_tpu_torch.profilers import cnn_cost, param_count
 
+    buf = io.StringIO()
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, "-m", "tq_tpu_torch.examples.quantize_resnet18"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    with contextlib.redirect_stdout(buf):
+        _, launches = _counted(torch, example, [])
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"example exited {res.returncode}: {res.stderr[-2000:]}")
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_elementwise_bf16",
+                                 "tr_quantize_grouped"], "example")
     specs = resnet.conv_specs()
     tmacs, avg = cnn_cost(specs, static_conv_layer_settings(specs, 9, 8, 12),
                           9, 3)
     n_params = param_count(resnet.init(torch.Generator(), device="meta"))
-    out = res.stdout
+    out = buf.getvalue()
     for line in (f"term-pair MACs/img: {tmacs:,}  avg terms/value: {avg}",
-                 f"params: {n_params:,}", "serving-mode top-1 agrees:"):
+                 f"params: {n_params:,}", "serving-mode top-1 agrees: True"):
         if line not in out:
             fail(f"example: no line {line!r} in its output:\n{out}")
-    agrees = "serving-mode top-1 agrees: True" in out
     emit({"phase": "example", "ok": True, "seconds": seconds,
-          "serving_mode_agrees": agrees, "output": out.splitlines()})
-
+          "output": out.splitlines(),
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
 
 
 class _NoPlainOnCard:
@@ -4375,7 +4394,7 @@ def main(argv=None) -> None:
             transformer_checkpoint(ckpt)
             sweep = phase_tfm_sweep(torch, ckpt)
             gen, served = phase_tfm_generation(torch, ckpt, card, smi)
-            by_path["tfm"] = {k: sweep[k] + gen[k] for k in sweep}
+            by_path["tfm"] = _sum_counts(sweep, gen)
             lstm_ckpt = Path(tmp) / "lstm_seeded.npz"
             lstm_checkpoint(lstm_ckpt)
             phase_tfm_export(torch, served, lstm_ckpt,
@@ -4386,12 +4405,14 @@ def main(argv=None) -> None:
             mlp_checkpoint(ckpt)
             _attach_cells(kernel_results, phase_st_kernels(torch, ckpt),
                           "train_shapes")
-            _reset_counts()
-            with _NoPlainOnCard():
-                phase_mlp_train(torch, ckpt)
-                phase_qat(torch, ckpt)
-                phase_lm_train(torch, Path(tmp))
-            by_path["train"] = _read_counts()
+
+            def train():
+                with _NoPlainOnCard():
+                    phase_mlp_train(torch, ckpt)
+                    phase_qat(torch, ckpt)
+                    phase_lm_train(torch, Path(tmp))
+
+            _, by_path["train"] = _counted(torch, train)
             # run_demo's evaluations run the reference layer
             # (quantize_input=False): plain products, no term_matmul.
             _require_launched(by_path["train"], [
@@ -4401,16 +4422,15 @@ def main(argv=None) -> None:
             ckpt = Path(tmp) / "resnet_seeded.npz"
             resnet_checkpoint(ckpt)
             with _NoPlainOnCard():
-                leaf = phase_empirical(torch, ckpt)
-                leaf = _add_counts(leaf, phase_config(torch, Path(tmp)))
-                leaf = _add_counts(leaf, phase_trace(torch, ckpt,
-                                                     Path(tmp)))
-                leaf = _add_counts(leaf, phase_viz(torch, ckpt))
+                leaf = _sum_counts(phase_empirical(torch, ckpt),
+                                   phase_config(torch, Path(tmp)),
+                                   phase_trace(torch, ckpt, Path(tmp)),
+                                   phase_viz(torch, ckpt),
+                                   phase_example(torch))
             by_path["leaf"] = leaf
             _require_launched(leaf, ["tr_quantize_elementwise",
                                      "tr_quantize_grouped"], "leaf")
         _attach_cells(kernel_results, phase_oracle(torch), "leaf_shapes")
-        phase_example(torch)
 
     lines = []
     for name, meta in KERNELS.items():

@@ -328,3 +328,32 @@ def test_grouped_conv_not_counted():
     got = temp.captured_cost(captured, {"dw": {"w": w, "w_sf": 0.1}},
                              {"dw": {"sf": 0.05}}, qcfg, [], 1)
     assert got == {}
+
+
+@pytest.mark.parametrize("tf32", [True, False])
+def test_counting_products_run_without_tf32(rng, monkeypatch, tf32):
+    """The counting convolutions and the dense product run with TF32 off
+    whatever the caller set (the configuration checked on the card), and
+    the caller's setting is restored after."""
+    seen = []
+    real_conv, real_matmul = temp.conv2d, torch.matmul
+
+    def spy(fn):
+        def call(*args, **kw):
+            seen.append((torch.backends.cudnn.allow_tf32,
+                         torch.backends.cuda.matmul.allow_tf32))
+            return fn(*args, **kw)
+        return call
+
+    monkeypatch.setattr(temp, "conv2d", spy(real_conv))
+    monkeypatch.setattr(torch, "matmul", spy(real_matmul))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32)
+    xq, w_q, sf, w_sf = map(torch.as_tensor, _operands(rng))
+    temp.conv_term_pair_map(xq, w_q, sf, w_sf, 9, 9)
+    temp.conv_term_pair_total(xq, w_q, sf, w_sf, 9, 9)
+    temp.dense_term_pair_total(xq.reshape(-1, 16), w_q.reshape(-1, 8)[:16],
+                               sf, w_sf, 9, 9)
+    assert seen == [(False, False)] * 3
+    assert torch.backends.cudnn.allow_tf32 is tf32
+    assert torch.backends.cuda.matmul.allow_tf32 is tf32

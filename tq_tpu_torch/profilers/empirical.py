@@ -27,12 +27,12 @@ term-pair multiplication (one exponent-add in ``mac.v:60``).
   :func:`~tq_tpu_torch.profilers.term_ops.conv2d_term_macs`;
   :func:`captured_cost` is its counting half, on captures made before.
 
-Every count is an exact integer.  The convolutions run in float32 on
-term counts and digit-plane entries (each at most 17), so every product
-is exact, in TF32 too (11 significant bits), and every output position,
-a sum of fewer than 2^24 such products, is an exact float32 integer:
-cuDNN's default TF32 convolution keeps the counts exact.  Each position
-is rounded to the nearest integer before it is converted, so that a
+Every count is an exact integer.  The convolutions and the dense product
+run in float32 on term counts and digit-plane entries (each at most 17),
+with TF32 switched off for the call (cuDNN's convolutions default to it),
+so every product is exact and every output position, a sum of fewer
+than 2^24 such products, is an exact float32 integer.  Each position is
+rounded to the nearest integer before it is converted, so that a
 convolution algorithm that leaves an exact sum a few ulps off (Winograd,
 FFT) still gives the integer.  Grand totals are summed in int64: a total
 can pass 2^24.
@@ -45,6 +45,7 @@ counts matches the measured total within tolerance.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Sequence
 
 import torch
@@ -113,9 +114,25 @@ def _occupancy(q, bits: int, encoding: str) -> torch.Tensor:
     raise ValueError(f"unknown encoding {encoding!r}")
 
 
-def _exact(y: torch.Tensor) -> torch.Tensor:
-    """A float32 result that holds integers, as int64 (see the module's
+@contextmanager
+def _no_tf32():
+    """Full float32 products in the counting convolutions and matmul."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _int_conv(x, w, stride, padding) -> torch.Tensor:
+    """conv2d of integer-valued tensors, as int64 (see the module's
     docstring)."""
+    with _no_tf32():
+        y = conv2d(x.to(torch.float32), w.to(torch.float32), stride, padding)
     return torch.round(y).to(torch.int64)
 
 
@@ -141,32 +158,20 @@ def conv_term_pair_map(xq, w_q, sf, w_sf, data_bits: int, weight_bits: int,
     xp = torch.movedim(cx, -1, 1).reshape(B * Tx, H, W, C)
     # (kh, kw, ic, oc, Tw) -> (kh, kw, ic, oc*Tw)
     wp = cw.reshape(kh, kw, ic, oc * Tw)
-    y = conv2d(xp.to(torch.float32), wp.to(torch.float32), stride, padding)
+    y = _int_conv(xp, wp, stride, padding)
     oh, ow = y.shape[1], y.shape[2]
-    y = _exact(y).reshape(B, Tx, oh, ow, oc, Tw)
+    y = y.reshape(B, Tx, oh, ow, oc, Tw)
     return y.sum(dim=(1, 5)).to(torch.int32)
-
-
-def _counts(v, sf, bits: int) -> torch.Tensor:
-    """HESE term count of every element of grid tensor ``v`` (int32).  The
-    count is a function of the integer alone: up to 16 bits, every
-    integer's count is taken once from ``hese_terms_count`` and looked
-    up."""
-    q = _int_grid(v, sf, bits)
-    if bits > 16:
-        return hese_terms_count(q, bits)
-    every_q = torch.arange(2 ** bits, dtype=torch.int32, device=q.device)
-    return hese_terms_count(every_q, bits).to(torch.int32)[q.long()]
 
 
 def _term_counts(xq, w_q, sf, w_sf, data_bits: int, weight_bits: int):
     """HESE term counts of every activation and weight element."""
-    return _counts(xq, sf, data_bits), _counts(w_q, w_sf, weight_bits)
+    return (hese_terms_count(_int_grid(xq, sf, data_bits), data_bits),
+            hese_terms_count(_int_grid(w_q, w_sf, weight_bits), weight_bits))
 
 
 def _conv_total(cx, cw, stride, padding) -> int:
-    y = conv2d(cx.to(torch.float32), cw.to(torch.float32), stride, padding)
-    return int(_exact(y).sum())
+    return int(_int_conv(cx, cw, stride, padding).sum())
 
 
 def conv_term_pair_total(xq, w_q, sf, w_sf, data_bits: int,
@@ -183,8 +188,9 @@ def dense_term_pair_total(xq, w_q, sf, w_sf, data_bits: int,
     """Exact total term-pair multiplications of a dense layer (``w_q``
     is (in, out))."""
     cx, cw = _term_counts(xq, w_q, sf, w_sf, data_bits, weight_bits)
-    y = torch.matmul(cx.to(torch.float32), cw.to(torch.float32))
-    return int(_exact(y).sum())
+    with _no_tf32():
+        y = torch.matmul(cx.to(torch.float32), cw.to(torch.float32))
+    return int(torch.round(y).to(torch.int64).sum())
 
 
 def captured_cost(captured, qparams, qstate, qcfg, specs,
@@ -212,9 +218,8 @@ def captured_cost(captured, qparams, qstate, qcfg, specs,
         # terms), so the factorization check compares against avg *
         # effective macs, not the analytic full-window count (which, like
         # the reference's hook, charges padded taps).
-        eff_macs = int(_exact(conv2d(
-            torch.ones(cx.shape, device=cx.device),
-            torch.ones(cw.shape, device=cw.device), stride, padding)).sum())
+        eff_macs = _conv_total(torch.ones_like(cx), torch.ones_like(cw),
+                               stride, padding)
         out[name] = {
             "pairs": pairs,
             "macs": macs,
