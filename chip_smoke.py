@@ -39,13 +39,18 @@ non-zero without printing a result:
    checks admit against ``term_matmul_ref`` on the card at ragged shapes,
    at the LSTM serving shapes and at small M on the weight-streaming
    kernel (M in {1, 2, STREAM_MAX_M}, N = 2 mod 16, K off a multiple of
-   8, unaligned weight data; at M > 8 the f32 mode on float32 weights on
-   the ``mma`` kernel, the bf16 and int8 modes on the ``mma_lp`` kernel,
-   the rest on the tiled one, each counted; the int8 mode bit for bit,
-   the rest within rtol=1e-5, atol=1e-4*max|ref|); the M = 1 serving
-   rows timed warm and cold (weight copies past the L2) beside bound,
-   plain version, library call and the tiled kernel; the streaming
-   kernel and those above it timed at M in CROSSOVER_M; the ``mma_lp``
+   8, unaligned weight data; at M > 8 the f32 mode in every weight
+   format on the ``mma`` kernel, the bf16 and int8 modes on the
+   ``mma_lp`` kernel, each counted, the tiled kernel never; the int8
+   mode bit for bit, the rest within rtol=1e-5, atol=1e-4*max|ref|); the
+   M = 1 serving rows timed warm and cold (weight copies past the L2)
+   beside bound, plain version, library call and the tiled kernel; the
+   streaming kernel and those above it timed at M in CROSSOVER_M; the f32
+   mode's eight narrow variants at (64, 650, 33278) and (128, 784, 512)
+   (NARROW_CELLS) on the ``mma`` kernel, bit for bit with it on the same
+   weights widened to float32 (times w_sf), timed beside the tiled
+   kernel, ``torch.matmul`` on the decoded weights and the bound; the
+   ``mma_lp``
    kernel timed beside the tiled one, the bound, the plain version and
    ``torch.matmul`` / ``torch._int_mm`` at (128, 784, 512), (350, 650,
    2600) and ``bench.py``'s (8192, 2048, 512) (MMA_LP_CELLS);
@@ -60,16 +65,25 @@ non-zero without printing a result:
 8. the same serving models on the card and on the CPU: equal calibrated
    scales, equal packs, and teacher-forced log-probs over 16 sampled
    tokens, held as in phase 4; tokens/s of the sampler;
-9. ``cnn_kernels``: ``tr_quantize`` at the ResNet-18 shapes, bit for bit
-   against its plain version: the element-wise body on the four
-   activation shapes at batch 64 (RESNET_ACTIVATIONS) in float32 and
-   bfloat16 (and their int32 variants; the bf16 body also at every q and
-   budget for bits 1..9), the grouped body on every converted conv's HWIO
-   weight (g=8, axis 2; each shape timed, and a sweep setting's sum);
-   ``tr_scale_copy`` (B1's copy ceiling) equal to ``x * sf``; each timed
-   (device, eager, plain version) beside its bound, B5 beside
-   ``torch.mul``;
-10. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
+9. ``lstm_batch_serving``: greedy sampling at batch 64, 100 steps, from
+   the LSTM LM at full width packed as ``bench.py::bench_generate`` packs
+   it (u8s, the recurrent weights too), then in int16 with the
+   unquantized layer bf16-stored: every product at M = 64 on the mma
+   kernel (3 or 5 launches a step, by variant; the tiled kernel never);
+   over 16 sampled steps the card's step on the CPU's inputs and its
+   free-running log-probs on the rows without a boundary flip against the
+   CPU plain path on the same packed model, within atol 1e-4; tokens/s,
+   host ms a step and the device's busy time a step (traced);
+10. ``cnn_kernels``: ``tr_quantize`` at the ResNet-18 shapes, bit for bit
+    against its plain version: the element-wise body on the four
+    activation shapes at batch 64 (RESNET_ACTIVATIONS) in float32 and
+    bfloat16 (and their int32 variants; the bf16 body also at every q and
+    budget for bits 1..9), the grouped body on every converted conv's HWIO
+    weight (g=8, axis 2; each shape timed, and a sweep setting's sum);
+    ``tr_scale_copy`` (B1's copy ceiling) equal to ``x * sf``; each timed
+    (device, eager, plain version) beside its bound, B5 beside
+    ``torch.mul``;
+11. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
     wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
     ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
     int8-packed UQ model (wb=db=7, g=1, wt=7, dt=5); held layer by layer
@@ -78,12 +92,12 @@ non-zero without printing a result:
     logits within LOGIT_RTOL of the CPU's and of the JAX package's
     (``EXPECTED_CNN``), every int8 conv equal to its int64 plain version;
     images/s of each variant and of the unquantized forward at batch 64;
-11. ``cnn_sweep``: ``evals/cnn.py``'s ``run_sweep('resnet18')`` over the
+12. ``cnn_sweep``: ``evals/cnn.py``'s ``run_sweep('resnet18')`` over the
     published grid (15 settings, 512 synthetic images, batch 64): tmacs,
     avg_terms and params equal to ``results/resnet18-results.json``, the
     flagship setting's 19 calibrated scales equal to the JAX package's
     (or near-ties on the card's histogram);
-12. ``zoo_kernels``: ``tr_quantize`` at the rest of the CNN zoo's shapes,
+13. ``zoo_kernels``: ``tr_quantize`` at the rest of the CNN zoo's shapes,
     bit for bit and timed: the element-wise body in float32 and bfloat16
     on VGG's (64, 224, 224, 64) and MobileNet's / EfficientNet's (64, 112,
     112, 96) (swish outputs: signed), at bits 16 with 16 terms on the
@@ -91,7 +105,7 @@ non-zero without printing a result:
     grouped body at g = 2 and 32 (its generic instantiation) on (3, 3,
     512, 512) at every alpha of the group-size grid, and at g = 8 on (1,
     1, 1152, 320);
-13. ``cnn_zoo``: VGG-16-bn, MobileNet-v2, EfficientNet-b0 and AlexNet at
+14. ``cnn_zoo``: VGG-16-bn, MobileNet-v2, EfficientNet-b0 and AlexNet at
     224x224 on ``zoo_params``' seeded weights: the flagship's program
     (batch 8) and its bf16 mode, then ``run_sweep`` over the arch's
     published grid on 64 synthetic images; the logits against the JAX
@@ -100,58 +114,58 @@ non-zero without printing a result:
     counted), the bf16 mode within 0.2 of the float32 one, the sweep's
     tmacs, avg_terms and params equal to ``results/``, its (9, 8, 12, 9,
     3) scales equal to the JAX package's (or near-ties);
-14. ``group_size``: ``evals/group_size.py``'s ``run_grid('resnet18')``
+15. ``group_size``: ``evals/group_size.py``'s ``run_grid('resnet18')``
     over all 25 settings (64 synthetic images): tmacs and avg_terms equal
     to ``results/resnet18-group-size-results.json``, the grouped body
     launched at every g > 1;
-15. ``tfm_kernels``: B1 (g = 1, bits 5 and 9) and B2 (g = 8, axis 0, bits
+16. ``tfm_kernels``: B1 (g = 1, bits 5 and 9) and B2 (g = 8, axis 0, bits
     8, 24 terms, read in place; B5 on as many elements) bit for bit on the
     Transformer's weights (650, 650) and (650, 33278), and the streaming
     ``term_matmul`` at (1, 650, 650) and (1, 650, 33278) in its three
     raw-input variants within rtol 1e-5, atol 1e-4 * max|ref|; each timed
     (device warm and cold, eager, plain, ``torch.matmul``) beside its bound;
-16. ``tfm_sweep``: the Transformer LM at full width (vocab 33278, emsize
+17. ``tfm_sweep``: the Transformer LM at full width (vocab 33278, emsize
     650, nhead 2, nhid 650, two layers, ``transformer_checkpoint``'s
     seeded weights) through ``run_sweep(model="Transformer")`` over the
     lstm-quant settings and one TR setting: tmacs and param_bits equal to
     the JAX package's, ppl within rtol 1e-3 (``EXPECTED_TFM_SWEEPS``);
-17. ``tfm_generation``: the fp32 sampler (the full prefix every token) and
+18. ``tfm_generation``: the fp32 sampler (the full prefix every token) and
     the TR KV-cache sampler in u8s, int16 and int8, 100 tokens each, every
     raw-input streaming variant launched; each serving model card against
     CPU (equal scales and packs, teacher-forced log-probs over 16 tokens
     within atol 1e-4), ``decode_step`` against the full prefix (1e-5 fp32,
     2e-4 packed); tokens/s;
-18. ``tfm_export``: the u8s Transformer ``decode_step`` and the u8s LSTM
+19. ``tfm_export``: the u8s Transformer ``decode_step`` and the u8s LSTM
     step exported with ``torch.export``, saved, reloaded and run beside
     the direct step over 16 steps (log-probs and carry within 1e-6), the
     streaming kernel (and the LSTM's B1) launched inside the loaded
     program;
-19. ``st_kernels``: ``term_reveal_st`` (the straight-through op of QAT)
+20. ``st_kernels``: ``term_reveal_st`` (the straight-through op of QAT)
     on the card at (784, 512) g = 1 bits 1, (784, 512) g = 8 axis 0 bits 4
     and a (64, 784) input at bits 6: the forward bit for bit with the
     plain version (one B1 or B2 launch), the backward the upstream
     gradient itself and zero for sf (no launch); timed forward and
     forward plus backward; ``qat_apply`` with quantized inputs, forward
     and backward, card against CPU (boundary flips counted);
-20. ``mlp_train``: 20 steps of the MLP trainer (Adadelta, dropout 0) from
+21. ``mlp_train``: 20 steps of the MLP trainer (Adadelta, dropout 0) from
     ``mlp_checkpoint``'s seeded weights, card against CPU and against the
     JAX package's (``EXPECTED_TRAIN``) within rtol 1e-4; one full epoch of
     ``train`` on the card, samples/s;
-21. ``qat``: 20 steps of ``train_qat``'s recipe at (wb, gs, wt) = (1, 1,
+22. ``qat``: 20 steps of ``train_qat``'s recipe at (wb, gs, wt) = (1, 1,
     1) and (4, 8, 6): each card step against the CPU's on the same
     parameters, the free-running losses against the CPU's and the JAX
     package's wherever the term-revealed weights agree (a fingerprint of
     their codes; the rest counted as boundary flips); ``run_demo``;
-22. ``lm_train``: 5 chunks of the LSTM (650/650/33278, tied) and the
+23. ``lm_train``: 5 chunks of the LSTM (650/650/33278, tied) and the
     Transformer (650/2/650/2/33278) trainers at batch 20, bptt 35, dropout
     0 from the seeded checkpoints, card against CPU and ``EXPECTED_TRAIN``
     within rtol 1e-4, tokens/s; one epoch of ``train`` at dropout 0.2 for
     all five families (GRU and the vanilla RNNs at width 200, lr 5), each
     validation loss below its init's; the trained LSTM and Transformer
-    through ``run_sweep`` on the card.  Phases 20-22 are the train path:
+    through ``run_sweep`` on the card.  Phases 21-23 are the train path:
     B1 and B2 must launch there, and no plain version of a kernel may run
     on the card;
-23. ``empirical``: the empirical term-pair profiler
+24. ``empirical``: the empirical term-pair profiler
     (``profilers/empirical.py``) on the flagship model at 224x224, batch
     16: conversion and ``empirical_cnn_cost`` on the card, the capture and
     the counting timed apart, the card's captures counted again on the
@@ -159,27 +173,27 @@ non-zero without printing a result:
     analytic budget, its deviation from the avg-terms factorization
     printed, and on layer4.1.conv1 the plane-pair map summed equal to the
     count-map total;
-24. ``config``: a RunConfig JSON of two README MLP settings through
+25. ``config``: a RunConfig JSON of two README MLP settings through
     ``config.run`` on the card, equal to ``run_sweep`` called directly and
     to EXPECTED_SWEEPS;
-25. ``trace``: one flagship forward inside ``utils/trace.device_trace``:
+26. ``trace``: one flagship forward inside ``utils/trace.device_trace``:
     the Chrome trace's kernel events of each of the port's kernels equal
     its launch counter; where the device time goes, by kernel class;
-26. ``viz``: ``layer_errors`` (every converted conv, UQ and TR) and
+27. ``viz``: ``layer_errors`` (every converted conv, UQ and TR) and
     ``group_term_counts`` on the card against the CPU; matplotlib never
-    imported.  Phases 23-26 are the leaf path (B1 and B2 must launch, no
+    imported.  Phases 24-27 are the leaf path (B1 and B2 must launch, no
     plain version on the card);
-27. ``oracle``: B1 and B2 on a million elements bit for bit against the
+28. ``oracle``: B1 and B2 on a million elements bit for bit against the
     native C++ oracle (``utils/native.py``) at five (bits, g, budget)
     settings, each timed beside its plain version;
-28. ``example``: ``python -m tq_tpu_torch.examples.quantize_resnet18`` at
+29. ``example``: ``python -m tq_tpu_torch.examples.quantize_resnet18`` at
     224 in its own process: its cost lines and the serving-mode line.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm|train|leaf``
-runs the build and those groups of phases only (phases 2-5, 6-8, 9-11,
-12-14, 15-18, 19-22, 23-28).
+runs the build and those groups of phases only (phases 2-5, 6-9, 10-12,
+13-15, 16-19, 20-23, 24-29).
 """
 
 from __future__ import annotations
@@ -574,8 +588,10 @@ KERNELS = {
     "tr_scale_copy": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:246", on_main_path=False),
-    # term_matmul's f32 mode on float32 weights at M > STREAM_MAX_M (the
-    # MLP eval), on the tensor cores.
+    # term_matmul's f32 mode at M > STREAM_MAX_M, on the tensor cores: on
+    # float32 weights (the MLP eval) and, since it took them from the
+    # tiled kernel, on int8, int16, bf16-stored and 9-bit packed weights
+    # (the batch-64 LSTM serving step, phase lstm_batch_serving).
     "term_matmul_kernel_mma": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
@@ -585,10 +601,10 @@ KERNELS = {
     "term_matmul_kernel_mma_lp": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma_lp.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
-    # The f32 mode on the other weight formats at M > STREAM_MAX_M; no
-    # path runs one.  Held in phase term_matmul_modes, timed in phase
-    # kernels beside the mma kernel on the f32 mode and in phase
-    # term_matmul_modes beside the mma_lp kernel.
+    # On no route; timing reference only (launch(kernel="tiled")): held
+    # and timed in phase kernels beside the mma kernel on float32 weights
+    # and in phase term_matmul_modes beside the mma kernel on the narrow
+    # formats and the mma_lp kernel.
     "term_matmul_kernel_tiled": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
@@ -1490,7 +1506,8 @@ def _tm_weights(torch, fmt: str, K: int, N: int, gen, dev):
             w = w.to(torch.bfloat16)
         return w, None, w.to(torch.float32)
     if fmt in ("int8", "int16"):
-        hi = 127 if fmt == "int8" else 1000  # int16 past bf16's 8 bits
+        # int16 past bf16's 8 significant bits and TF32's 11
+        hi = 127 if fmt == "int8" else 20000
         q = torch.randint(-hi, hi + 1, (K, N), generator=gen, device=dev)
         return q.to(getattr(torch, fmt)), w_sf, q.to(torch.float32)
     # The 9-bit pack over the full magnitude range 0..255 and both signs.
@@ -1588,6 +1605,94 @@ def _serving_row_times(torch, variant: str, weight, x,
     return out
 
 
+# The f32 mode's narrow weight formats at M > STREAM_MAX_M, on the mma
+# kernel since it took them from the tiled kernel: the batch-64 serving
+# step's decoder (phase lstm_batch_serving) and the MLP's first layer.
+NARROW_CELLS = [(64, 650, VOCAB), (128, 784, 512)]
+NARROW_VARIANTS = ("f32_bf16", "f32_int8", "f32_int16", "f32_packed8",
+                   "f32_raw_bf16", "f32_raw_int8", "f32_raw_int16",
+                   "f32_raw_packed8")
+
+
+def _narrow_f32_cells(torch, weights: dict, gen, smi: str) -> dict:
+    """Each narrow f32 variant at NARROW_CELLS on the mma kernel (the
+    route): against the plain version and the tiled kernel, and where
+    its plan is float32 weights' (the same tile and K split) bit for bit
+    against the mma kernel on the same weights widened to float32, its
+    output times w_sf; timed beside the tiled kernel, ``torch.matmul`` on
+    the decoded float32 weights (TF32 off) and the bound (bytes as
+    stored; two TF32 products a multiply-add, three for int16)."""
+    from tq_tpu_torch.kernels import term_matmul as tm_mod
+    from tq_tpu_torch.kernels.term_matmul import (VARIANTS, launch,
+                                                  term_matmul,
+                                                  term_matmul_ref)
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize_ref
+
+    dev = torch.device("cuda")
+    sms = tm_mod._sm_count(dev.index or 0)
+    cells = {}
+    for M, K, N in NARROW_CELLS:
+        x = torch.randn(M, K, generator=gen, device=dev)
+        sf = torch.tensor(0.03, device=dev)
+        for variant in NARROW_VARIANTS:
+            _, fmt, quantize_x = VARIANTS[variant]
+            key = (fmt, K, N)
+            if key not in weights:
+                weights[key] = _tm_weights(torch, fmt, K, N, gen, dev)
+            w, w_sf, wv = weights[key]
+            scale = w.w_sf if fmt == "packed8" else w_sf  # None for bf16
+            kw = dict(w_sf=w_sf, quantize_x=quantize_x)
+            before = term_matmul.kernel_launches["mma"]
+            out = term_matmul(x, w, sf, 8, 3, **kw)
+            torch.cuda.synchronize()
+            if term_matmul.kernel_launches["mma"] != before + 1:
+                fail(f"term_matmul {variant} {(M, K, N)} did not take the "
+                     "mma kernel")
+            ref = term_matmul_ref(x, w, sf, 8, 3, **kw)
+            tiled_out = launch(x, w, sf, 8, 3, kernel="tiled", **kw)
+            torch.cuda.synchronize()
+            tol = 1e-4 * float(ref.abs().max())
+            for name, got in (("mma", out), ("tiled", tiled_out)):
+                if not torch.allclose(got, ref, rtol=1e-5, atol=tol):
+                    fail(f"term_matmul {name} {variant} {(M, K, N)}: max "
+                         f"|diff| {float((got - ref).abs().max())}")
+            plans = [tm_mod.plan(M, N, K, f, "f32", sms, "mma",
+                                 tm_mod._mma_clusters(dev.index or 0,
+                                                      "mma", "f32", f))
+                     for f in (fmt, "f32")]
+            same_plan = plans[0] == plans[1]
+            if same_plan:
+                wide = launch(x, wv, sf, 8, 3, quantize_x=quantize_x,
+                              kernel="mma")
+                if scale is not None:
+                    wide = wide * scale
+                torch.cuda.synchronize()
+                if not torch.equal(out, wide):
+                    fail(f"term_matmul mma {variant} {(M, K, N)}: not bit "
+                         "for bit with float32 weights times w_sf (max "
+                         f"|diff| {float((out - wide).abs().max())})")
+            xa = tr_quantize_ref(x, sf, 8, 1, 3) if quantize_x else x
+            wa = wv * scale if scale is not None else wv
+            products = 3 if fmt == "int16" else 2
+            b, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N) + 4 * M * N,
+                             products * 2 * M * K * N, TF32_FLOP_PER_S)
+            t = timings(torch, lambda: launch(x, w, sf, 8, 3, **kw),
+                        lambda: term_matmul_ref(x, w, sf, 8, 3, **kw),
+                        lambda: torch.matmul(xa, wa))
+            cells[f"{variant} {M}x{K}x{N}"] = dict(
+                max_abs_err=float((out - ref).abs().max()),
+                tiled_max_abs_err=float((tiled_out - ref).abs().max()),
+                bit_equal_float32_weights=same_plan or None,
+                splits=plans[0].splits, k_per_split=plans[0].k_per_split,
+                products=products, **t,
+                tiled_ms=device_ms(torch, lambda: launch(
+                    x, w, sf, 8, 3, kernel="tiled", **kw)),
+                bound_ms=b, bound_by=by, card=smi)
+            del out, ref, tiled_out, xa, wa
+        torch.cuda.empty_cache()
+    return cells
+
+
 # The mma_lp kernel's timed cells: (M, K, N, variants); the kernels line
 # heads its row with MMA_LP_HEAD.
 MMA_LP_CELLS = [
@@ -1618,7 +1723,7 @@ def phase_term_matmul_modes(torch, smi: str):
     weights = {}
     cases, max_err = 0, {}
     kernel_before = dict(term_matmul.kernel_launches)
-    want_stream = want_mma = want_mma_lp = want_tiled = 0
+    want_stream = want_mma = want_mma_lp = 0
     mma_lp_err = 0.0
     for variant, (mode, fmt, quantize_x) in VARIANTS.items():
         bits, terms = (7, 3) if mode == "int8" else (8, 3)
@@ -1649,9 +1754,8 @@ def phase_term_matmul_modes(torch, smi: str):
             max_err[variant] = max(max_err.get(variant, 0.0), err)
             cases += 1
             want_stream += M <= T
-            want_mma += M > T and (mode, fmt) == ("f32", "f32")
+            want_mma += M > T and mode == "f32"
             want_mma_lp += M > T and mode != "f32"
-            want_tiled += M > T and mode == "f32" and fmt != "f32"
             if M > T and mode != "f32":
                 mma_lp_err = max(mma_lp_err, err)
     # The mma_lp kernel's other reveal paths: the kept value computed
@@ -1686,13 +1790,13 @@ def phase_term_matmul_modes(torch, smi: str):
              f"streaming kernel for {want_stream} cases with M <= {T}")
     if by_kernel["mma"] != want_mma:
         fail(f"term_matmul: {by_kernel['mma']} launches of the mma kernel "
-             f"for {want_mma} f32 cases on float32 weights with M > {T}")
+             f"for {want_mma} f32 cases with M > {T}")
     if by_kernel["mma_lp"] != want_mma_lp:
         fail(f"term_matmul: {by_kernel['mma_lp']} launches of the mma_lp "
              f"kernel for {want_mma_lp} bf16 and int8 cases with M > {T}")
-    if by_kernel["tiled"] != want_tiled:
+    if by_kernel["tiled"]:  # on no route
         fail(f"term_matmul: {by_kernel['tiled']} launches of the tiled "
-             f"kernel for {want_tiled} f32 cases on other weights, M > {T}")
+             "kernel from the route")
 
     def call(w, x, sf, bits, terms, kw, kernel=None):
         return lambda: launch(x, w, sf, bits, terms, kernel=kernel, **kw)
@@ -1721,7 +1825,8 @@ def phase_term_matmul_modes(torch, smi: str):
     # The crossover: the streaming kernel and the kernels above it (warm)
     # at M in CROSSOVER_M on the decoder and recurrent widths, for the six
     # decoder variants; "faster up to" compares it with the one the route
-    # takes above STREAM_MAX_M (mma_lp in the bf16 and int8 modes).
+    # takes above STREAM_MAX_M (mma in the f32 mode, mma_lp in the bf16 and
+    # int8 modes).
     crossover, faster_up_to = {}, {}
     for N in (VOCAB, 2600):
         K = 650
@@ -1733,7 +1838,7 @@ def phase_term_matmul_modes(torch, smi: str):
             kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
                       quantize_x=quantize_x)
             sf = torch.tensor(0.03, device=dev)
-            above = "tiled" if mode == "f32" else "mma_lp"
+            above = "mma" if mode == "f32" else "mma_lp"
             table = {}
             for M in CROSSOVER_M:
                 x = torch.randn(M, K, generator=gen, device=dev)
@@ -1748,6 +1853,7 @@ def phase_term_matmul_modes(torch, smi: str):
                 faster = M
             up_to = min(up_to, faster)
         faster_up_to[f"{K}x{N}"] = up_to
+    narrow = _narrow_f32_cells(torch, weights, gen, smi)
     # The bf16 and int8 modes at M > STREAM_MAX_M, which no path runs, on
     # the mma_lp kernel (the route), beside the tiled kernel it replaced,
     # the bound, the plain version and the library call on the
@@ -1817,7 +1923,7 @@ def phase_term_matmul_modes(torch, smi: str):
           "launches_by_kernel": by_kernel, "max_abs_err": max_err,
           "results": results, "crossover_ms": crossover,
           "stream_faster_up_to_m": faster_up_to,
-          "mma_lp_ms": mma_lp, "card": smi})
+          "narrow_f32_ms": narrow, "mma_lp_ms": mma_lp, "card": smi})
     head = mma_lp[MMA_LP_HEAD]
     big = {v: mma_lp[f"{v} 8192x2048x512"]["ms"] for v in ("bf16",
                                                             "bf16_raw")}
@@ -1827,6 +1933,7 @@ def phase_term_matmul_modes(torch, smi: str):
         reveal_share=(big["bf16"] - big["bf16_raw"]) / big["bf16"],
         **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by", "tiled_ms")})
+    results["narrow_f32"] = narrow  # main attaches it to the mma row
     return results
 
 
@@ -2097,6 +2204,195 @@ def phase_serving_compare(torch, ckpt: Path, tokens: dict, card: str,
 # ---------------------------------------------------------------- phase 9
 
 
+# The batch serving sampler (bench.py::bench_generate's run_b at BATCH =
+# 64; examples/lm_serving.py serves at batch >= 8) on the model
+# bench.py serves, converted at (8, 8, 24, 8, 8) with the decoder on raw
+# input: (name, pack, the dtype of the layers conversion leaves float32,
+# {variant: launches a step}).  Layer 0's input and recurrent products and
+# the decoder take the narrow format; layer 1 stays float32
+# (torch.matmul), or is bf16-stored and streams through the kernel too.
+BATCH = 64
+BATCH_SERVING = [
+    ("u8s", "u8s", None, {"f32_raw_packed8": 3}),
+    ("int16-bf16", "int", "bfloat16", {"f32_raw_int16": 3,
+                                       "f32_raw_bf16": 2}),
+]
+BATCH_TRACE_STEPS = 10
+
+
+def _row_flips(torch, qp, qs, tr, tok, hidden_a, hidden_b):
+    """Per batch row: whether the shared activation quantizer's codes of
+    the step's inputs (the embedding, h and c of both layers) differ
+    between two hidden states on two devices."""
+    from tq_tpu_torch.layers.quantize import act_quantize
+
+    emb = qp["encoder"]["w"][tok.long()]
+    flips = torch.zeros(tok.shape[1], dtype=torch.bool)
+    for a, b in zip((emb, *hidden_a), (emb, *hidden_b)):
+        qa = act_quantize(a, qs["rnn"]["sf"], tr.data_bits, tr.data_terms)
+        qb = act_quantize(b.to(a.device), qs["rnn"]["sf"], tr.data_bits,
+                          tr.data_terms)
+        flips |= (qa != qb).any(dim=-1).any(dim=0).cpu()
+    return flips
+
+
+def phase_lstm_batch_serving(torch, ckpt: Path, tmp: Path, smi: str):
+    """Greedy sampling at batch 64 for GEN_WORDS steps from the LSTM LM at
+    full width, packed as bench.py::bench_generate packs it (u8s, the
+    recurrent weights packed too), written here from the port's
+    ``lstm_lm.make_quantized_apply``; then with int16 weights and the
+    unquantized layer bf16-stored.  Every product runs at M = 64, above
+    STREAM_MAX_M: the f32 mode's narrow variants on the mma kernel, the
+    tiled kernel never.  Held: the launches per variant and per kernel;
+    over TEACHER_TOKENS sampled steps, the card's step on the CPU's inputs
+    against the CPU plain path on the same packed model (log-probs and
+    hidden state within 1e-4), and the card's free-running log-probs
+    against the CPU's on every row whose quantized inputs never differed
+    (boundary flips counted).  Reported: tokens/s, host ms a step, and
+    from a traced run the device's busy time a step by kernel class."""
+    from tq_tpu_torch.evals.generate import calibrate
+    from tq_tpu_torch.kernels.term_matmul import term_matmul
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.utils.params import params_from_jax
+    from tq_tpu_torch.utils.trace import TRACE_FILE, device_trace
+
+    params_np, stream = _lstm_inputs(ckpt)
+    params = params_from_jax(params_np, "cuda")
+    qp, qc, qs0 = lstm_lm.convert(params, 8, 8, 24, 8, 8)
+    qs = calibrate(qp, qc, qs0, stream)
+    qs_c = params_from_jax(qs, "cpu")
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    H = qp["rnn"][0]["w_hh"].shape[0]
+    start = torch.as_tensor(np.random.default_rng(GEN_SEED).integers(
+        0, VOCAB, (1, BATCH)), device="cuda")
+    results, counts = {}, []
+    for name, pack, half, per_step in BATCH_SERVING:
+        qpk = lstm_lm.pack(qp, qc, fmt=pack, rnn=True,
+                           rnn_unquantized_dtype=getattr(torch, half)
+                           if half else None)
+
+        def sample(steps, qpk=qpk, keep=0):
+            """(the tokens fed at each step, (steps + 1, BATCH); the first
+            ``keep`` steps' log-probs and hidden inputs)."""
+            tok = start
+            hidden = lstm_lm.init_hidden(BATCH, nhid=H, device="cuda")
+            toks, kept = [tok], []
+            for i in range(steps):
+                logp, new_hidden, _ = fwd(qpk, qs, tok, hidden)
+                if i < keep:
+                    kept.append((logp, hidden))
+                hidden = new_hidden
+                tok = logp.argmax(-1).reshape(1, BATCH)
+                toks.append(tok)
+            return torch.cat(toks), kept
+
+        with _NoPlainOnCard():
+            sample(5)  # warm up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (toks, kept), launches = _counted(
+                torch, lambda: sample(GEN_WORDS, keep=TEACHER_TOKENS))
+            seconds = time.perf_counter() - t0
+            variants = {k: n for k, n in term_matmul.launches.items() if n}
+            counts.append(launches)
+        if not (0 <= int(toks.min()) and int(toks.max()) < VOCAB):
+            fail(f"batch serving {name}: tokens out of range")
+        if not all(bool(torch.isfinite(lp).all()) for lp, _ in kept):
+            fail(f"batch serving {name}: log-probs not finite")
+        want = {v: n * GEN_WORDS for v, n in per_step.items()}
+        if variants != want:
+            fail(f"batch serving {name}: term_matmul launches by variant "
+                 f"{variants}, not {want}")
+        mma = launches["term_matmul_kernel_mma"]
+        if mma != sum(want.values()) or launches[
+                "term_matmul_kernel_tiled"] or launches[
+                "term_matmul_kernel_stream"] or launches[
+                "term_matmul_kernel_mma_lp"]:
+            fail(f"batch serving {name}: {mma} mma launches (not "
+                 f"{sum(want.values())}), tiled "
+                 f"{launches['term_matmul_kernel_tiled']}, stream "
+                 f"{launches['term_matmul_kernel_stream']}, mma_lp "
+                 f"{launches['term_matmul_kernel_mma_lp']}")
+        _require_launched(launches, ["tr_quantize_elementwise"],
+                          f"batch serving {name}")
+
+        # The CPU plain path on the same packed model: the card's step on
+        # the CPU's inputs, and the card's free-running steps on the rows
+        # whose quantized inputs never differed.
+        qpk_c = params_from_jax(qpk, "cpu")
+        hidden_c = lstm_lm.init_hidden(BATCH, nhid=H, device="cpu")
+        flipped = torch.zeros(BATCH, dtype=torch.bool)
+        step_err = hidden_err = free_err = 0.0
+        for i, (logp_g, hidden_g) in enumerate(kept):
+            tok = toks[i:i + 1]
+            flipped |= _row_flips(torch, qpk_c, qs_c, qc["rnn"], tok.cpu(),
+                                  hidden_c, hidden_g)
+            logp_c, next_c, _ = fwd(qpk_c, qs_c, tok.cpu(), hidden_c)
+            logp_s, next_s, _ = fwd(qpk, qs, tok,
+                                    tuple(h.cuda() for h in hidden_c))
+            step_err = max(step_err, float((logp_s.cpu() - logp_c).abs()
+                                           .max()))
+            hidden_err = max([hidden_err] + [
+                float((a.cpu() - b).abs().max())
+                for a, b in zip(next_s, next_c)])
+            keep_rows = ~flipped
+            if bool(keep_rows.any()):
+                free_err = max(free_err, float(
+                    (logp_g.cpu()[keep_rows] - logp_c[keep_rows]).abs()
+                    .max()))
+            hidden_c = next_c
+        for what, err in (("log-probs on the CPU's inputs", step_err),
+                          ("hidden state on the CPU's inputs", hidden_err),
+                          ("free-running log-probs", free_err)):
+            if err > 1e-4:
+                fail(f"batch serving {name}: {what} differ by {err} card "
+                     "vs cpu")
+
+        # Host time a step (untraced, above) against the device's busy
+        # time a step from a traced run.
+        def traced(qpk=qpk):
+            with device_trace(tmp, f"batch_serving_{name}") as path:
+                sample(BATCH_TRACE_STEPS)
+                torch.cuda.synchronize()
+            return path
+
+        path = traced()
+        events = json.loads((path / TRACE_FILE).read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        if not kernels:
+            fail(f"batch serving {name}: no kernel events in the trace")
+        by_kind: dict = {}
+        for e in kernels:
+            k = by_kind.setdefault(_kind(e["name"]), {"us": 0.0,
+                                                      "launches": 0})
+            k["us"] += e["dur"] / BATCH_TRACE_STEPS
+            k["launches"] += 1
+        busy_ms = sum(e["dur"] for e in kernels) / BATCH_TRACE_STEPS / 1e3
+        host_ms = seconds / GEN_WORDS * 1e3
+        results[name] = dict(
+            pack=pack, unquantized_dtype=half, steps=GEN_WORDS, batch=BATCH,
+            seconds=seconds, tokens_per_s=BATCH * GEN_WORDS / seconds,
+            steps_per_s=GEN_WORDS / seconds, host_ms_per_step=host_ms,
+            device_busy_ms_per_step=busy_ms,
+            device_idle_share=1.0 - busy_ms / host_ms,
+            busy_us_per_step_by_kind=dict(sorted(
+                by_kind.items(), key=lambda kv: -kv[1]["us"])),
+            launches_by_variant=variants,
+            launches={k: v for k, v in launches.items() if v},
+            teacher_steps=len(kept), logp_max_abs_err=step_err,
+            hidden_max_abs_err=hidden_err,
+            free_running_logp_max_abs_err=free_err,
+            rows_with_boundary_flip=int(flipped.sum()),
+            first_tokens=toks[1:9, 0].tolist())
+    emit({"phase": "lstm_batch_serving", "ok": True, "nvidia_smi": smi,
+          "sf": {k: float(qs[k]["sf"]) for k in ("rnn", "decoder")},
+          "results": results})
+    return _sum_counts(*counts)
+
+
+# --------------------------------------------------------------- phase 10
+
+
 def _exact(torch, name, got, want):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
@@ -2246,7 +2542,7 @@ def phase_cnn_kernels(torch):
     return rows
 
 
-# --------------------------------------------------------------- phase 10
+# --------------------------------------------------------------- phase 11
 
 
 def _record_convs(torch, model, qp, qc, qs, x):
@@ -2471,7 +2767,7 @@ def phase_flagship(torch, ckpt: Path):
     return launches
 
 
-# --------------------------------------------------------------- phase 11
+# --------------------------------------------------------------- phase 12
 
 
 def _mse_at(torch, hist, sf: float, bits: int, terms: int) -> float:
@@ -2557,7 +2853,7 @@ def phase_cnn_sweep(torch, ckpt: Path):
     return launches
 
 
-# --------------------------------------------------------------- phase 12
+# --------------------------------------------------------------- phase 13
 
 
 # The zoo's largest activations at batch 64 (NHWC): VGG's first block, and
@@ -2685,7 +2981,7 @@ def phase_zoo_kernels(torch):
     return rows
 
 
-# --------------------------------------------------------------- phase 13
+# --------------------------------------------------------------- phase 14
 
 
 # The zoo's logits against the JAX package's (EXPECTED_ZOO), relative to
@@ -2965,7 +3261,7 @@ def phase_cnn_zoo(torch, tmp: Path):
     return total
 
 
-# --------------------------------------------------------------- phase 14
+# --------------------------------------------------------------- phase 15
 
 
 def phase_group_size(torch, ckpt: Path, tmp: Path):
@@ -3018,7 +3314,7 @@ def phase_group_size(torch, ckpt: Path, tmp: Path):
     return total
 
 
-# --------------------------------------------------------------- phase 15
+# --------------------------------------------------------------- phase 16
 
 
 # The Transformer's converted weights, stored (in, out): out_proj, linear1
@@ -3204,7 +3500,7 @@ def phase_tfm_generation(torch, ckpt: Path, card: str, smi: str):
     log-probs over 16 sampled tokens within atol 1e-4), ``decode_step``
     against the full-prefix forward on the card at every one of the 16
     positions (1e-5 fp32, 2e-4 packed), and tokens/s of each sampler.
-    Returns (launches, the u8s model and its tokens for phase 17)."""
+    Returns (launches, the u8s model and its tokens for phase 18)."""
     from tq_tpu_torch.evals.generate import (calibrate_transformer,
                                              generate_transformer,
                                              generate_transformer_tr,
@@ -3856,7 +4152,7 @@ def phase_lm_train(torch, tmp: Path):
           "steps": steps, "runs": runs, "sweeps": sweeps})
 
 
-# ------------------------------------------------------------ phases 23-28
+# ----------------------------------------------------------- phases 24-29
 
 
 # The oracle phase's settings (tests/test_native_oracle.py's and the
@@ -4358,7 +4654,10 @@ def main(argv=None) -> None:
     kernel_results, by_path = {}, {}
     if "mlp" in groups:
         kernel_results.update(phase_kernels(torch))
-        kernel_results.update(phase_term_matmul_modes(torch, smi))
+        modes = phase_term_matmul_modes(torch, smi)
+        kernel_results["term_matmul_kernel_mma"]["narrow_f32"] = modes.pop(
+            "narrow_f32")
+        kernel_results.update(modes)
         by_path["mnist_mlp"] = phase_main_path(torch)
         phase_fixed_linear(torch)
     if "lstm" in groups:
@@ -4369,6 +4668,8 @@ def main(argv=None) -> None:
             by_path["lstm_generation"], tokens = phase_generation(torch,
                                                                   ckpt)
             phase_serving_compare(torch, ckpt, tokens, card, smi)
+            by_path["lstm_batch_serving"] = phase_lstm_batch_serving(
+                torch, ckpt, Path(tmp), smi)
     if "cnn" in groups:
         cnn = phase_cnn_kernels(torch)
         for name in ("tr_quantize_elementwise", "tr_quantize_grouped"):
@@ -4449,7 +4750,8 @@ def main(argv=None) -> None:
                                            "resnet_shape", "zoo_shapes",
                                            "tfm_shapes", "train_shapes",
                                            "leaf_shapes",
-                                           "modes_m_gt_8", "bound_fp32_ms",
+                                           "modes_m_gt_8", "narrow_f32",
+                                           "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
                                            "clusters_at_once")
                          if k in r},

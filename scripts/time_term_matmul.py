@@ -18,7 +18,13 @@ CUDA-graph replay (``chip_smoke.device_ms``):
 * with ``--modes``, instead of both: the bf16 and int8 modes at M > 8,
   ``chip_smoke.MMA_LP_CELLS`` ((128, 784, 512), (350, 650, 2600) and
   ``bench.py``'s (8192, 2048, 512)), bits 8 (int8: 7) and 3 terms, on
-  weights made as in phase ``term_matmul_modes``.
+  weights made as in phase ``term_matmul_modes``;
+* with ``--narrow``, instead: the f32 mode's eight variants on int8,
+  int16, bf16-stored and 9-bit packed weights (``chip_smoke.
+  NARROW_VARIANTS``) at ``chip_smoke.NARROW_CELLS`` ((64, 650, 33278),
+  the batch-64 serving step's decoder, and (128, 784, 512)), bits 8 and
+  3 terms (the ``mma`` kernel, or the tiled one in a checkout before
+  it).
 
 Each call takes whatever kernel the checkout's route gives it.  To
 compare two commits on one card, run it once per checkout in the order
@@ -43,8 +49,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, required=True,
                     help="checkout whose tq_tpu_torch is timed")
-    ap.add_argument("--modes", action="store_true",
-                    help="time the bf16 and int8 modes at M > 8 instead")
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--modes", action="store_true",
+                       help="time the bf16 and int8 modes at M > 8 instead")
+    group.add_argument("--narrow", action="store_true",
+                       help="time the f32 mode on the narrow weight "
+                            "formats at M > 8 instead")
     args = ap.parse_args()
     root = args.root.resolve()
 
@@ -53,9 +63,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device: this script times the port on the GPU")
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (MMA_LP_CELLS, TERM_MATMUL_ROWS, VOCAB,
-                            _tm_weights, device_ms, eager_ms,
-                            nvidia_smi_line)
+    from chip_smoke import (MMA_LP_CELLS, NARROW_CELLS, NARROW_VARIANTS,
+                            TERM_MATMUL_ROWS, VOCAB, _tm_weights, device_ms,
+                            eager_ms, nvidia_smi_line)
 
     sys.path.insert(0, str(root))
     import tq_tpu_torch
@@ -66,10 +76,12 @@ def main() -> None:
                  f"not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    if args.modes:
+    if args.modes or args.narrow:
+        cells = MMA_LP_CELLS if args.modes else [
+            (M, K, N, NARROW_VARIANTS) for M, K, N in NARROW_CELLS]
         print(json.dumps({"root": str(root), "card": nvidia_smi_line(),
                           "modes_ms": _modes_ms(torch, term_matmul, VARIANTS,
-                                                MMA_LP_CELLS, _tm_weights,
+                                                cells, _tm_weights,
                                                 device_ms)}), flush=True)
         return
     gen = torch.Generator(device="cpu").manual_seed(0)

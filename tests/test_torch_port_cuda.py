@@ -66,6 +66,59 @@ def test_mma_lp_kernel_on_the_card(cuda, M, K, N, bf16_bits, int8_terms):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(9, 650, 2600), (64, 650, 2600),
+                                   (64, 650, 33278), (77, 300, 45)])
+def test_mma_narrow_weights_on_the_card(cuda, M, K, N):
+    """The f32 mode on int8, int16 (past TF32's 11 bits), bf16-stored and
+    9-bit packed weights at M > 8, quantized and raw input, launches the
+    mma kernel, holds against the plain version within rtol 1e-5, atol
+    1e-4 * max|ref|, and equals the mma kernel on the same weights
+    widened to float32, times w_sf, bit for bit where the two take one
+    plan (tile and K split)."""
+    index = cuda.index or 0
+
+    def plan(fmt):
+        return tm.plan(M, N, K, fmt, "f32", tm._sm_count(index), "mma",
+                       tm._mma_clusters(index, "mma", "f32", fmt))
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    x = torch.randn(M, K, generator=gen).to(cuda)
+    sf = torch.tensor(0.03, device=cuda)
+    for variant, (mode, fmt, quantize_x) in tm.VARIANTS.items():
+        if mode != "f32" or fmt == "f32":
+            continue
+        hi = {"int16": 20000, "packed8": 255}.get(fmt, 127)
+        q = torch.randint(-hi, hi + 1, (K, N), generator=gen)
+        w_sf = torch.tensor(0.0123)
+        if fmt == "bf16":
+            w, w_sf = (q.to(torch.float32) * 0.001).to(torch.bfloat16), None
+            wide, scale = w.to(torch.float32), None
+        elif fmt == "packed8":
+            w = tm.pack_weight_u8s(q.to(torch.float32) * w_sf, w_sf, 8)
+            w, w_sf, wide, scale = w, None, q.to(torch.float32), w.w_sf
+        else:
+            w, wide, scale = q.to(getattr(torch, fmt)), q.to(torch.float32), \
+                w_sf
+        w = (tm.PackedWeight8(*(t.to(cuda) for t in w)) if fmt == "packed8"
+             else w.to(cuda))
+        w_sf = None if w_sf is None else w_sf.to(cuda)
+        kw = dict(w_sf=w_sf, quantize_x=quantize_x)
+        before = tm.term_matmul.kernel_launches["mma"]
+        out = tm.term_matmul(x, w, sf, 8, 3, **kw)
+        ref = tm.term_matmul_ref(x, w, sf, 8, 3, **kw)
+        widened = tm.launch(x, wide.to(cuda), sf, 8, 3,
+                            quantize_x=quantize_x, kernel="mma")
+        if scale is not None:
+            widened = widened * scale.to(cuda)
+        torch.cuda.synchronize()
+        assert tm.term_matmul.kernel_launches["mma"] == before + 2, variant
+        torch.testing.assert_close(
+            out, ref, rtol=1e-5, atol=1e-4 * float(ref.abs().max()))
+        if plan(fmt) == plan("f32"):
+            assert torch.equal(out, widened), variant
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,bits,group_size,terms",
                          [((784, 512), 1, 1, 1), ((784, 512), 4, 8, 6),
                           ((64, 784), 6, 1, 6)])

@@ -440,6 +440,68 @@ def test_sampler_draws_the_categorical_distribution():
                                torch.softmax(logp[0], -1).numpy(), atol=0.03)
 
 
+# The batch serving step (bench.py::bench_generate's batch-64 sampler,
+# examples/lm_serving.py's batch >= 8) at a small width: M = 16 rows in
+# every product, above STREAM_MAX_M, so on the card the f32 mode's narrow
+# variants take the mma kernel.  (pack, rnn_unquantized_dtype): the 9-bit
+# pack (layer 0 and the decoder; layer 1 float32) and int16 with the
+# unquantized layer bf16-stored.
+BATCH_SERVING = [("u8s", None), ("int", "bfloat16")]
+
+
+@pytest.mark.parametrize("pack,half", BATCH_SERVING,
+                         ids=[p for p, _ in BATCH_SERVING])
+def test_batch_serving_forward_matches_jax(pack, half):
+    """vocab 256, 64/64, two layers, batch 16: four greedy steps, the JAX
+    package's tokens and hidden state fed to both; per step the port's
+    log-probs and hidden state within the packed forward's tolerance."""
+    vocab, nhid, batch = 256, 64, 16
+    params_np = _np_params(vocab=vocab, emsize=nhid, nhid=nhid)
+    jqp, jqc, _ = jlm.convert(_jax(params_np), 8, 8, 24, 8, 8)
+    tqp, tqc, _ = tlm.convert(params_from_jax(params_np, "cpu"), 8, 8, 24,
+                              8, 8)
+    jpk = jlm.pack(jqp, jqc, fmt=pack, rnn=True, rnn_unquantized_dtype=(
+        getattr(jnp, half) if half else None))
+    tpk = tlm.pack(tqp, tqc, fmt=pack, rnn=True, rnn_unquantized_dtype=(
+        getattr(torch, half) if half else None))
+    if half:  # the bf16-stored layer, bit for bit; the rest leaf by leaf
+        for key in ("w_ih", "w_hh"):
+            np.testing.assert_array_equal(
+                tpk["rnn"][1][key].view(torch.int16).numpy(),
+                np.asarray(jpk["rnn"][1][key]).view(np.int16))
+        _assert_tree_equal({**tpk, "rnn": tpk["rnn"][:1]},
+                           {**jpk, "rnn": jpk["rnn"][:1]})
+    else:
+        _assert_tree_equal(tpk, jpk)
+    narrow = {"u8s": "packed8", "int": "int16"}[pack]
+    formats = {ttm._weight_format(w) for w in (
+        tpk["decoder"]["w"], tpk["rnn"][0]["w_ih"], tpk["rnn"][1]["w_hh"])}
+    assert formats == ({narrow, "f32"} if half is None else {narrow, "bf16"})
+    for fmt in formats - {"f32"}:  # the card's route at these shapes
+        for N in (4 * nhid, vocab):
+            assert ttm.plan(batch, N, nhid, fmt, "f32", 132).kernel == "mma"
+    jqs = {k: {"hist": jnp.zeros(8192), "sf": jnp.float32(0.05)}
+           for k in ("rnn", "decoder")}
+    tqs = {k: {"hist": torch.zeros(8192), "sf": torch.tensor(0.05)}
+           for k in ("rnn", "decoder")}
+    jfwd = jlm.make_quantized_apply(jqc, track=False)
+    tfwd = tlm.make_quantized_apply(tqc, track=False)
+    tok = np.random.default_rng(6).integers(0, vocab, (1, batch)).astype(
+        np.int32)
+    hidden = jlm.init_hidden(batch, nhid=nhid, nlayers=2)
+    for _ in range(4):
+        want, hidden_next, _ = jfwd(jpk, jqs, jnp.asarray(tok), hidden)
+        got, thid, _ = tfwd(tpk, tqs, torch.from_numpy(tok),
+                            tuple(torch.from_numpy(np.array(h))
+                                  for h in hidden))
+        assert got.shape == (batch, vocab)
+        _close(got, want)
+        for a, b in zip(thid, hidden_next):
+            _close(a, b)
+        tok = np.asarray(jnp.argmax(want, -1)).astype(np.int32)[None, :]
+        hidden = hidden_next
+
+
 # --------------------------------------------------- checkpoints, params
 
 

@@ -137,8 +137,7 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
             p = tm.plan(M, N, K, fmt, mode, sms)
             assert p.kernel == (
                 "stream" if M <= tm.STREAM_MAX_M else
-                "mma_lp" if mode in ("bf16", "int8") else
-                "mma" if fmt == "f32" else "tiled")
+                "mma_lp" if mode in ("bf16", "int8") else "mma")
             ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
                       for s in range(p.splits)]  # the kernels' K ranges
             assert len(ranges) == p.splits >= 1
@@ -158,15 +157,12 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
                 assert p.row_tile == 32
                 assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
                 assert p.ws_shape is None and p.ws_dtype is None
-            elif p.kernel == "mma_lp":  # K splits in whole mma chunks
+            else:  # mma_lp: K splits in whole mma chunks
                 assert 1 <= p.splits <= 8
                 assert p.k_per_split % (16 if mode == "bf16" else 32) == 0
                 assert p.row_tile == 64
                 assert p.grid == (-(-N // 128) * p.splits, -(-M // 64), 1)
                 assert p.ws_shape is None and p.ws_dtype is None
-            else:
-                assert p.k_per_split % 16 == 0
-                assert p.grid == (-(-N // 64), -(-M // 64), p.splits)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 650, 33278), (1, 650, 2600),
@@ -212,7 +208,7 @@ def test_plan_mma_fills_one_wave(M, K, N, splits, k_per_split):
                                                    k_per_split)
     tiles = -(-M // 32) * -(-N // 128)
     assert tiles * p.splits <= max(132, tiles)
-    for mode, fmt in (("bf16", "f32"), ("f32", "bf16"), ("int8", "int8")):
+    for mode, fmt in (("bf16", "f32"), ("bf16", "packed8"), ("int8", "int8")):
         with pytest.raises(ValueError, match="mma kernel takes"):
             tm.plan(M, N, K, fmt, mode, 132, kernel="mma")
 
@@ -253,10 +249,38 @@ def test_plan_mma_lp_fills_one_wave(M, K, N, splits, k_per_split, mode):
         assert tiles * p.splits <= max(132, tiles)
     with pytest.raises(ValueError, match="mma_lp kernel takes"):
         tm.plan(M, N, K, "f32", "f32", 132, kernel="mma_lp")
-    # The f32 mode's other weight formats stay on the tiled kernel.
+    # The f32 mode's other weight formats take the mma kernel.
     if mode == "bf16":
         for fmt in FORMATS[1:]:
-            assert tm.plan(M, N, K, fmt, "f32", 132).kernel == "tiled"
+            assert tm.plan(M, N, K, fmt, "f32", 132).kernel == "mma"
+
+
+# The f32 mode's shapes on the narrow weight formats: the batch-64 LSTM
+# serving step's decoder and recurrent products, a 35-step chunk at batch
+# 64, the MLP's first layer; (splits, k_per_split) on a 132-SM card by
+# default and with an H100's cluster occupancy.
+NARROW_F32_PLANS = [((64, 650, 33278), (1, 656), (1, 656)),
+                    ((64, 650, 2600), (3, 224), (2, 328)),
+                    ((2240, 650, 2600), (1, 656), (1, 656)),
+                    ((128, 784, 512), (8, 104), (6, 136))]
+
+
+@pytest.mark.parametrize("fmt", FORMATS[1:])
+@pytest.mark.parametrize("shape,default,h100", NARROW_F32_PLANS,
+                         ids=["x".join(map(str, c[0])) for c in
+                              NARROW_F32_PLANS])
+def test_plan_narrow_f32_takes_the_mma_kernel(shape, default, h100, fmt):
+    """The f32 mode on bf16-stored, int8, int16 and 9-bit weights at M > 8
+    takes the mma kernel on float32 weights' tile and K split (so the two
+    sum in the same order); the tiled kernel only when named."""
+    M, K, N = shape
+    h100_clusters = (132, 66, 39, 30, 22, 17, 15, 15)
+    for clusters, want in ((None, default), (h100_clusters, h100)):
+        p = tm.plan(M, N, K, fmt, "f32", 132, clusters=clusters)
+        assert p.kernel == "mma" and (p.splits, p.k_per_split) == want
+        assert p == tm.plan(M, N, K, "f32", "f32", 132, clusters=clusters)
+        assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
+    assert tm.plan(M, N, K, fmt, "f32", 132, kernel="tiled").kernel == "tiled"
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
@@ -382,6 +406,72 @@ def test_3xtf32_plan_within_the_f32_tolerance(rng, M, K, N, quantize_x):
     tol = 1e-5 * np.abs(want) + 1e-4 * np.abs(want).max()
     assert (np.abs(got - want) <= tol).all()
     assert (np.abs(a_hi @ b_hi - want) > tol).any()  # 1xTF32 misses
+
+
+def _exact_in_tf32(v: np.ndarray) -> np.ndarray:
+    """Per value: its TF32 split is (v, 0), as the mma kernel's two-product
+    instantiations take it."""
+    hi, lo = _split_tf32(v.astype(np.float32))
+    return (lo == 0) & (hi == v)
+
+
+def test_narrow_weights_exact_in_tf32_exhaustive():
+    """The premise of the mma kernel's two products: the TF32 remainder
+    (cvt.rna.tf32 of v - rna(v)) is 0 for every int8 value, every finite
+    bfloat16 bit pattern and every 9-bit-pack magnitude (the kernel's
+    lo ^ 0x80, both signs), so the product it leaves out, hi_a * lo_b,
+    is exactly 0.  Some int16 values have a remainder: they keep three
+    products, and their hi + lo is the value exactly."""
+    int8 = np.arange(-128, 128, dtype=np.float32)
+    assert _exact_in_tf32(int8).all()
+    bits = np.arange(2**16, dtype=np.uint32)
+    finite = (bits >> 7) & 0xFF != 0xFF
+    bf16 = (bits[finite] << 16).view(np.float32)
+    assert bf16.size == 2**16 - 2**8 and _exact_in_tf32(bf16).all()
+    lo = np.arange(-128, 128).astype(np.int8).view(np.uint8)
+    mag = (lo ^ 0x80).astype(np.float32)  # 0 .. 255
+    assert sorted(mag) == list(range(256))
+    assert _exact_in_tf32(mag).all() and _exact_in_tf32(-mag).all()
+    int16 = np.arange(-2**15, 2**15, dtype=np.float32)
+    exact = _exact_in_tf32(int16)
+    assert not exact.all() and exact[np.abs(int16) <= 2**11].all()
+    hi, lo16 = _split_tf32(int16)
+    np.testing.assert_array_equal(hi + lo16, int16)
+
+
+@pytest.mark.parametrize("fmt", FORMATS[1:])
+@pytest.mark.parametrize("quantize_x", [True, False])
+@pytest.mark.parametrize("M,K,N", [(64, 650, 260), (77, 300, 45)])
+def test_narrow_mma_products_within_the_f32_tolerance(rng, M, K, N, fmt,
+                                                      quantize_x):
+    """The mma kernel's numerics on a narrow weight format, emulated: x
+    split into TF32 high part and remainder, the weight widened (q of
+    integer and packed weights, w_sf after the sum); two products
+    ``lo_a @ w + hi_a @ w`` where w is exact in TF32, three for int16.
+    Within chip_smoke.py's tolerance of the JAX package's term_matmul."""
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jw, tw, w_sf = _weights(rng, fmt, K, N)
+    sf = np.float32(0.03)
+    want = np.asarray(jm.term_matmul(
+        jnp.asarray(x), jw, jnp.float32(sf), 8, 3,
+        w_sf=None if w_sf is None else jnp.float32(w_sf), bm=64, bk=128,
+        bn=128, quantize_x=quantize_x))
+    xa = (tm.tr_quantize_ref(torch.from_numpy(x), torch.tensor(sf), 8, 1,
+                             3).numpy() if quantize_x else x)
+    wa = (tm._decode_u8s(tw)[:K] if fmt == "packed8" else tw).to(
+        torch.float32).numpy()
+    a_hi, a_lo = _split_tf32(xa)
+    b_hi, b_lo = _split_tf32(wa)
+    if fmt == "int16":
+        got = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    else:
+        assert not b_lo.any()
+        got = a_lo @ b_hi + a_hi @ b_hi
+    scale = (w_sf if w_sf is not None else
+             float(tw.w_sf) if fmt == "packed8" else 1.0)
+    got = (got * np.float32(scale)).astype(np.float32)
+    tol = 1e-5 * np.abs(want) + 1e-4 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all()
 
 
 def _fma32(a, b, c):

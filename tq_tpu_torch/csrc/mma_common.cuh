@@ -2,10 +2,13 @@
 // kernels (term_matmul_mma.cu: the f32 mode; term_matmul_mma_lp.cu: the
 // bf16 and int8 modes): the step barrier between their load warps and
 // MMA warps, and the launch of one kernel on clusters of `splits` blocks
-// along x, with the occupancy query the wrapper sizes the clusters by.
+// along x, with the occupancy query the wrapper sizes the clusters by;
+// and what their load warps share: the weight formats, the loads of four
+// elements of a row and the widening of a weight as stored.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace tq {
 
@@ -51,6 +54,100 @@ int cluster_occupancy(Kernel kernel, int threads, int smem, int splits) {
   int n = 0;
   err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// The wrapper's codes of the weight formats (kernels/term_matmul.py's
+// _FORMATS), and the bytes of a weight as stored (the 9-bit pack: its lo
+// byte; the sign plane, one bit a weight, is a second array).
+enum WFmt : int { kWF32 = 0, kWBF16 = 1, kWInt8 = 2, kWInt16 = 3,
+                  kWPacked8 = 4 };
+template <int F>
+constexpr int kWBytes = F == kWF32 ? 4 : (F == kWBF16 || F == kWInt16) ? 2
+                                                                      : 1;
+
+// Four elements of E bytes at src, of which the first n exist (zeros past
+// them), as 4 * E bytes in E words, little-endian; read with loads of
+// `vec` elements (4, 2 or 1; src aligned to vec * E bytes).
+template <int E>
+__device__ __forceinline__ void load4(const char* src, int n, int vec,
+                                      uint32_t (&v)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; ++i) v[i] = 0u;
+  if (n >= 4 && vec == 4) {
+    if constexpr (E == 4) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    } else if constexpr (E == 2) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
+      v[0] = a.x, v[1] = a.y;
+    } else {
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+    }
+    return;
+  }
+  if (n >= 4 && vec == 2) {
+    if constexpr (E == 4) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(src + 8));
+      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+    } else if constexpr (E == 2) {
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+      v[1] = __ldg(reinterpret_cast<const unsigned int*>(src + 4));
+    } else {
+      v[0] = __ldg(reinterpret_cast<const unsigned short*>(src)) |
+             (static_cast<uint32_t>(
+                  __ldg(reinterpret_cast<const unsigned short*>(src + 2)))
+              << 16);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i >= n) break;
+    if constexpr (E == 4) {
+      v[i] = __ldg(reinterpret_cast<const unsigned int*>(src) + i);
+    } else if constexpr (E == 2) {
+      v[i >> 1] |= static_cast<uint32_t>(__ldg(
+                       reinterpret_cast<const unsigned short*>(src) + i))
+                   << (16 * (i & 1));
+    } else {
+      v[0] |= static_cast<uint32_t>(
+                  __ldg(reinterpret_cast<const unsigned char*>(src) + i))
+              << (8 * i);
+    }
+  }
+}
+
+// Element j of a loaded row of four weights as a float, as
+// term_matmul.cu's weight_value gives it: w, or q of integer and packed
+// weights (exact in float32).  sgn: the pack's four sign bytes; k: the
+// element's K row.
+template <int F>
+__device__ __forceinline__ float w_elem(const uint32_t (&v)[kWBytes<F>],
+                                        uint32_t sgn, int j, int k) {
+  if constexpr (F == kWF32) {
+    return __uint_as_float(v[j]);
+  } else if constexpr (F == kWBF16) {
+    return __uint_as_float((v[j >> 1] >> (16 * (j & 1))) << 16);
+  } else if constexpr (F == kWInt16) {
+    return static_cast<float>(
+        static_cast<int16_t>(v[j >> 1] >> (16 * (j & 1))));
+  } else if constexpr (F == kWInt8) {
+    return static_cast<float>(static_cast<int8_t>(v[0] >> (8 * j)));
+  } else {  // 9-bit pack: |q| = lo + 128; sign bit k & 7 of the sign byte
+    const float mag = static_cast<float>(((v[0] >> (8 * j)) & 0xffu) ^ 0x80u);
+    return (sgn >> (8 * j + (k & 7))) & 1u ? -mag : mag;
+  }
+}
+
+// Elements of `bytes` bytes a load of a row-major matrix with rows of
+// `ld` elements at p may take: 4, 2 or 1, as the row length and the base
+// pointer allow.
+inline int load_elems(const void* p, int ld, int bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (ld % 4 == 0 && a % (4 * bytes) == 0) return 4;
+  if (ld % 2 == 0 && a % (2 * bytes) == 0) return 2;
+  return 1;
 }
 
 }  // namespace tq

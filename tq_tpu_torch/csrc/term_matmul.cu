@@ -26,15 +26,16 @@
 // weight, int8 at 1, int16 at 2, float32 at 4).  At the eval shapes
 // (M = 128..350) the f32 mode is operations bound on CUDA cores.
 //
-// Two kernels here compute it; the wrapper picks one by M (plan() in
-// kernels/term_matmul.py).  At M > STREAM_MAX_M the f32 mode on float32
-// weights and the bf16 and int8 modes take tensor-core kernels instead
-// (csrc/term_matmul_mma.cu, csrc/term_matmul_mma_lp.cu).
+// Two kernels here compute it.  The wrapper (plan() in
+// kernels/term_matmul.py) takes the weight-streaming one for M <=
+// STREAM_MAX_M; above it every mode takes a tensor-core kernel
+// (csrc/term_matmul_mma.cu: the f32 mode; csrc/term_matmul_mma_lp.cu:
+// the bf16 and int8 modes).
 //
-// The tiled kernel (the f32 mode on the other weight formats at M > the
-// wrapper's STREAM_MAX_M; every mode when forced, for timing): a plain tiled shared-memory GEMM on CUDA cores, 64x64
-// output tiles, a K step of 16, 256 threads each holding a 4x4 block of
-// accumulators; the ragged M, N
+// The tiled kernel (on no route: launched only when the wrapper is told
+// to, to time it beside the kernels that replaced it): a plain tiled
+// shared-memory GEMM on CUDA cores, 64x64 output tiles, a K step of 16,
+// 256 threads each holding a 4x4 block of accumulators; the ragged M, N
 // and K edges are masked here (packed weights have K8 >= K rows; the rows
 // past K meet no activation, as the TPU kernel's zero-padded x).  A small
 // M*N gives few output tiles, so K is split over blockIdx.z: each split

@@ -75,10 +75,17 @@
 
 namespace {
 
-// The wrapper's codes of the mode and the weight format.
+// The wrapper's code of the mode; the weight formats' are mma_common.cuh's.
 enum Mode : int { kBF16 = 1, kInt8 = 2 };
-enum WFmt : int { kWF32 = 0, kWBF16 = 1, kWInt8 = 2, kWInt16 = 3,
-                  kWPacked8 = 4 };
+using tq::kWBF16;
+using tq::kWBytes;
+using tq::kWF32;
+using tq::kWInt16;
+using tq::kWInt8;
+using tq::kWPacked8;
+using tq::load4;
+using tq::load_elems;
+using tq::w_elem;
 
 constexpr int kBM = 64;             // output tile rows
 constexpr int kBN = 128;            // output tile columns
@@ -114,67 +121,11 @@ constexpr int kChunkK = kChunkBytes / kElem<MODE>;  // K of one mma
 // K rows of a weight cell (a word per column), and quads of x in a unit.
 template <int MODE>
 constexpr int kR = kBK<MODE> / 16;
-template <int F>
-constexpr int kWBytes = F == kWF32 ? 4 : (F == kWBF16 || F == kWInt16) ? 2
-                                                                      : 1;
 template <int MODE>
 using Acc = std::conditional_t<MODE == kInt8, int32_t, float>;
 
 __device__ __forceinline__ void step_barrier() {
   tq::step_barrier<kThreads>();
-}
-
-// Four elements of E bytes at src, of which the first n exist (zeros past
-// them), as 4 * E bytes in E words, little-endian; read with loads of
-// `vec` elements (4, 2 or 1; src aligned to vec * E bytes).
-template <int E>
-__device__ __forceinline__ void load4(const char* src, int n, int vec,
-                                      uint32_t (&v)[E]) {
-#pragma unroll
-  for (int i = 0; i < E; ++i) v[i] = 0u;
-  if (n >= 4 && vec == 4) {
-    if constexpr (E == 4) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    } else if constexpr (E == 2) {
-      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
-      v[0] = a.x, v[1] = a.y;
-    } else {
-      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
-    }
-    return;
-  }
-  if (n >= 4 && vec == 2) {
-    if constexpr (E == 4) {
-      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
-      const uint2 b = __ldg(reinterpret_cast<const uint2*>(src + 8));
-      v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
-    } else if constexpr (E == 2) {
-      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
-      v[1] = __ldg(reinterpret_cast<const unsigned int*>(src + 4));
-    } else {
-      v[0] = __ldg(reinterpret_cast<const unsigned short*>(src)) |
-             (static_cast<uint32_t>(
-                  __ldg(reinterpret_cast<const unsigned short*>(src + 2)))
-              << 16);
-    }
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (i >= n) break;
-    if constexpr (E == 4) {
-      v[i] = __ldg(reinterpret_cast<const unsigned int*>(src) + i);
-    } else if constexpr (E == 2) {
-      v[i >> 1] |= static_cast<uint32_t>(__ldg(
-                       reinterpret_cast<const unsigned short*>(src) + i))
-                   << (16 * (i & 1));
-    } else {
-      v[0] |= static_cast<uint32_t>(
-                  __ldg(reinterpret_cast<const unsigned char*>(src) + i))
-              << (8 * i);
-    }
-  }
 }
 
 // lo and hi rounded to bfloat16 (to nearest even), lo in the low half.
@@ -239,27 +190,6 @@ __device__ __forceinline__ uint4 x_unit(const uint32_t (&raw)[kR<MODE>][4],
                  (static_cast<uint32_t>(s[i + 3]) << 24);
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-// Element j of a loaded row of four weights as a float, as
-// term_matmul.cu's weight_value gives it: w, or q of integer and packed
-// weights.  sgn: the pack's four sign bytes; k: the element's K row.
-template <int F>
-__device__ __forceinline__ float w_elem(const uint32_t (&v)[kWBytes<F>],
-                                        uint32_t sgn, int j, int k) {
-  if constexpr (F == kWF32) {
-    return __uint_as_float(v[j]);
-  } else if constexpr (F == kWBF16) {
-    return __uint_as_float((v[j >> 1] >> (16 * (j & 1))) << 16);
-  } else if constexpr (F == kWInt16) {
-    return static_cast<float>(
-        static_cast<int16_t>(v[j >> 1] >> (16 * (j & 1))));
-  } else if constexpr (F == kWInt8) {
-    return static_cast<float>(static_cast<int8_t>(v[0] >> (8 * j)));
-  } else {  // 9-bit pack: |q| = lo + 128; sign bit k & 7 of the sign byte
-    const float mag = static_cast<float>(((v[0] >> (8 * j)) & 0xffu) ^ 0x80u);
-    return (sgn >> (8 * j + (k & 7))) & 1u ? -mag : mag;
-  }
 }
 
 // A weight cell, kR K rows from k (k + rr < ke exist) by four columns, as
@@ -527,16 +457,6 @@ term_matmul_mma_lp_kernel(const float* __restrict__ x,
     for (int j = 0; j < 4; ++j)
       if (gn + j < N) o[j] = __fmul_rn(static_cast<float>(s[j]), scale);
   }
-}
-
-// Elements of `bytes` bytes a load of a row-major matrix with rows of
-// `ld` elements at p may take: 4, 2 or 1, as the row length and the base
-// pointer allow.
-int load_elems(const void* p, int ld, int bytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if (ld % 4 == 0 && a % (4 * bytes) == 0) return 4;
-  if (ld % 2 == 0 && a % (2 * bytes) == 0) return 2;
-  return 1;
 }
 
 struct Args {

@@ -56,12 +56,12 @@ SIGNATURES = {
     # quantize_x, splits, k_per_split, kernel, row_tile, stream
     "tq_term_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _I, _P],
-    # x, w, sf, w_sf, out, M, N, K, bits, budget, quantize_x, splits,
-    # k_per_split, stream
-    "tq_term_matmul_mma": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
-    # splits -> clusters of the mma kernel the card runs at once
-    "tq_term_matmul_mma_clusters": [_I],
+    # x, w, signs, sf, w_sf, out, M, N, K, bits, budget, wfmt, quantize_x,
+    # splits, k_per_split, stream
+    "tq_term_matmul_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
+    # wfmt, splits -> clusters of the mma kernel the card runs at once
+    "tq_term_matmul_mma_clusters": [_I, _I],
     # x, w, signs, sf, w_sf, out, M, N, K, bits, budget, mode, wfmt,
     # quantize_x, splits, k_per_split, stream
     "tq_term_matmul_mma_lp": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -20,13 +20,14 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
 :func:`pack_weight_int`) or a :class:`PackedWeight8` (9 bits per weight,
 :func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
-* On a CUDA tensor :func:`term_matmul` launches one of four kernels
+* On a CUDA tensor :func:`term_matmul` launches one of three kernels
   (see :func:`plan`): the weight-streaming kernel of
   ``csrc/term_matmul.cu`` for small M; above it, on the tensor cores,
-  the f32 mode on float32 weights (``csrc/term_matmul_mma.cu``) and the
-  bf16 and int8 modes (``csrc/term_matmul_mma_lp.cu``), and the f32 mode
-  on the other weight formats on the tiled kernel of
-  ``csrc/term_matmul.cu``.  It raises on what the kernels do not take.
+  the f32 mode in every weight format (``csrc/term_matmul_mma.cu``) and
+  the bf16 and int8 modes (``csrc/term_matmul_mma_lp.cu``).  The tiled
+  CUDA-core kernel of ``csrc/term_matmul.cu`` is on no route: only
+  :func:`launch` with ``kernel="tiled"`` takes it, to time it beside
+  them.  It raises on what the kernels do not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 * While ``torch.export`` traces it, it calls the operator
   ``tq::term_matmul`` (:func:`term_matmul_op`) instead, whose CUDA
@@ -342,9 +343,7 @@ def term_matmul(x: torch.Tensor, w, sf, bits: int = 8,
     or a :class:`PackedWeight8`.  ``sf`` is read from device memory by the
     kernel (no host sync) and ignored for raw input.  Returns (M, N)
     float32.  On the card, M <= :data:`STREAM_MAX_M` takes the
-    weight-streaming kernel; larger M a tensor-core kernel in the bf16
-    and int8 modes and in the f32 mode on float32 weights, the tiled one
-    otherwise (:func:`plan`).
+    weight-streaming kernel, larger M a tensor-core kernel (:func:`plan`).
     """
     del interpret, bm, bk, bn, pipeline, bsub
     if torch.compiler.is_exporting():
@@ -416,7 +415,8 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     """:func:`term_matmul` on CUDA tensors: check, plan, launch, count.
 
     ``kernel`` ("stream", "tiled", "mma" or "mma_lp") overrides the
-    route, to time one kernel at a shape the route gives another;
+    route, to time one kernel at a shape the route gives another (the
+    tiled kernel is on no route: this is its only way in);
     :func:`term_matmul` never passes it.  Raises on what the kernels do
     not take.
     """
@@ -445,8 +445,8 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     M, K = x.shape
     N = wt.shape[1]
     mode = _mode(bf16, int8)
-    route = kernel or _route(M, mode, fmt)
-    clusters = (_mma_clusters(x.device.index, route, mode)
+    route = kernel or _route(M, mode)
+    clusters = (_mma_clusters(x.device.index, route, mode, fmt)
                 if route in ("mma", "mma_lp") else None)
     p = plan(M, N, K, fmt, mode, _sm_count(x.device.index), route, clusters)
     if max(M, N, K) >= 2**31 or max(p.grid[1:]) > 65535:
@@ -469,9 +469,10 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     stream = _build.stream(x.device)
     if p.kernel == "mma":
         _build.check(_build.load().tq_term_matmul_mma(
-            x.data_ptr(), wt.data_ptr(), ptr(sf_t), ptr(wsf_t),
-            out.data_ptr(), M, N, K, bits, budget, int(quantize_x),
-            p.splits, p.k_per_split, stream), "tq_term_matmul_mma")
+            x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
+            out.data_ptr(), M, N, K, bits, budget, _FORMATS[fmt],
+            int(quantize_x), p.splits, p.k_per_split, stream),
+            "tq_term_matmul_mma")
     elif p.kernel == "mma_lp":
         _build.check(_build.load().tq_term_matmul_mma_lp(
             x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
@@ -490,16 +491,16 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_clusters(index: int, kernel: str = "mma",
-                  mode: str = "f32") -> tuple[int, ...]:
+def _mma_clusters(index: int, kernel: str = "mma", mode: str = "f32",
+                  fmt: str = "f32") -> tuple[int, ...]:
     """How many clusters of s = 1 .. 8 blocks of the tensor-core kernel
-    ``kernel`` ("mma", or "mma_lp" in ``mode``) the card ``index`` runs at
-    once (the occupancy API; ragged GPCs hold fewer large clusters than
-    the SM count suggests)."""
+    ``kernel`` ("mma" on weight format ``fmt``, or "mma_lp" in ``mode``)
+    the card ``index`` runs at once (the occupancy API; ragged GPCs hold
+    fewer large clusters than the SM count suggests)."""
     lib = _build.load()
     with torch.cuda.device(index):
         if kernel == "mma":
-            n = tuple(lib.tq_term_matmul_mma_clusters(s)
+            n = tuple(lib.tq_term_matmul_mma_clusters(_FORMATS[fmt], s)
                       for s in range(1, _MMA_MAX_SPLITS + 1))
         else:
             n = tuple(lib.tq_term_matmul_mma_lp_clusters(_MODES[mode], s)
@@ -510,17 +511,14 @@ def _mma_clusters(index: int, kernel: str = "mma",
     return n
 
 
-def _route(M: int, mode: str, fmt: str) -> str:
+def _route(M: int, mode: str) -> str:
     """The kernel :func:`plan` takes by default: the weight-streaming
-    kernel for M <= STREAM_MAX_M; above it the tensor cores for the f32
-    mode on float32 weights ("mma") and for the bf16 and int8 modes
-    ("mma_lp"), the tiled kernel for the f32 mode on the other
-    formats."""
+    kernel for M <= STREAM_MAX_M; above it the tensor cores, "mma" for
+    the f32 mode in every weight format and "mma_lp" for the bf16 and
+    int8 modes.  No route takes the tiled kernel."""
     if M <= STREAM_MAX_M:
         return "stream"
-    if mode in ("bf16", "int8"):
-        return "mma_lp"
-    return "mma" if fmt == "f32" else "tiled"
+    return "mma_lp" if mode in ("bf16", "int8") else "mma"
 
 
 class Plan(NamedTuple):
@@ -541,12 +539,11 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
          clusters: tuple[int, ...] | None = None) -> Plan:
     """The kernel, grid, K splits and workspace for an (M, K) x (K, N)
     product in weight format ``fmt`` and mode ``mode`` on a card of
-    ``sms`` SMs.  ``kernel`` None routes by M, mode and format
-    (:func:`_route`): the weight-streaming kernel for M <= STREAM_MAX_M;
-    above it the tensor-core kernels, ``mma`` for the f32 mode on float32
-    weights and ``mma_lp`` for every bf16 and int8 variant (quantized or
-    raw input), and the tiled kernel for the f32 mode on the other
-    weight formats.
+    ``sms`` SMs.  ``kernel`` None routes by M and mode (:func:`_route`):
+    the weight-streaming kernel for M <= STREAM_MAX_M; above it the
+    tensor-core kernels, ``mma`` for every f32 variant and ``mma_lp`` for
+    every bf16 and int8 variant (any weight format, quantized or raw
+    input).  The tiled kernel is taken only when ``kernel`` names it.
 
     * stream: a block per strip of 31 lanes x 16 bytes of columns and per
       row group of ``row_tile`` rows of x (1 for M = 1, else 8 with the
@@ -554,7 +551,7 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
       multiples of 8 rows over a cluster of up to 8 blocks, as evenly
       over the SMs as one wave allows (:func:`_stream_splits`); no
       workspace.
-    * tiled: a block per 64x64 output tile; K split in multiples of the K
+    * tiled (on no route): a block per 64x64 output tile; K split in multiples of the K
       step over ``blockIdx.z``, enough for about two blocks per SM, the
       partials in a (splits, M, N) workspace (int32 in the int8 mode,
       float32 otherwise) when there is more than one split.
@@ -568,7 +565,7 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
       mode).
     """
     if kernel is None:
-        kernel = _route(M, mode, fmt)
+        kernel = _route(M, mode)
     if kernel == "stream":
         cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
         strips = -(-N // cols)
@@ -588,9 +585,9 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
                          f"'mma_lp', got {kernel!r}")
     tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
     if kernel == "mma":
-        if (mode, fmt) != ("f32", "f32"):
-            raise ValueError(f"the mma kernel takes the f32 mode on float32 "
-                             f"weights, got mode {mode!r}, weights {fmt!r}")
+        if mode != "f32":
+            raise ValueError(f"the mma kernel takes the f32 mode, got mode "
+                             f"{mode!r}")
         return _cluster_plan("mma", M, N, K, _MMA_TILE, _MMA_K_STEP, sms,
                              clusters)
     if kernel == "mma_lp":
