@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the ``mma`` kernel's time goes: the kernel with parts of it
-switched off, and at other L2 prefetch distances.
+switched off.
 
     python3 scripts/probe_mma.py
 
@@ -9,23 +9,21 @@ Copies ``tq_tpu_torch/csrc`` to a temporary directory and builds
 every combination of three early exits (bit 1: the MMA warps' fragment
 loads and MMAs; bit 2: the load warps' widening, split and shared-memory
 stores, with the loaded words XOR-ed into one stored word so that the
-loads stay live; bit 4: their global loads) at the source's prefetch
-distance and with the prefetch off, and at the other distances in
-PREFETCH with every part on.  Times each build's ``tq_term_matmul_mma``
+loads stay live; bit 4: their global loads).  Times each build's
+``tq_term_matmul_mma``
 by CUDA events (20 launches after 3) in the raw-input f32 variants on
 float32, int8, int16, bf16-stored and 9-bit weights at SHAPES, on the
 plan ``kernels/term_matmul.py::plan`` gives with the build's own cluster
 occupancy.  With a part off the output is wrong, so nothing is checked:
 the times only bound each part.  Prints one JSON line: the card's
-``nvidia-smi`` name and power limit and µs by ``prefetch=<steps>
-off=<bits> <variant> <shape>``.  Needs one CUDA device and ``nvcc``.
+``nvidia-smi`` name and power limit and µs by ``off=<bits> <variant>
+<shape>``.  Needs one CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
-import re
 import shutil
 import subprocess
 import sys
@@ -36,7 +34,6 @@ REPO = Path(__file__).resolve().parent.parent
 SOURCE = "term_matmul_mma.cu"
 SHAPES = [(64, 650, 33278), (128, 784, 512), (350, 650, 2600)]
 FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
-PREFETCH = (0, 2, 8, 12)
 # (text in the kernel, what the probe puts in its place): an early exit
 # guarded by one bit of TQ_PROBE.
 SWITCHES = [
@@ -46,11 +43,9 @@ SWITCHES = [
     ("    auto store = [&](int s, const Regs& g) {",
      "    auto store = [&](int s, const Regs& g) {\n"
      "      if (TQ_PROBE & 2) {\n"
-     "        uint32_t h = __float_as_uint(g.a.x) ^ __float_as_uint(g.a.w);\n"
-     "        for (int j = 0; j < kWQuads; ++j) {\n"
-     "          h ^= g.s[j];\n"
+     "        uint32_t h = g.s ^ g.a[0] ^ g.a[1] ^ g.a[2] ^ g.a[3];\n"
+     "        for (int j = 0; j < kWQuads; ++j)\n"
      "          for (int e = 0; e < E; ++e) h ^= g.b[j][e];\n"
-     "        }\n"
      "        reinterpret_cast<uint32_t*>(slot(s))[p] = h;\n"
      "        return;\n"
      "      }"),
@@ -58,33 +53,23 @@ SWITCHES = [
      "    auto load = [&](int s, Regs& g) {\n"
      "      if (TQ_PROBE & 4) return;"),
 ]
-DISTANCE = re.compile(r"constexpr int kPrefetch = (\d+);")
 
 
-def build(tmp: Path, nvcc: str, arch_flags: list[str]) -> tuple[dict, int]:
-    """{(prefetch, bits): library}, and the source's prefetch distance."""
+def build(tmp: Path, nvcc: str, arch_flags: list[str]) -> dict[int, Path]:
     src = (tmp / SOURCE).read_text()
     for old, new in SWITCHES:
         if src.count(old) != 1:
             sys.exit(f"{SOURCE} changed: no single {old.strip()!r}")
         src = src.replace(old, new)
-    m = DISTANCE.search(src)
-    if m is None:
-        sys.exit(f"{SOURCE} changed: no kPrefetch")
-    ahead = int(m.group(1))
-    builds = [(d, b) for d in sorted({ahead, 0}) for b in range(8)]
-    builds += [(d, 0) for d in PREFETCH if d not in (ahead, 0)]
-    libs, procs = {}, []
-    for d, bits in builds:
-        path = tmp / f"probe_{d}_{bits}.cu"
-        path.write_text(DISTANCE.sub(f"constexpr int kPrefetch = {d};", src))
-        libs[d, bits] = tmp / f"probe_{d}_{bits}.so"
-        procs.append(subprocess.Popen([nvcc, *arch_flags, "-shared",
-                                       f"-DTQ_PROBE={bits}", "-o",
-                                       str(libs[d, bits]), str(path)]))
+    (tmp / SOURCE).write_text(src)
+    libs = {bits: tmp / f"probe{bits}.so" for bits in range(8)}
+    procs = [subprocess.Popen([nvcc, *arch_flags, "-shared",
+                               f"-DTQ_PROBE={bits}", "-o", str(lib),
+                               str(tmp / SOURCE)])
+             for bits, lib in libs.items()]
     if any(p.wait() != 0 for p in procs):
         sys.exit("nvcc failed")
-    return libs, ahead
+    return libs
 
 
 def main() -> None:
@@ -114,8 +99,8 @@ def main() -> None:
         tmp = Path(d)
         for f in _build.CSRC.iterdir():
             shutil.copy(f, tmp / f.name)
-        libs, ahead = build(tmp, _build._nvcc(), list(_build.ARCH_FLAGS))
-        for (dist, bits), path in libs.items():
+        libs = build(tmp, _build._nvcc(), list(_build.ARCH_FLAGS))
+        for bits, path in libs.items():
             lib = ctypes.CDLL(str(path))
             fn = lib.tq_term_matmul_mma
             fn.argtypes = _build.SIGNATURES["tq_term_matmul_mma"]
@@ -146,9 +131,9 @@ def main() -> None:
                     call()
                 end.record()
                 torch.cuda.synchronize()
-                us[f"prefetch={dist} off={bits} f32_raw_{fmt} "
-                   f"{M}x{K}x{N}"] = start.elapsed_time(end) / 20 * 1e3
-    print(json.dumps({"card": nvidia_smi_line(), "source_prefetch": ahead,
+                us[f"off={bits} f32_raw_{fmt} {M}x{K}x{N}"] = (
+                    start.elapsed_time(end) / 20 * 1e3)
+    print(json.dumps({"card": nvidia_smi_line(),
                       "parts_off": {"1": "mma", "2": "widen+split+store",
                                     "4": "global loads"},
                       "us": us}), flush=True)

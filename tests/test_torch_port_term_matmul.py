@@ -439,6 +439,32 @@ def test_narrow_weights_exact_in_tf32_exhaustive():
     np.testing.assert_array_equal(hi + lo16, int16)
 
 
+def _under_2p23(u: np.ndarray, bias: float) -> np.ndarray:
+    """mma_common.cuh's w_elem: the unsigned u under the exponent of 2^23,
+    less ``bias`` (2^23 plus the format's offset), in float32."""
+    f = (np.uint32(0x4B000000) | u.astype(np.uint32)).view(np.float32)
+    return (f - np.float32(bias)).astype(np.float32)
+
+
+def test_weight_widening_without_conversions_exhaustive():
+    """The kernels widen int8, int16 and the 9-bit pack's bytes without
+    int-to-float conversions: every value comes out exact, as q (the
+    pack: lo ^ 0x80 = |q|, its sign bit then set)."""
+    b = np.arange(256, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        _under_2p23(b ^ 0x80, 2**23 + 128),
+        b.astype(np.uint8).view(np.int8).astype(np.float32))
+    h = np.arange(2**16, dtype=np.uint32)
+    np.testing.assert_array_equal(
+        _under_2p23(h ^ 0x8000, 2**23 + 2**15),
+        h.astype(np.uint16).view(np.int16).astype(np.float32))
+    lo = np.arange(-128, 128).astype(np.int8)
+    mag = _under_2p23(lo.view(np.uint8).astype(np.uint32) ^ 0x80, 2**23)
+    np.testing.assert_array_equal(mag, lo.astype(np.float32) + 128)
+    neg = (mag.view(np.uint32) | np.uint32(1 << 31)).view(np.float32)
+    np.testing.assert_array_equal(neg, -mag)
+
+
 @pytest.mark.parametrize("fmt", FORMATS[1:])
 @pytest.mark.parametrize("quantize_x", [True, False])
 @pytest.mark.parametrize("M,K,N", [(64, 650, 260), (77, 300, 45)])

@@ -56,6 +56,17 @@ int cluster_occupancy(Kernel kernel, int threads, int smem, int splits) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// Four 8 x 16-byte matrices of shared memory into the fragment registers
+// (lane l gives the address of row l % 8 of matrix l / 8; register q
+// holds matrix q's 4-byte word l % 4 of row l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
 // The wrapper's codes of the weight formats (kernels/term_matmul.py's
 // _FORMATS), and the bytes of a weight as stored (the 9-bit pack: its lo
 // byte; the sign plane, one bit a weight, is a second array).
@@ -64,6 +75,40 @@ enum WFmt : int { kWF32 = 0, kWBF16 = 1, kWInt8 = 2, kWInt16 = 3,
 template <int F>
 constexpr int kWBytes = F == kWF32 ? 4 : (F == kWBF16 || F == kWInt16) ? 2
                                                                       : 1;
+
+// Read-only global loads of 1, 2, 4, 8 or 16 bytes that stay where they
+// are written: volatile asm keeps them in order with the step barrier's,
+// so the load warps' loads of a step are issued where the code issues
+// them, a step or more before their use, and not moved towards it.
+__device__ __forceinline__ uint32_t ldg_u8(const char* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t ldg_u16(const char* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t ldg_b32(const char* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint2 ldg_v2(const char* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.v2.b32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint4 ldg_v4(const char* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
 
 // Four elements of E bytes at src, of which the first n exist (zeros past
 // them), as 4 * E bytes in E words, little-endian; read with loads of
@@ -75,29 +120,26 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
   for (int i = 0; i < E; ++i) v[i] = 0u;
   if (n >= 4 && vec == 4) {
     if constexpr (E == 4) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
+      const uint4 a = ldg_v4(src);
       v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
     } else if constexpr (E == 2) {
-      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
+      const uint2 a = ldg_v2(src);
       v[0] = a.x, v[1] = a.y;
     } else {
-      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+      v[0] = ldg_b32(src);
     }
     return;
   }
   if (n >= 4 && vec == 2) {
     if constexpr (E == 4) {
-      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
-      const uint2 b = __ldg(reinterpret_cast<const uint2*>(src + 8));
+      const uint2 a = ldg_v2(src);
+      const uint2 b = ldg_v2(src + 8);
       v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
     } else if constexpr (E == 2) {
-      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
-      v[1] = __ldg(reinterpret_cast<const unsigned int*>(src + 4));
+      v[0] = ldg_b32(src);
+      v[1] = ldg_b32(src + 4);
     } else {
-      v[0] = __ldg(reinterpret_cast<const unsigned short*>(src)) |
-             (static_cast<uint32_t>(
-                  __ldg(reinterpret_cast<const unsigned short*>(src + 2)))
-              << 16);
+      v[0] = ldg_u16(src) | (ldg_u16(src + 2) << 16);
     }
     return;
   }
@@ -105,15 +147,11 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
   for (int i = 0; i < 4; ++i) {
     if (i >= n) break;
     if constexpr (E == 4) {
-      v[i] = __ldg(reinterpret_cast<const unsigned int*>(src) + i);
+      v[i] = ldg_b32(src + 4 * i);
     } else if constexpr (E == 2) {
-      v[i >> 1] |= static_cast<uint32_t>(__ldg(
-                       reinterpret_cast<const unsigned short*>(src) + i))
-                   << (16 * (i & 1));
+      v[i >> 1] |= ldg_u16(src + 2 * i) << (16 * (i & 1));
     } else {
-      v[0] |= static_cast<uint32_t>(
-                  __ldg(reinterpret_cast<const unsigned char*>(src) + i))
-              << (8 * i);
+      v[0] |= ldg_u8(src + i) << (8 * i);
     }
   }
 }
@@ -121,7 +159,10 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
 // Element j of a loaded row of four weights as a float, as
 // term_matmul.cu's weight_value gives it: w, or q of integer and packed
 // weights (exact in float32).  sgn: the pack's four sign bytes; k: the
-// element's K row.
+// element's K row.  Integers are widened without int-to-float
+// conversions (a quarter-rate instruction): q biased to an unsigned u is
+// placed under the exponent of 2^23, and 2^23 plus the bias subtracted,
+// exactly; the pack's sign goes into bit 31.
 template <int F>
 __device__ __forceinline__ float w_elem(const uint32_t (&v)[kWBytes<F>],
                                         uint32_t sgn, int j, int k) {
@@ -129,14 +170,17 @@ __device__ __forceinline__ float w_elem(const uint32_t (&v)[kWBytes<F>],
     return __uint_as_float(v[j]);
   } else if constexpr (F == kWBF16) {
     return __uint_as_float((v[j >> 1] >> (16 * (j & 1))) << 16);
-  } else if constexpr (F == kWInt16) {
-    return static_cast<float>(
-        static_cast<int16_t>(v[j >> 1] >> (16 * (j & 1))));
-  } else if constexpr (F == kWInt8) {
-    return static_cast<float>(static_cast<int8_t>(v[0] >> (8 * j)));
+  } else if constexpr (F == kWInt16) {  // u = q + 2^15
+    const uint32_t u = ((v[j >> 1] >> (16 * (j & 1))) & 0xffffu) ^ 0x8000u;
+    return __fsub_rn(__uint_as_float(0x4B000000u | u), 8421376.f);
+  } else if constexpr (F == kWInt8) {  // u = q + 128
+    const uint32_t u = ((v[0] >> (8 * j)) & 0xffu) ^ 0x80u;
+    return __fsub_rn(__uint_as_float(0x4B000000u | u), 8388736.f);
   } else {  // 9-bit pack: |q| = lo + 128; sign bit k & 7 of the sign byte
-    const float mag = static_cast<float>(((v[0] >> (8 * j)) & 0xffu) ^ 0x80u);
-    return (sgn >> (8 * j + (k & 7))) & 1u ? -mag : mag;
+    const uint32_t mag = ((v[0] >> (8 * j)) & 0xffu) ^ 0x80u;
+    const float m = __fsub_rn(__uint_as_float(0x4B000000u | mag), 8388608.f);
+    return __uint_as_float(__float_as_uint(m) |
+                           (((sgn >> (8 * j + (k & 7))) & 1u) << 31));
   }
 }
 

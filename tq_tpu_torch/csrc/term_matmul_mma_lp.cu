@@ -83,6 +83,7 @@ using tq::kWF32;
 using tq::kWInt16;
 using tq::kWInt8;
 using tq::kWPacked8;
+using tq::ldsm_x4;
 using tq::load4;
 using tq::load_elems;
 using tq::w_elem;
@@ -220,16 +221,6 @@ __device__ __forceinline__ void w_cell(
     o[2] = __byte_perm(u0, u1, 0x5410);
     o[3] = __byte_perm(u0, u1, 0x7632);
   }
-}
-
-// Four 8 x 16-byte matrices of shared memory into the fragment registers
-// (lane l gives the address of row l % 8 of matrix l / 8).
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
 }
 
 // c += a * b on one tile: m16n8k16 bf16 into float32, or m16n8k32 s8 into
