@@ -2,9 +2,10 @@
 // kernels (term_matmul_mma.cu: the f32 mode; term_matmul_mma_lp.cu: the
 // bf16 and int8 modes): the step barrier between their load warps and
 // MMA warps, and the launch of one kernel on clusters of `splits` blocks
-// along x, with the occupancy query the wrapper sizes the clusters by;
-// and what their load warps share: the weight formats, the loads of four
-// elements of a row and the widening of a weight as stored.
+// along x, with the occupancy query the wrapper sizes the clusters by,
+// and the launch arguments; what their load warps share: the weight
+// formats, the loads of four elements of a row and the widening of a
+// weight as stored; and the MMA warps' ldmatrix fragment loads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,40 +77,6 @@ template <int F>
 constexpr int kWBytes = F == kWF32 ? 4 : (F == kWBF16 || F == kWInt16) ? 2
                                                                       : 1;
 
-// Read-only global loads of 1, 2, 4, 8 or 16 bytes that stay where they
-// are written: volatile asm keeps them in order with the step barrier's,
-// so the load warps' loads of a step are issued where the code issues
-// them, a step or more before their use, and not moved towards it.
-__device__ __forceinline__ uint32_t ldg_u8(const char* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ uint32_t ldg_u16(const char* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.u16 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ uint32_t ldg_b32(const char* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ uint2 ldg_v2(const char* p) {
-  uint2 v;
-  asm volatile("ld.global.nc.v2.b32 {%0, %1}, [%2];"
-               : "=r"(v.x), "=r"(v.y)
-               : "l"(p));
-  return v;
-}
-__device__ __forceinline__ uint4 ldg_v4(const char* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
 // Four elements of E bytes at src, of which the first n exist (zeros past
 // them), as 4 * E bytes in E words, little-endian; read with loads of
 // `vec` elements (4, 2 or 1; src aligned to vec * E bytes).
@@ -120,26 +87,29 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
   for (int i = 0; i < E; ++i) v[i] = 0u;
   if (n >= 4 && vec == 4) {
     if constexpr (E == 4) {
-      const uint4 a = ldg_v4(src);
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(src));
       v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
     } else if constexpr (E == 2) {
-      const uint2 a = ldg_v2(src);
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
       v[0] = a.x, v[1] = a.y;
     } else {
-      v[0] = ldg_b32(src);
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
     }
     return;
   }
   if (n >= 4 && vec == 2) {
     if constexpr (E == 4) {
-      const uint2 a = ldg_v2(src);
-      const uint2 b = ldg_v2(src + 8);
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(src));
+      const uint2 b = __ldg(reinterpret_cast<const uint2*>(src + 8));
       v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
     } else if constexpr (E == 2) {
-      v[0] = ldg_b32(src);
-      v[1] = ldg_b32(src + 4);
+      v[0] = __ldg(reinterpret_cast<const unsigned int*>(src));
+      v[1] = __ldg(reinterpret_cast<const unsigned int*>(src + 4));
     } else {
-      v[0] = ldg_u16(src) | (ldg_u16(src + 2) << 16);
+      v[0] = __ldg(reinterpret_cast<const unsigned short*>(src)) |
+             (static_cast<uint32_t>(
+                  __ldg(reinterpret_cast<const unsigned short*>(src + 2)))
+              << 16);
     }
     return;
   }
@@ -147,11 +117,15 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
   for (int i = 0; i < 4; ++i) {
     if (i >= n) break;
     if constexpr (E == 4) {
-      v[i] = ldg_b32(src + 4 * i);
+      v[i] = __ldg(reinterpret_cast<const unsigned int*>(src) + i);
     } else if constexpr (E == 2) {
-      v[i >> 1] |= ldg_u16(src + 2 * i) << (16 * (i & 1));
+      v[i >> 1] |= static_cast<uint32_t>(__ldg(
+                       reinterpret_cast<const unsigned short*>(src) + i))
+                   << (16 * (i & 1));
     } else {
-      v[0] |= ldg_u8(src + i) << (8 * i);
+      v[0] |= static_cast<uint32_t>(
+                  __ldg(reinterpret_cast<const unsigned char*>(src) + i))
+              << (8 * i);
     }
   }
 }
@@ -183,6 +157,17 @@ __device__ __forceinline__ float w_elem(const uint32_t (&v)[kWBytes<F>],
                            (((sgn >> (8 * j + (k & 7))) & 1u) << 31));
   }
 }
+
+// The arguments of a tensor-core term_matmul launch.
+struct MmaArgs {
+  const float* x;
+  const void* w;
+  const int8_t* signs;
+  const float* sf;
+  const float* w_sf;
+  float* out;
+  int M, N, K, bits, budget, splits, k_per_split;
+};
 
 // Elements of `bytes` bytes a load of a row-major matrix with rows of
 // `ld` elements at p may take: 4, 2 or 1, as the row length and the base

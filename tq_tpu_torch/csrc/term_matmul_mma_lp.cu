@@ -450,15 +450,7 @@ term_matmul_mma_lp_kernel(const float* __restrict__ x,
   }
 }
 
-struct Args {
-  const float* x;
-  const void* w;
-  const int8_t* signs;
-  const float* sf;
-  const float* w_sf;
-  float* out;
-  int M, N, K, bits, budget, splits, k_per_split;
-};
+using Args = tq::MmaArgs;
 
 template <int MODE, int F, bool QX>
 int launch(const Args& a, cudaStream_t stream) {
