@@ -48,8 +48,9 @@ non-zero without printing a result:
    streaming kernel and those above it timed at M in CROSSOVER_M; the f32
    mode's eight narrow variants at (64, 650, 33278) and (128, 784, 512)
    (NARROW_CELLS) on the ``mma`` kernel, bit for bit with it on the same
-   weights widened to float32 (times w_sf), timed beside the tiled
-   kernel, ``torch.matmul`` on the decoded weights and the bound; the
+   weights widened to float32 (times w_sf) where both take one plan,
+   timed beside the tiled kernel, ``torch.matmul`` on the decoded weights
+   and the bound; the
    ``mma_lp``
    kernel timed beside the tiled one, the bound, the plain version and
    ``torch.matmul`` / ``torch._int_mm`` at (128, 784, 512), (350, 650,
@@ -73,7 +74,7 @@ non-zero without printing a result:
    over 16 sampled steps the card's step on the CPU's inputs and its
    free-running log-probs on the rows without a boundary flip against the
    CPU plain path on the same packed model, within atol 1e-4; tokens/s,
-   host ms a step and the device's busy time a step (traced);
+   host ms a step and the device's ms a step (CUDA-graph replay);
 10. ``cnn_kernels``: ``tr_quantize`` at the ResNet-18 shapes, bit for bit
     against its plain version: the element-wise body on the four
     activation shapes at batch 64 (RESNET_ACTIVATIONS) in float32 and
@@ -2217,7 +2218,6 @@ BATCH_SERVING = [
     ("int16-bf16", "int", "bfloat16", {"f32_raw_int16": 3,
                                        "f32_raw_bf16": 2}),
 ]
-BATCH_TRACE_STEPS = 10
 
 
 def _row_flips(torch, qp, qs, tr, tok, hidden_a, hidden_b):
@@ -2236,7 +2236,7 @@ def _row_flips(torch, qp, qs, tr, tok, hidden_a, hidden_b):
     return flips
 
 
-def phase_lstm_batch_serving(torch, ckpt: Path, tmp: Path, smi: str):
+def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
     """Greedy sampling at batch 64 for GEN_WORDS steps from the LSTM LM at
     full width, packed as bench.py::bench_generate packs it (u8s, the
     recurrent weights packed too), written here from the port's
@@ -2248,13 +2248,14 @@ def phase_lstm_batch_serving(torch, ckpt: Path, tmp: Path, smi: str):
     against the CPU plain path on the same packed model (log-probs and
     hidden state within 1e-4), and the card's free-running log-probs
     against the CPU's on every row whose quantized inputs never differed
-    (boundary flips counted).  Reported: tokens/s, host ms a step, and
-    from a traced run the device's busy time a step by kernel class."""
+    (boundary flips counted).  Reported: tokens/s and host ms a step (the
+    median of the counted run and two more), and
+    the device's ms a step and the decoder's by CUDA-graph replay."""
     from tq_tpu_torch.evals.generate import calibrate
     from tq_tpu_torch.kernels.term_matmul import term_matmul
     from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.layers.linear import tr_dense_apply
     from tq_tpu_torch.utils.params import params_from_jax
-    from tq_tpu_torch.utils.trace import TRACE_FILE, device_trace
 
     params_np, stream = _lstm_inputs(ckpt)
     params = params_from_jax(params_np, "cuda")
@@ -2295,6 +2296,14 @@ def phase_lstm_batch_serving(torch, ckpt: Path, tmp: Path, smi: str):
             seconds = time.perf_counter() - t0
             variants = {k: n for k, n in term_matmul.launches.items() if n}
             counts.append(launches)
+            # Host time moves between runs: two more, uncounted.
+            runs = [seconds]
+            for _ in range(2):
+                t0 = time.perf_counter()
+                sample(GEN_WORDS)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            seconds = float(np.median(runs))
         if not (0 <= int(toks.min()) and int(toks.max()) < VOCAB):
             fail(f"batch serving {name}: tokens out of range")
         if not all(bool(torch.isfinite(lp).all()) for lp, _ in kept):
@@ -2348,35 +2357,23 @@ def phase_lstm_batch_serving(torch, ckpt: Path, tmp: Path, smi: str):
                 fail(f"batch serving {name}: {what} differ by {err} card "
                      "vs cpu")
 
-        # Host time a step (untraced, above) against the device's busy
-        # time a step from a traced run.
-        def traced(qpk=qpk):
-            with device_trace(tmp, f"batch_serving_{name}") as path:
-                sample(BATCH_TRACE_STEPS)
-                torch.cuda.synchronize()
-            return path
-
-        path = traced()
-        events = json.loads((path / TRACE_FILE).read_text())["traceEvents"]
-        kernels = [e for e in events if e.get("cat") == "kernel"]
-        if not kernels:
-            fail(f"batch serving {name}: no kernel events in the trace")
-        by_kind: dict = {}
-        for e in kernels:
-            k = by_kind.setdefault(_kind(e["name"]), {"us": 0.0,
-                                                      "launches": 0})
-            k["us"] += e["dur"] / BATCH_TRACE_STEPS
-            k["launches"] += 1
-        busy_ms = sum(e["dur"] for e in kernels) / BATCH_TRACE_STEPS / 1e3
+        # Host time a step (above) against the device's: a step's launches
+        # captured in a CUDA graph and replayed, no host time between them
+        # (no torch.profiler here: after two sessions of it, phase trace's
+        # own session missed kernel events); and the decoder's product
+        # alone, on the last kept step's output.
+        h_last = kept[-1][1][0][-1]
+        step_ms = device_ms(torch, lambda: fwd(qpk, qs, toks[:1], kept[0][1]))
+        decoder_ms = device_ms(torch, lambda: tr_dense_apply(
+            qpk["decoder"], qc["decoder"], qs["decoder"], h_last, False))
         host_ms = seconds / GEN_WORDS * 1e3
         results[name] = dict(
             pack=pack, unquantized_dtype=half, steps=GEN_WORDS, batch=BATCH,
-            seconds=seconds, tokens_per_s=BATCH * GEN_WORDS / seconds,
+            seconds=seconds, run_seconds=runs,
+            tokens_per_s=BATCH * GEN_WORDS / seconds,
             steps_per_s=GEN_WORDS / seconds, host_ms_per_step=host_ms,
-            device_busy_ms_per_step=busy_ms,
-            device_idle_share=1.0 - busy_ms / host_ms,
-            busy_us_per_step_by_kind=dict(sorted(
-                by_kind.items(), key=lambda kv: -kv[1]["us"])),
+            device_ms_per_step=step_ms, decoder_ms=decoder_ms,
+            device_idle_share=1.0 - step_ms / host_ms,
             launches_by_variant=variants,
             launches={k: v for k, v in launches.items() if v},
             teacher_steps=len(kept), logp_max_abs_err=step_err,
@@ -4669,7 +4666,7 @@ def main(argv=None) -> None:
                                                                   ckpt)
             phase_serving_compare(torch, ckpt, tokens, card, smi)
             by_path["lstm_batch_serving"] = phase_lstm_batch_serving(
-                torch, ckpt, Path(tmp), smi)
+                torch, ckpt, smi)
     if "cnn" in groups:
         cnn = phase_cnn_kernels(torch)
         for name in ("tr_quantize_elementwise", "tr_quantize_grouped"):

@@ -551,10 +551,11 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
       multiples of 8 rows over a cluster of up to 8 blocks, as evenly
       over the SMs as one wave allows (:func:`_stream_splits`); no
       workspace.
-    * tiled (on no route): a block per 64x64 output tile; K split in multiples of the K
-      step over ``blockIdx.z``, enough for about two blocks per SM, the
-      partials in a (splits, M, N) workspace (int32 in the int8 mode,
-      float32 otherwise) when there is more than one split.
+    * tiled (on no route): a block per 64x64 output tile; K split in
+      multiples of the K step over ``blockIdx.z``, enough for about two
+      blocks per SM, the partials in a (splits, M, N) workspace (int32 in
+      the int8 mode, float32 otherwise) when there is more than one
+      split.
     * mma: a block per 32x128 output tile and K split in multiples of 8
       rows over a cluster of up to 8 blocks: the largest cluster of which
       the card runs one per tile at once (``clusters[s - 1]``: clusters of
