@@ -189,12 +189,37 @@ non-zero without printing a result:
     settings, each timed beside its plain version;
 29. ``example``: ``python -m tq_tpu_torch.examples.quantize_resnet18`` at
     224 in its own process: its cost lines and the serving-mode line.
+30. ``par``: the port's ``parallel/`` at full width, world 1 over NCCL in
+    this process and world 2 over gloo in two ranks sharing the card
+    (``parallel/launch.py``; CUDA tensors staged through pinned host
+    memory, the bytes printed): the Transformer LM (33278 / 650 / 2 heads
+    / 650 / 2 layers, ``transformer_checkpoint``'s weights, u8s) with its
+    decoder column-parallel (``make_tp_quantized_apply``) at tokens (35,
+    10), raw input on ``mma`` and quantized input on ``mma_lp``, and a
+    5-token prompt at batch 1 on the streaming kernel: world 1 bit for bit
+    with the unsharded forward, world 2 (shards of 16,639 columns) within
+    rtol 1e-5, atol 1e-4 * max|ref| of world 1; ``BatchRunner`` over
+    'data' (the LSTM LM packed u8s, 131 requests in batches of 64, 16
+    greedy tokens): the rows without a boundary flip within atol 1e-4 of
+    world 1, flips counted; at world 2 the four TP functions at (128, 784,
+    512) and (350, 650, 2600) in the f32, int8 and bf16 modes against the
+    unsharded call (column-parallel int8 bit for bit), the GPipe MLP
+    pipeline (forward and gradients) and the TR trunk (B1 every tick)
+    against the sequential stages, a DP x TP MLP step on (2, 1) and (1,
+    2) against the single-device step, and the sharded checkpoint read
+    back bit for bit; then what NCCL says to two ranks on one card;
+31. ``par_cells``: ``mma`` (f32_raw_packed8) and ``mma_lp``
+    (bf16_packed8) at the decoder's shard (350, 650, 16639) and whole
+    (350, 650, 33278), timed here alone beside ``torch.matmul``, the plain
+    version and the bound;
+32. ``par_examples``: the three parallel examples at ``--world 2``, each
+    in its own process, each printing its JAX twin's line.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
-device; imports nothing of JAX.  ``--only mlp|lstm|cnn|zoo|tfm|train|leaf``
-runs the build and those groups of phases only (phases 2-5, 6-9, 10-12,
-13-15, 16-19, 20-23, 24-29).
+device; imports nothing of JAX.  ``--only
+mlp|lstm|cnn|zoo|tfm|train|leaf|par`` runs the build and those groups of
+phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-32).
 """
 
 from __future__ import annotations
@@ -596,12 +621,14 @@ KERNELS = {
     "term_matmul_kernel_mma": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
-    # The bf16 and int8 modes at M > STREAM_MAX_M, on the tensor cores; no
-    # path runs one.  Held in phase term_matmul_modes (every variant) and
-    # timed there beside the tiled kernel it replaced.
+    # The bf16 and int8 modes at M > STREAM_MAX_M, on the tensor cores.
+    # Held in phase term_matmul_modes (every variant) and timed there
+    # beside the tiled kernel it replaced; its path is group par's (the
+    # column-parallel decoder's quantized input, the TP int8 and bf16
+    # products), timed there at the decoder's shard shape.
     "term_matmul_kernel_mma_lp": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma_lp.cu",
-        replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
+        replaces="tq_tpu/kernels/term_matmul.py:264"),
     # On no route; timing reference only (launch(kernel="tiled")): held
     # and timed in phase kernels beside the mma kernel on float32 weights
     # and in phase term_matmul_modes beside the mma kernel on the narrow
@@ -4600,10 +4627,606 @@ class _NoPlainOnCard:
         return False
 
 
+# -------------------------------------------------------------- group par
+#
+# The port's parallel/ on one card: world 1 over NCCL in this process,
+# world 2 over gloo in two ranks that share the card (NCCL refuses two
+# ranks on one device; phase par records what it says).  No multi-GPU
+# run: every world-2 number is of two processes on one card.
+
+PAR_SEED = 0
+PAR_TOKENS = (35, 10)      # the decoder at M = 350
+PAR_PROMPT = (5, 1)        # T <= STREAM_MAX_M at batch 1: streaming kernel
+PAR_SF = 0.05              # every Transformer quantizer's scale
+PAR_TP_SHAPES = [(128, 784, 512), (350, 650, 2600)]
+PAR_REQUESTS, PAR_BATCH, PAR_WORDS = 131, 64, 16
+PAR_LSTM_SF = 0.01         # the LSTM's activation scale (|h|, |c| < 2.55)
+PAR_PIPE = dict(width=512, n_micro=8, micro_batch=32, in_dim=784)
+PAR_TIMED = [(350, 650, VOCAB // 2), (350, 650, VOCAB)]
+PAR_EXAMPLES = [("sharded_inference", "served 100 requests"),
+                ("pipeline_inference", "pipelined 8 microbatches"),
+                ("lm_serving", "served 51 generation requests")]
+
+
+def _par_close(got, want, rtol: float, what: str, atol=None) -> float:
+    """Fail unless ``got`` is within rtol and atol (default: 1e-4 *
+    max|want|, the sum-order class) of ``want``; the max |diff|."""
+    import torch
+
+    if got.shape != want.shape:
+        fail(f"{what}: shape {tuple(got.shape)}, not {tuple(want.shape)}")
+    if atol is None:
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{what}: max |diff| {err}")
+    return err
+
+
+def _par_transformer(torch, spec: dict, mesh) -> dict:
+    """The Transformer LM at full width, decoder u8s and column-parallel
+    over 'model': raw input (mma, f32_raw_packed8) and quantized input
+    (mma_lp, bf16_packed8) at tokens (35, 10), and a 5-token prompt at
+    batch 1 (the streaming kernel); at world 1 bit for bit with the
+    unsharded forward.  Tokens/s of the TP forward (host clock ending in a
+    synchronize; two ranks share one card at world 2)."""
+    import torch.distributed as dist
+
+    from tq_tpu_torch.models import transformer_lm as tl
+    from tq_tpu_torch.parallel.sharding import shard_pytree
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params = params_from_jax(load_params(spec["tfm_ckpt"]), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(GEN_SEED).integers(
+        0, VOCAB, PAR_TOKENS), device="cuda")
+    prompt = tokens[:PAR_PROMPT[0], :PAR_PROMPT[1]].contiguous()
+    out = {}
+    for branch in ("raw", "quantized"):
+        qp, qc, qs = tl.convert(params, 8, 8, 24, 8, 8,
+                                quantize_input=branch == "quantized")
+        qs = _with_sf(torch, qs, PAR_SF)
+        qp = tl.pack(qp, qc, fmt="u8s")
+        tp_qp = shard_pytree(qp, tl.tp_param_specs(), mesh)
+        fwd = tl.make_tp_quantized_apply(qc, mesh)
+        with torch.no_grad():
+            logp, _ = fwd(tp_qp, qs, tokens)
+            logp_p, _ = fwd(tp_qp, qs, prompt)
+            if not (bool(torch.isfinite(logp).all())
+                    and bool(torch.isfinite(logp_p).all())):
+                fail(f"par transformer {branch}: log-probs not finite")
+            r = {"decoder_shard": list(tp_qp["decoder"]["w"].lo.shape)}
+            if dist.get_world_size() == 1:
+                ref = tl.make_quantized_apply(qc, track=False)
+                for name, got, toks in (("tokens", logp, tokens),
+                                        ("prompt", logp_p, prompt)):
+                    want, _ = ref(qp, qs, toks)
+                    if not torch.equal(got, want):
+                        fail(f"par transformer {branch} {name}: the (1, 1) "
+                             "mesh's forward is not bit for bit the "
+                             "unsharded one (max |diff| "
+                             f"{float((got - want).abs().max())})")
+                r["bit_equal_unsharded"] = True
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fwd(tp_qp, qs, tokens)
+            torch.cuda.synchronize()
+        r["tokens_per_s_one_shared_card"] = (
+            5 * tokens.numel() / (time.perf_counter() - t0))
+        r["logp"] = logp.cpu().numpy()
+        r["prompt_logp"] = logp_p.cpu().numpy()
+        out[branch] = r
+        del qp, tp_qp, logp, logp_p
+    return out
+
+
+def _par_codes(torch, qp, qs, tr, tok, hidden):
+    """Per batch row, an int64 fingerprint of the rounded activation
+    levels min(floor(|v|/sf + 0.5), 2^bits - 1) * sign(v) that the LSTM's
+    quantizer sees at this step (the embedding, h and c of every layer);
+    plain tensor code on the card, no kernel.  Equal fingerprints: the
+    same quantized inputs (the kept terms are a function of the level)."""
+    sf = qs["rnn"]["sf"]
+    fp = torch.zeros(tok.shape[1], dtype=torch.int64, device=tok.device)
+    vals = [qp["encoder"]["w"][tok.long()][0]] + [
+        t[i] for t in hidden for i in range(t.shape[0])]
+    for v in vals:
+        level = torch.clamp(torch.floor(v.abs() / sf + 0.5),
+                            max=2 ** tr.data_bits - 1)
+        q = (level * torch.sign(v)).to(torch.int64)
+        c = (torch.arange(q.shape[1], device=q.device, dtype=torch.int64)
+             * 2654435761) % (1 << 31) + 1
+        fp = fp * 1000003 + (q * c).sum(dim=1)
+    return fp
+
+
+def _par_serving(torch, spec: dict, mesh) -> dict:
+    """``BatchRunner`` over 'data': the full-width LSTM LM packed as
+    bench.py::bench_generate packs it (u8s, the recurrent weights too),
+    PAR_REQUESTS one-token prompts in batches of PAR_BATCH (the tail
+    padded), PAR_WORDS greedy tokens each; every rank runs its rows
+    (M = PAR_BATCH / world, on the mma kernel).  Returns each request's
+    tokens, the log-prob of each chosen token and the quantized inputs'
+    fingerprints, gathered in request order."""
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.parallel.serving import BatchRunner
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params = params_from_jax(load_params(spec["lstm_ckpt"]), "cuda")
+    qp, qc, qs = lstm_lm.convert(params, 8, 8, 24, 8, 8)
+    qs = _with_sf(torch, qs, PAR_LSTM_SF)
+    qpk = lstm_lm.pack(qp, qc, fmt="u8s", rnn=True)
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    H = params["rnn"][0]["w_hh"].shape[0]
+
+    def serve(tok0):
+        B = tok0.shape[0]
+        hidden = lstm_lm.init_hidden(B, nhid=H, device="cuda")
+        tok = tok0.T.contiguous()
+        toks, lps, fps = [], [], []
+        with torch.no_grad():
+            for _ in range(PAR_WORDS):
+                fps.append(_par_codes(torch, qpk, qs, qc["rnn"], tok, hidden))
+                logp, hidden, _ = fwd(qpk, qs, tok, hidden)
+                nxt = logp.argmax(-1)
+                lps.append(logp.gather(1, nxt[:, None])[:, 0])
+                toks.append(nxt)
+                tok = nxt[None, :]
+        return (torch.stack(toks, 1), torch.stack(lps, 1),
+                torch.stack(fps, 1))
+
+    runner = BatchRunner(serve, mesh, batch_size=PAR_BATCH)
+    rng = np.random.default_rng(GEN_SEED)
+    requests = [np.asarray([t]) for t in rng.integers(0, VOCAB,
+                                                      PAR_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = runner.run_all(requests)
+    seconds = time.perf_counter() - t0
+    return {"tokens": np.stack([r[0] for r in results]),
+            "logp": np.stack([r[1] for r in results]),
+            "codes": np.stack([r[2] for r in results]),
+            "seconds": seconds,
+            "tokens_per_s_one_shared_card":
+                PAR_REQUESTS * PAR_WORDS / seconds}
+
+
+def _par_tp(torch, mesh) -> dict:
+    """The four TP functions at PAR_TP_SHAPES in three modes (f32 on
+    float32 weights: mma; int8 on int8 weights: mma_lp; bf16 on int16
+    weights: mma_lp) and the column-parallel 9-bit pack (bf16 and raw),
+    each gathered and held against the unsharded port call on the card:
+    column-parallel in the sum-order class, its int8 mode bit for bit;
+    row-parallel and the ring rtol 1e-4, atol 1e-4."""
+    from tq_tpu_torch.kernels.term_matmul import (pack_weight_int,
+                                                  pack_weight_u8s,
+                                                  term_matmul)
+    from tq_tpu_torch.layers.common import TRParams, quantize_weight
+    from tq_tpu_torch.parallel import tp
+    from tq_tpu_torch.parallel._compat import all_gather
+    from tq_tpu_torch.parallel.sharding import P, shard, shard_pytree
+
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    errs = {}
+    for M, K, N in PAR_TP_SHAPES:
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        wf = torch.randn(K, N, generator=gen, device="cuda") * 0.1
+        wq7, s7 = quantize_weight(wf, TRParams(7, 8, 12, 7, 3), axis=0)
+        wq8, s8 = quantize_weight(wf, TRParams(8, 8, 24, 8, 3), axis=0)
+        w8, w8_sf = pack_weight_int(wq7, s7, 7)
+        w16, w16_sf = pack_weight_int(wq8, s8, 8)
+        modes = {"f32": (wf, None, 0.04, 8, {}),
+                 "int8": (w8, w8_sf, 0.05, 7, {"int8": True}),
+                 "bf16_int16": (w16, w16_sf, 0.05, 8, {"bf16": True})}
+        for mode, (w, w_sf, sf, bits, kw) in modes.items():
+            ref = term_matmul(x, w, sf, bits, 3, w_sf=w_sf, **kw)
+            col = all_gather(tp.tp_term_matmul_col(
+                x, shard(w, P(None, "model"), mesh), sf, bits, 3, mesh,
+                w_sf=w_sf, **kw), mesh, "model", axis=1)
+            row = tp.tp_term_matmul_row(
+                shard(x, P(None, "model"), mesh),
+                shard(w, P("model", None), mesh), sf, bits, 3, mesh,
+                w_sf=w_sf, **kw)
+            ring = all_gather(tp.tp_term_matmul_overlap(
+                shard(x, P(None, "model"), mesh),
+                shard(w, P(None, "model"), mesh), sf, bits, 3, mesh,
+                w_sf=w_sf, **kw), mesh, "model", axis=1)
+            key = f"{mode} {M}x{K}x{N}"
+            if mode == "int8" and not torch.equal(col, ref):
+                fail(f"par tp col {key}: not bit for bit")
+            errs[f"col {key}"] = _par_close(col, ref, 1e-5,
+                                            f"par tp col {key}")
+            errs[f"row {key}"] = _par_close(row, ref, 1e-4,
+                                            f"par tp row {key}", atol=1e-4)
+            errs[f"overlap {key}"] = _par_close(ring, ref, 1e-4,
+                                                f"par tp overlap {key}",
+                                                atol=1e-4)
+        wp = pack_weight_u8s(wq8, s8, 8)
+        wpl = shard_pytree(wp, P(None, "model"), mesh)
+        for branch, sf, kw in (("bf16", 0.04, {}),
+                               ("raw", 1.0, {"bf16": False,
+                                             "quantize_x": False})):
+            ref = term_matmul(x, wp, sf, 8, 3, bf16=kw.get("bf16", True),
+                              quantize_x=kw.get("quantize_x", True))
+            got = all_gather(tp.tp_term_matmul_col_packed(
+                x, wpl, sf, 8, 3, mesh, **kw), mesh, "model", axis=1)
+            key = f"col_packed {branch} {M}x{K}x{N}"
+            errs[key] = _par_close(got, ref, 1e-5, f"par tp {key}")
+    return errs
+
+
+def _par_pipeline(torch, mesh) -> dict:
+    """``build_mlp_pipeline`` at width 512 over 'stage', forward and
+    gradients against the same parameters run stage after stage on the
+    card (within 1e-5); the TR trunk (``make_tr_block_fn(7, 3)``, 8
+    microbatches of 32) against the sequential blocks, B1 launched on
+    every tick of every stage."""
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.parallel._compat import axis_size, psum
+    from tq_tpu_torch.parallel.pp import (build_mlp_pipeline,
+                                          make_tr_block_fn, pipeline_apply)
+
+    S = axis_size(mesh, "stage")
+    p = PAR_PIPE
+    params, forward = build_mlp_pipeline(
+        torch.Generator().manual_seed(PAR_SEED), S, width=p["width"],
+        in_dim=p["in_dim"], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    x = torch.randn(p["n_micro"], p["micro_batch"], p["in_dim"],
+                    generator=gen, device="cuda")
+    leaves = [(g, k) for g in params for k in params[g]]
+    for g, k in leaves:
+        params[g][k].requires_grad_(True)
+    logp = forward(params, x, mesh)
+    (logp ** 2).sum().backward()
+    # The trunk's and the stem's gradients live on the stage that used
+    # them: summed over 'stage'; the head's is whole on every rank.
+    grads = {f"{g}.{k}": (psum(params[g][k].grad, mesh, "stage")
+                          if g != "head" else params[g][k].grad)
+             for g, k in leaves}
+    seq = {g: {k: v.detach().clone().requires_grad_(True)
+               for k, v in d.items()} for g, d in params.items()}
+
+    def block(q, h):
+        return torch.relu(torch.matmul(h, q["w"]) + q["b"])
+
+    h = torch.relu(torch.einsum("mbi,io->mbo", x, seq["stem"]["w"])
+                   + seq["stem"]["b"])
+    for s in range(S):
+        h = block({k: v[s] for k, v in seq["trunk"].items()}, h)
+    want = torch.log_softmax(torch.einsum("mbi,io->mbo", h, seq["head"]["w"])
+                             + seq["head"]["b"], dim=-1)
+    (want ** 2).sum().backward()
+    out = {"logp": _par_close(logp.detach(), want.detach(), 1e-5,
+                              "par pipeline forward", atol=1e-5)}
+    for g, k in leaves:
+        ref = seq[g][k].grad
+        out[f"grad {g}.{k}"] = _par_close(
+            grads[f"{g}.{k}"], ref, 1e-5, f"par pipeline gradient {g}.{k}",
+            atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+    width = p["width"]
+    trunk = {"w": torch.randn(S, width, width, generator=gen,
+                              device="cuda") * 0.05,
+             "b": torch.zeros(S, width, device="cuda"),
+             "w_sf": torch.full((S,), 0.01, device="cuda"),
+             "a_sf": torch.full((S,), 0.05, device="cuda")}
+    xt = torch.randn(p["n_micro"], p["micro_batch"], width, generator=gen,
+                     device="cuda")
+    tr_block = make_tr_block_fn(7, 3)
+    before = tr_quantize.launches["elementwise"]
+    with torch.no_grad():
+        y = pipeline_apply(trunk, xt, tr_block, mesh)
+        torch.cuda.synchronize()
+        ticks = tr_quantize.launches["elementwise"] - before
+        if ticks != p["n_micro"] + S - 1:
+            fail(f"par pipeline TR trunk: {ticks} B1 launches on this "
+                 f"rank, not one a tick ({p['n_micro'] + S - 1})")
+        hs = xt
+        for s in range(S):
+            hs = tr_block({k: v[s] for k, v in trunk.items()}, hs)
+    out["tr_trunk"] = _par_close(y, hs, 1e-5, "par pipeline TR trunk",
+                                 atol=1e-5)
+    out["tr_ticks_b1"] = ticks
+    return out
+
+
+def _par_train(torch, mesh) -> dict:
+    """One DP x TP MLP step at dropout 0 on the card against the
+    single-device step: loss rtol 1e-5, parameters rtol 1e-4."""
+    from tq_tpu_torch.evals import train_mlp
+    from tq_tpu_torch.models import mlp
+    from tq_tpu_torch.parallel._compat import all_gather
+    from tq_tpu_torch.parallel.sharding import mlp_param_specs, shard_pytree
+    from tq_tpu_torch.parallel.train import make_sharded_train_step
+
+    def init():
+        return mlp.init(torch.Generator().manual_seed(PAR_SEED),
+                        device="cuda")
+
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    x = torch.randn(64, 1, 28, 28, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (64,), generator=gen, device="cuda")
+    specs = mlp_param_specs()
+    params = shard_pytree(init(), specs, mesh)
+    opt = torch.optim.Adadelta(train_mlp.trainable(params), lr=1.0)
+    loss = make_sharded_train_step(opt, mesh)(params, x, y, dropout=False)
+    single = init()
+    opt1 = torch.optim.Adadelta(train_mlp.trainable(single), lr=1.0)
+    loss1 = train_mlp.train_step(single, opt1, x, y, dropout=False)
+    out = {"loss": float(loss), "single_loss": float(loss1)}
+    _par_close(loss, loss1, 1e-5, "par train loss", atol=0.0)
+    for name, leaves in specs.items():
+        for leaf, spec in leaves.items():
+            t = params[name][leaf].detach()
+            for axis, dim in enumerate(spec):
+                if dim is not None:
+                    t = all_gather(t, mesh, dim, axis=axis)
+            out[f"{name}.{leaf}"] = _par_close(
+                t, single[name][leaf].detach(), 1e-4,
+                f"par train {name}.{leaf}", atol=1e-7)
+    return out
+
+
+def _par_checkpoint(torch, spec: dict, mesh) -> dict:
+    """The TP-sharded MLP saved by every rank
+    (``save_params_orbax``, ``torch.distributed.checkpoint``) and read
+    back into zeroed shards: bit for bit."""
+    from tq_tpu_torch.models import mlp
+    from tq_tpu_torch.parallel.sharding import mlp_param_specs, shard_pytree
+    from tq_tpu_torch.utils.checkpoint import (load_params_orbax,
+                                               save_params_orbax)
+
+    specs = mlp_param_specs()
+    params = shard_pytree(mlp.init(torch.Generator().manual_seed(PAR_SEED),
+                                   device="cuda"), specs, mesh)
+    save_params_orbax(spec["ckpt"], params, mesh=mesh, specs=specs)
+    like = {n: {k: torch.zeros_like(v) for k, v in d.items()}
+            for n, d in params.items()}
+    back = load_params_orbax(spec["ckpt"], like=like, mesh=mesh, specs=specs)
+    for n in params:
+        for k in params[n]:
+            if not torch.equal(back[n][k], params[n][k]):
+                fail(f"par checkpoint {n}.{k}: not read back bit for bit")
+    return {"fc1_w_shard": list(params["fc1"]["w"].shape), "equal": True}
+
+
+def par_rank(spec: dict):
+    """One rank of group par (world 1 in this process over NCCL, or each
+    of two gloo ranks sharing the card): the path's launches counted from
+    0 and summed over the ranks, the bytes gloo staged through the host;
+    rank 0 returns everything."""
+    import torch
+    import torch.distributed as dist
+
+    from tq_tpu_torch.parallel import _compat
+    from tq_tpu_torch.parallel.mesh import make_mesh
+    from tq_tpu_torch.parallel.pp import make_pipeline_mesh
+
+    world = dist.get_world_size()
+    for k in _compat.staged:
+        _compat.staged[k] = 0
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {"world": world, "backend": dist.get_backend()}
+    model = make_mesh(1, world, device="cuda")
+    data = make_mesh(world, 1, device="cuda")
+    with _NoPlainOnCard():
+        out["transformer"] = _par_transformer(torch, spec, model)
+        out["serving"] = _par_serving(torch, spec, data)
+        if world > 1:
+            out["tp_max_abs_err"] = _par_tp(torch, model)
+            out["pipeline"] = _par_pipeline(
+                torch, make_pipeline_mesh(world, device="cuda"))
+            out["train"] = {"data2": _par_train(torch, data),
+                            "model2": _par_train(torch, model)}
+            out["checkpoint"] = _par_checkpoint(torch, spec, model)
+    torch.cuda.synchronize()
+    mine = (_read_counts(), dict(_compat.staged))
+    everyone = [None] * world
+    dist.all_gather_object(everyone, mine)
+    out["launches"] = _sum_counts(*[c for c, _ in everyone])
+    out["staged"] = {k: sum(s[k] for _, s in everyone)
+                     for k in _compat.staged}
+    out["seconds"] = time.perf_counter() - t0
+    return out if dist.get_rank() == 0 else None
+
+
+def _nccl_pair() -> str:
+    """Two NCCL ranks on one card: an all-reduce (run by launch.run)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return f"all_reduce gave {t.tolist()}"
+
+
+def phase_par(torch, smi: str, tmp: Path) -> dict:
+    """Group par: the port's parallel/ driven at world 1 (NCCL, here) and
+    world 2 (gloo, two ranks on the one card), world 2 held against world
+    1 (see par_rank); then what NCCL says to two ranks on one card."""
+    import torch.distributed as dist
+
+    from tq_tpu_torch.parallel import launch
+
+    spec = {"tfm_ckpt": str(tmp / "transformer_seeded.npz"),
+            "lstm_ckpt": str(tmp / "lstm_seeded.npz"),
+            "ckpt": str(tmp / "tp_mlp_ckpt")}
+    transformer_checkpoint(spec["tfm_ckpt"])
+    lstm_checkpoint(spec["lstm_ckpt"])
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdv1'}",
+                            rank=0, world_size=1)
+    try:
+        w1 = par_rank(spec)
+    finally:
+        dist.destroy_process_group()
+    w1_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w2 = launch.run(par_rank, 2, args=(spec,), backend="gloo", timeout=900)
+    w2_seconds = time.perf_counter() - t0
+
+    # World 2 (decoder shards of 16,639 columns) against world 1.
+    tfm = {}
+    for branch in ("raw", "quantized"):
+        a, b = w1["transformer"][branch], w2["transformer"][branch]
+        errs = {}
+        for key in ("logp", "prompt_logp"):
+            want = torch.from_numpy(a[key])
+            errs[key] = _par_close(torch.from_numpy(b[key]), want, 1e-5,
+                                   f"par transformer {branch} {key}: world "
+                                   "2 vs world 1")
+        tfm[branch] = {"max_abs_err_vs_world1": errs,
+                       "decoder_shard": b["decoder_shard"],
+                       "unsharded_decoder": a["decoder_shard"],
+                       "tokens_per_s_world1":
+                           a["tokens_per_s_one_shared_card"],
+                       "tokens_per_s_world2_one_shared_card":
+                           b["tokens_per_s_one_shared_card"]}
+    s1, s2 = w1["serving"], w2["serving"]
+    flipped = (s1["codes"] != s2["codes"]).any(axis=1)
+    keep = ~flipped
+    if not keep.any():
+        fail("par serving: every request's quantized inputs flipped")
+    if not (s1["tokens"][keep] == s2["tokens"][keep]).all():
+        fail("par serving: tokens differ on rows without a boundary flip")
+    lp_err = float(np.abs(s1["logp"][keep] - s2["logp"][keep]).max())
+    if lp_err > 1e-4:
+        fail(f"par serving: log-probs differ by {lp_err} world 2 vs 1")
+    if not (np.isfinite(s1["logp"]).all() and np.isfinite(s2["logp"]).all()):
+        fail("par serving: log-probs not finite")
+
+    launches = _sum_counts(w1["launches"], w2["launches"])
+    _require_launched(launches, [
+        "term_matmul_kernel_mma", "term_matmul_kernel_mma_lp",
+        "term_matmul_kernel_stream", "tr_quantize_elementwise",
+        "tr_quantize_grouped"], "par")
+    if launches["term_matmul_kernel_tiled"]:
+        fail("par: the tiled term_matmul kernel ran")
+
+    try:
+        nccl_pair = launch.run(_nccl_pair, 2, backend="nccl",
+                               timeout=120)
+    except (RuntimeError, TimeoutError) as e:
+        said = dict.fromkeys(  # NCCL's own lines, each once, in order
+            ln.strip() for ln in str(e).splitlines()
+            if "NCCL" in ln or "Duplicate" in ln or "ncclInvalid" in ln)
+        nccl_pair = "refused: " + " | ".join(said)
+    emit({"phase": "par", "ok": True, "nvidia_smi": smi,
+          "note": "world 2 is two processes sharing one card over gloo: "
+                  "no multi-GPU run; tokens/s are not a scaling figure",
+          "world1": {"backend": w1["backend"], "seconds": w1_seconds,
+                     "path_seconds": w1["seconds"]},
+          "world2": {"backend": w2["backend"], "seconds": w2_seconds,
+                     "path_seconds": w2["seconds"],
+                     "gloo_staged_bytes": w2["staged"]},
+          "transformer": tfm,
+          "serving": {"requests": PAR_REQUESTS, "batch": PAR_BATCH,
+                      "words": PAR_WORDS,
+                      "rows_with_boundary_flip": int(flipped.sum()),
+                      "logp_max_abs_err_vs_world1": lp_err,
+                      "tokens_per_s_world1":
+                          s1["tokens_per_s_one_shared_card"],
+                      "tokens_per_s_world2_one_shared_card":
+                          s2["tokens_per_s_one_shared_card"]},
+          "tp_max_abs_err": w2["tp_max_abs_err"],
+          "pipeline": w2["pipeline"], "train": w2["train"],
+          "checkpoint": w2["checkpoint"],
+          "launches_world1": {k: v for k, v in w1["launches"].items() if v},
+          "launches_world2": {k: v for k, v in w2["launches"].items() if v},
+          "nccl_two_ranks_one_card": nccl_pair})
+    return launches
+
+
+def phase_par_cells(torch, smi: str) -> dict:
+    """The decoder's shard shapes timed here alone (not in ranks sharing
+    the card): mma in f32_raw_packed8 and mma_lp in bf16_packed8 at (350,
+    650, 16639) beside the unsharded (350, 650, 33278), by CUDA-graph
+    replay, beside torch.matmul on the decoded weights (float32, TF32 off;
+    bfloat16 for the bf16 mode), the plain version and the bound (the
+    f32 mode on the pack: two TF32 products)."""
+    from tq_tpu_torch.kernels.term_matmul import (launch, term_matmul,
+                                                  term_matmul_ref)
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    cells = {"term_matmul_kernel_mma": {}, "term_matmul_kernel_mma_lp": {}}
+    for M, K, N in PAR_TIMED:
+        wp, _, wv = _tm_weights(torch, "packed8", K, N, gen, "cuda")
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        sf = torch.tensor(0.03, device="cuda")
+        nbytes = 4 * M * K + _weight_bytes("packed8", K, N) + 4 * M * N
+        for row, variant, kw, peak, products in (
+                ("term_matmul_kernel_mma", "f32_raw_packed8",
+                 dict(quantize_x=False), TF32_FLOP_PER_S, 2),
+                ("term_matmul_kernel_mma_lp", "bf16_packed8",
+                 dict(bf16=True), BF16_FLOP_PER_S, 1)):
+            kernel = row.removeprefix("term_matmul_kernel_")
+            before = term_matmul.kernel_launches[kernel]
+            out = term_matmul(x, wp, sf, 8, 3, **kw)
+            ref = term_matmul_ref(x, wp, sf, 8, 3, **kw)
+            torch.cuda.synchronize()
+            if term_matmul.kernel_launches[kernel] != before + 1:
+                fail(f"par cell {variant} {(M, K, N)} did not take {kernel}")
+            err = _par_close(out, ref, 1e-5, f"par cell {variant} "
+                                             f"{(M, K, N)}")
+            w_dec = wv * wp.w_sf
+            if kw.get("bf16"):
+                a = tr_quantize_int_ref(x, sf, 8, 3).to(torch.bfloat16)
+                b = wv.to(torch.bfloat16)
+            else:
+                a, b = x, w_dec
+            bnd, by = bound_ms(nbytes, products * 2 * M * K * N, peak)
+            t = timings(torch, lambda: launch(x, wp, sf, 8, 3, **kw),
+                        lambda: term_matmul_ref(x, wp, sf, 8, 3, **kw),
+                        lambda: torch.matmul(a, b))
+            cells[row][f"{variant} {M}x{K}x{N}"] = dict(
+                max_abs_err=err, **t, bound_ms=bnd, bound_by=by,
+                products=products, card=smi)
+            del out, ref, a, b
+        del wp, wv, x
+        torch.cuda.empty_cache()
+    emit({"phase": "par_cells", "ok": True, "cells": cells, "card": smi})
+    return cells
+
+
+def phase_par_examples() -> dict:
+    """The three parallel examples at ``--world 2`` on the card, each in
+    its own process (all three started together): each prints its JAX
+    twin's line."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"tq_tpu_torch.examples.{name}", "--world",
+         "2"], cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, _ in PAR_EXAMPLES}
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        for name, expect in PAR_EXAMPLES:
+            stdout, stderr = procs[name].communicate(timeout=300)
+            if procs[name].returncode != 0 or expect not in stdout:
+                fail(f"example {name} (--world 2): exit "
+                     f"{procs[name].returncode}, stdout {stdout[-800:]!r}, "
+                     f"stderr {stderr[-1500:]!r}")
+            out[name] = [ln for ln in stdout.splitlines() if ln.strip()][-1]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    emit({"phase": "par_examples", "ok": True, "lines": out,
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf")
+GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf", "par")
 
 
 def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
@@ -4729,6 +5352,12 @@ def main(argv=None) -> None:
             _require_launched(leaf, ["tr_quantize_elementwise",
                                      "tr_quantize_grouped"], "leaf")
         _attach_cells(kernel_results, phase_oracle(torch), "leaf_shapes")
+    if "par" in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["par"] = phase_par(torch, smi, Path(tmp))
+        _attach_cells(kernel_results, phase_par_cells(torch, smi),
+                      "par_shapes")
+        phase_par_examples()
 
     lines = []
     for name, meta in KERNELS.items():
@@ -4746,7 +5375,7 @@ def main(argv=None) -> None:
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
                                            "tfm_shapes", "train_shapes",
-                                           "leaf_shapes",
+                                           "leaf_shapes", "par_shapes",
                                            "modes_m_gt_8", "narrow_f32",
                                            "bound_fp32_ms",
                                            "raw_ms", "reveal_share",

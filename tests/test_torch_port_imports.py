@@ -83,6 +83,30 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert port_mlp.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_parallel_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch):
+    """The meshes (and so ``BatchRunner``, whose device is its mesh's),
+    the pipeline demo and the parallel examples run on the card unless
+    told otherwise, and raise without a GPU before starting a rank."""
+    from tq_tpu_torch.examples import (lm_serving, pipeline_inference,
+                                       sharded_inference)
+    from tq_tpu_torch.parallel import mesh, multihost, pp
+
+    for fn in (mesh.make_mesh, mesh.local_mesh, pp.make_pipeline_mesh,
+               pp.build_mlp_pipeline, multihost.global_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: mesh.make_mesh(1, 1), mesh.local_mesh,
+                 lambda: pp.make_pipeline_mesh(1),
+                 lambda: pp.build_mlp_pipeline(torch.Generator(), 1),
+                 multihost.global_mesh):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for example in (sharded_inference, pipeline_inference, lm_serving):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main(["--world", "2"])
+
+
 def test_viz_and_the_leaf_modules_import_without_matplotlib():
     """matplotlib is optional (the card's machine has none): every module
     of the port and ``chip_smoke`` import with it blocked, the compute

@@ -2,8 +2,9 @@
 encoding -> N post-LN encoder layers (causal self-attention, ReLU
 feed-forward) -> linear decoder -> log-softmax.
 
-Port of ``tq_tpu.models.transformer_lm`` (the eval and train-mode
-forwards; tensor-parallel serving waits for ``parallel/``).
+Port of ``tq_tpu.models.transformer_lm``: the eval and train-mode
+forwards, and the tensor-parallel serving forward
+(:func:`make_tp_quantized_apply`).
 Parameters are a flat dict keyed by the torch module names, as in the JAX
 package (``transformer_encoder.layers.{i}.self_attn.in_proj``, ...), dense
 weights stored (in, out), activations laid out (T, B, d).
@@ -42,9 +43,10 @@ NHEAD = 2
 NHID = 650
 NLAYERS = 2
 
-__all__ = ["init", "apply", "apply_train", "convert", "decode_init_cache", "decode_step",
-           "make_quantized_apply", "finalize", "pack", "VOCAB", "EMSIZE",
-           "NHEAD", "NHID", "NLAYERS"]
+__all__ = ["init", "apply", "apply_train", "convert", "decode_init_cache",
+           "decode_step", "make_quantized_apply", "make_tp_quantized_apply",
+           "tp_param_specs", "finalize", "pack", "VOCAB", "EMSIZE", "NHEAD",
+           "NHID", "NLAYERS"]
 
 
 def _layer_names(nlayers: int):
@@ -307,6 +309,59 @@ def pack(qparams, qcfg, fmt: str = "int"):
                                            checks=checks)
     flush_pack_checks(checks)
     return out
+
+
+def tp_param_specs() -> dict:
+    """The specs :func:`make_tp_quantized_apply` serves from: the packed
+    decoder's planes split over N on 'model', everything else replicated
+    (``shard_pytree(qparams, tp_param_specs(), mesh)``)."""
+    return {"decoder": {"w": (None, "model")}}
+
+
+def make_tp_quantized_apply(qcfg, mesh, nhead: int = NHEAD):
+    """Serving forward with the 9-bit packed decoder column-parallel over
+    the mesh's 'model' dimension.
+
+    Autoregressive generation re-reads the decoder (emsize -> vocab, the
+    dominant weight stream) every token; with its 1.125-bytes-a-weight
+    planes split over 'model' each rank streams and decodes 1/n of them
+    (:func:`~tq_tpu_torch.parallel.tp.tp_term_matmul_col_packed`), and the
+    N-shards of the logits are gathered before the log-softmax.  The
+    trunk stays replicated.  ``f(qparams, qstate, tokens) -> (logp,
+    qstate)`` takes ``pack(qparams, qcfg, fmt='u8s')`` params sharded by
+    :func:`tp_param_specs`; the decoder's TR config picks the quantized
+    (bf16 mode) or raw-input branch as ``tr_dense_apply`` does.
+    """
+    from tq_tpu_torch.kernels.term_matmul import PackedWeight8
+    from tq_tpu_torch.parallel._compat import all_gather
+    from tq_tpu_torch.parallel.tp import tp_term_matmul_col_packed
+
+    tr = qcfg["decoder"]
+
+    def forward(qparams, qstate, tokens):
+        dec = qparams["decoder"]
+        if not isinstance(dec["w"], PackedWeight8):
+            raise TypeError(
+                "make_tp_quantized_apply needs u8s-packed decoder "
+                "weights — call pack(qparams, qcfg, fmt='u8s') first")
+
+        def decoder_fn(h2):
+            if tr.quantize_input:
+                y = tp_term_matmul_col_packed(
+                    h2, dec["w"], qstate["decoder"]["sf"], tr.data_bits,
+                    tr.data_terms, mesh)
+            else:  # raw-input serving (the reference layer's forward)
+                # bf16=False: raw activations are not small integers, so
+                # the bf16 product would not be exact here.
+                y = tp_term_matmul_col_packed(
+                    h2, dec["w"], 1.0, tr.data_bits, tr.data_terms, mesh,
+                    bf16=False, quantize_x=False)
+            return all_gather(y, mesh, "model", axis=1) + dec["b"]
+
+        return apply(qparams, tokens, nhead=nhead, qcfg=qcfg, qstate=qstate,
+                     track=False, decoder_fn=decoder_fn)
+
+    return forward
 
 
 def make_quantized_apply(qcfg, track: bool, nhead: int = NHEAD):

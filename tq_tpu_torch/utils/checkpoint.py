@@ -17,7 +17,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["save_params", "load_params", "flatten_tree", "unflatten_tree"]
+__all__ = ["save_params", "load_params", "flatten_tree", "unflatten_tree",
+           "save_params_orbax", "load_params_orbax"]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -36,25 +37,26 @@ def _namedtuple_class(name: str):
     raise KeyError(f"unknown checkpointed namedtuple type {name!r}")
 
 
-def flatten_tree(tree, prefix=""):
-    """Tree -> {'path/to/leaf': np.ndarray}.  Lists use numeric keys; a
-    None leaf is kept as a '#none' marker and a NamedTuple node as a
-    '#nt' leaf naming its class."""
+def flatten_tree(tree, prefix="", leaf=_to_numpy):
+    """Tree -> {'path/to/leaf': np.ndarray} (``leaf`` maps each leaf;
+    default: to numpy).  Lists use numeric keys; a None leaf is kept as a
+    '#none' marker and a NamedTuple node as a '#nt' leaf naming its
+    class."""
     out = {}
     if hasattr(tree, "_fields"):  # NamedTuple node
         out[f"{prefix}#nt"] = np.asarray(type(tree).__name__)
         for k in tree._fields:
-            out.update(flatten_tree(getattr(tree, k), f"{prefix}{k}/"))
+            out.update(flatten_tree(getattr(tree, k), f"{prefix}{k}/", leaf))
     elif isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(flatten_tree(v, f"{prefix}{k}/"))
+            out.update(flatten_tree(v, f"{prefix}{k}/", leaf))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(flatten_tree(v, f"{prefix}{i}/"))
+            out.update(flatten_tree(v, f"{prefix}{i}/", leaf))
     elif tree is None:
         out[prefix.rstrip("/") + "#none"] = np.zeros(0)
     else:
-        out[prefix.rstrip("/")] = _to_numpy(tree)
+        out[prefix.rstrip("/")] = leaf(tree)
     return out
 
 
@@ -145,3 +147,101 @@ def load_params(path: str | Path, with_meta: bool = False):
                 for k in z.files if not k.startswith("__meta__/")}
     tree = unflatten_tree(flat)
     return (tree, meta) if with_meta else tree
+
+
+def _dcp_leaves(tree, mesh, specs):
+    """``tree``'s tensors by path for ``torch.distributed.checkpoint``:
+    with ``mesh``, each leaf a DTensor over this rank's shard (its
+    placements from ``specs``, as
+    :func:`~tq_tpu_torch.parallel.sharding.shard_pytree` cut it: a
+    dimension named there is ``Shard``, the rest ``Replicate``); the
+    markers of :func:`flatten_tree` as strings."""
+    flat = flatten_tree(tree, leaf=torch.as_tensor)
+    out = {}
+    for path, v in flat.items():
+        if path.endswith("#nt") or path.endswith("#none"):
+            out[path] = str(v)
+        elif mesh is None:
+            out[path] = v
+        else:
+            out[path] = _as_dtensor(v, mesh, _spec_for(specs, path))
+    return out
+
+
+def _spec_for(specs, path: str):
+    """The spec of the leaf at ``path`` ('a/b/lo' of a PackedWeight8
+    takes the spec of 'a/b' for 'lo' and 'signs'); () if none."""
+    keys = path.split("/")
+    spec = specs
+    for i, k in enumerate(keys):
+        if isinstance(spec, dict) and k in spec:
+            spec = spec[k]
+        elif isinstance(spec, tuple) and i == len(keys) - 1:
+            return spec if k in ("lo", "signs") else ()
+        else:
+            return ()
+    return spec if isinstance(spec, tuple) else ()
+
+
+def _as_dtensor(t, mesh, spec):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = [Replicate()] * mesh.ndim
+    for i, dim in enumerate(spec):
+        if dim is not None:
+            placements[mesh.mesh_dim_names.index(dim)] = Shard(i)
+    return DTensor.from_local(t, mesh, placements, run_check=False)
+
+
+def save_params_orbax(path: str | Path, tree, mesh=None, specs=None):
+    """The sharded checkpoint, on ``torch.distributed.checkpoint`` (the
+    JAX package's pair of this name writes with orbax, a JAX library).
+
+    Without ``mesh``: the tree's tensors, written by one process.  With
+    ``mesh`` and ``specs``: ``tree`` holds this rank's shards (as
+    :func:`~tq_tpu_torch.parallel.sharding.shard_pytree` gives them) and
+    every rank calls this; each writes its own shards, a replicated leaf
+    once.
+    """
+    import torch.distributed.checkpoint as dcp
+
+    dcp.save(_dcp_leaves(tree, mesh, specs),
+             checkpoint_id=str(Path(path).resolve()))
+
+
+def load_params_orbax(path: str | Path, like=None, mesh=None, specs=None):
+    """Read a :func:`save_params_orbax` checkpoint.
+
+    ``like``: a tree of the result's structure, shapes and dtypes (with
+    ``mesh`` and ``specs``: this rank's shards), into whose copy the
+    stored values are read; each rank reads only its shards.  Without
+    ``like``, one process reads the whole tree (nested dicts and lists,
+    NamedTuple nodes restored) as CPU tensors.
+    """
+    import torch.distributed.checkpoint as dcp
+
+    path = str(Path(path).resolve())
+    if like is None:
+        meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+        state = {k: (torch.empty(m.size, dtype=m.properties.dtype)
+                     if hasattr(m, "size") else "")
+                 for k, m in meta.items()}
+    else:
+        state = _dcp_leaves(_tree_clone(like), mesh, specs)
+    dcp.load(state, checkpoint_id=path)
+    flat = {k: (v.to_local() if hasattr(v, "to_local") else v)
+            for k, v in state.items()}
+    return unflatten_tree(flat)
+
+
+def _tree_clone(tree):
+    """A copy of a tree of tensors (NamedTuple, dict, list nodes kept)."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_clone(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_clone(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return tree
