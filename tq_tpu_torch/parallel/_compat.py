@@ -13,8 +13,8 @@ each is an explicit operation over one dimension of a
   operation on a CUDA tensor is staged through pinned host memory: the
   tensor is copied out, the operation runs on the copy and the result is
   copied back.  :data:`staged` counts the bytes copied each way.  Staging
-  moves bytes only: no product or reduction of a CUDA mesh runs on the
-  CPU beyond the collective's own sum.
+  moves bytes only: a staged ``psum`` gathers the parts and sums them on
+  the card, so no product or reduction of a CUDA mesh runs on the CPU.
 
 ``ppermute`` and ``psum`` have differentiable forms for the pipeline and
 the tensor-parallel layers (:class:`PPermute`, :class:`ReduceForward`,
@@ -76,10 +76,8 @@ def psum(x: torch.Tensor, mesh, dim: str) -> torch.Tensor:
         return x
     group = mesh.get_group(dim)
     if _staged(x, group):
-        staged["ops"] += 1
-        host = _to_host(x.detach().contiguous())
-        dist.all_reduce(host, group=group)
-        return _to_device(host, x)
+        # gloo moves the copies; the sum runs on the card, in rank order.
+        return all_gather(x[None], mesh, dim).sum(dim=0)
     out = x.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, group=group)
     return out
