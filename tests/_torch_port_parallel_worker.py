@@ -190,6 +190,29 @@ def _checkpoint(inp: dict, mesh, path: str) -> dict:
             "fc1_w_shard": tuple(params["fc1"]["w"].shape)}
 
 
+def _checkpoint_packed(case: dict, mesh, path: str) -> dict:
+    """A 9-bit pack split over N on 'model' (its planes sharded, its
+    scale replicated) saved by every rank, read back into zeroed shards
+    and read whole."""
+    from tq_tpu_torch.utils.checkpoint import (load_params_orbax,
+                                               save_params_orbax)
+
+    specs = {"dec": {"w": P(None, "model")}}
+    tree = shard_pytree({"dec": {"w": _weight(case)}}, specs, mesh)
+    save_params_orbax(path, tree, mesh=mesh, specs=specs)
+    like = {"dec": {"w": PackedWeight8(*(torch.zeros_like(t)
+                                         for t in tree["dec"]["w"]))}}
+    back = load_params_orbax(path, like=like, mesh=mesh, specs=specs)
+    whole = load_params_orbax(path)["dec"]["w"]
+    return {"type": type(back["dec"]["w"]).__name__,
+            "shards_equal": all(torch.equal(a, b) for a, b in
+                                zip(back["dec"]["w"], tree["dec"]["w"])),
+            "shard_shapes": [tuple(t.shape) for t in tree["dec"]["w"]],
+            "whole_type": type(whole).__name__,
+            "whole": {k: _np(getattr(whole, k))
+                      for k in ("lo", "signs", "w_sf")}}
+
+
 def parallel_world2(inp: dict) -> dict:
     """Every world-2 computation of test_torch_port_parallel.py."""
     torch.manual_seed(0)
@@ -240,6 +263,8 @@ def parallel_world2(inp: dict) -> dict:
     out["train"] = {"m21": _train(inp["mlp"], m21),
                     "m12": _train(inp["mlp"], m12)}
     out["checkpoint"] = _checkpoint(inp["mlp"], m12, inp["ckpt_path"])
+    out["checkpoint_packed"] = _checkpoint_packed(
+        inp["tp"]["col_packed_bf16"], m12, inp["ckpt_path"] + "_packed")
     return out
 
 
@@ -307,6 +332,8 @@ def pipeline_world4(inp: dict) -> dict:
                                          n_classes=10, device=CPU)
     out["mlp_pipeline"] = _np(forward(params, torch.from_numpy(inp["mlp_x"]),
                                       mesh4))
+    out["mlp_params"] = {g: {k: _np(v) for k, v in d.items()}
+                         for g, d in params.items()}
     seq = torch.from_numpy(inp["mlp_x"])
     h = torch.relu(seq @ params["stem"]["w"] + params["stem"]["b"])
     for s in range(4):

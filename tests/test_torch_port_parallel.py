@@ -37,7 +37,7 @@ from tq_tpu.ops.term_reveal import term_reveal
 from tq_tpu.parallel import sharding as jsh
 from tq_tpu.parallel import tp as jtp
 from tq_tpu.parallel.mesh import make_mesh as j_make_mesh
-from tq_tpu_torch.parallel import launch, sharding
+from tq_tpu_torch.parallel import launch, multihost, sharding
 from tq_tpu_torch.utils.checkpoint import load_params_orbax, save_params_orbax
 from tq_tpu_torch.utils.params import params_from_jax
 
@@ -207,6 +207,41 @@ def test_shard_pytree_splits_a_packed_weight_per_field(world2, inputs):
     assert world2["packed_shard"] == [(64, 64), (8, 64), ()]
     assert case["lo"].shape == (64, 128)
     assert world2["packed_contiguous"]
+
+
+SPEC_CASES = [
+    (("fc1", "w"), (None, "model")),
+    (("fc2", "w"), ("model", None)),
+    (("fc1", "w_sf"), ()),
+    (("dec", "w", "lo"), (None, "model")),
+    (("dec", "w", "signs"), (None, "model")),
+    (("dec", "w", "w_sf"), ()),
+    ("dec/w/lo", (None, "model")),
+    (("absent", "w"), ()),
+]
+
+
+@pytest.mark.parametrize("path,want", SPEC_CASES,
+                         ids=[str(p) for p, _ in SPEC_CASES])
+def test_spec_of_names_each_leaf(path, want):
+    """One rule for shard_pytree and the checkpoint: a leaf takes its
+    path's spec, a PackedWeight8's planes its node's, the rest ()."""
+    specs = {**sharding.mlp_param_specs(),
+             "dec": {"w": sharding.P(None, "model")}}
+    assert sharding.spec_of(specs, path) == want
+
+
+def test_sharded_checkpoint_roundtrip_packed_weight(world2, inputs):
+    """A 9-bit pack saved under the spec of its path: its planes split
+    over N, its scale replicated; read back into zeroed shards and read
+    whole, exact."""
+    ck = world2["checkpoint_packed"]
+    case = inputs["tp"]["col_packed_bf16"]
+    assert ck["type"] == ck["whole_type"] == "PackedWeight8"
+    assert ck["shard_shapes"] == [(64, 64), (8, 64), ()]
+    assert ck["shards_equal"]
+    for k in ("lo", "signs", "w_sf"):
+        np.testing.assert_array_equal(ck["whole"][k], case[k], err_msg=k)
 
 
 def test_shard_batch_rows_and_tail(world2):
@@ -432,3 +467,53 @@ def test_launch_kills_hung_ranks_at_the_timeout():
         launch.run(W.hang_on_rank, 2, args=(1,), timeout=8)
     assert time.monotonic() - t0 < 60
     assert not [c for c in multiprocessing.active_children() if c.is_alive()]
+
+
+BACKEND_CASES = [("cpu", 1, 8, "gloo"), ("cuda", 8, 8, "nccl"),
+                 ("cuda", 2, 1, "gloo"), ("cuda", 1, 1, "nccl"),
+                 ("cuda", 1, 0, "gloo")]
+
+
+@pytest.mark.parametrize("device,local,cards,want", BACKEND_CASES)
+def test_backend_for(monkeypatch, device, local, cards, want):
+    """NCCL only where this host has a card for each of its ranks."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert launch.backend_for(device, local) == want
+
+
+@pytest.mark.parametrize("local_env,want", [("8", "nccl"), (None, "gloo")])
+def test_backend_for_a_multi_node_launch(monkeypatch, local_env, want):
+    """Two hosts of eight cards, sixteen ranks: the ranks per host
+    (``LOCAL_WORLD_SIZE``), not the world, decide the backend."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    if local_env is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_env)
+    assert launch.backend_for("cuda", launch.local_world_size(16)) == want
+
+
+INIT_CASES = [(16, "8", 8, "nccl"), (2, None, 1, "gloo"),
+              (2, "1", 1, "nccl"), (1, None, 1, None)]
+
+
+@pytest.mark.parametrize("n,local_env,cards,want", INIT_CASES)
+def test_multihost_initialize_backend(monkeypatch, n, local_env, cards,
+                                      want):
+    """``initialize`` takes launch's rule: two ranks on one card join
+    over gloo, a card a rank over NCCL, one process joins nothing."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    if local_env is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_env)
+    multihost.initialize("localhost:29500", n, 0)
+    if want is None:
+        assert seen == []
+    else:
+        assert seen == [(want, {"init_method": "tcp://localhost:29500",
+                                "world_size": n, "rank": 0})]

@@ -7,7 +7,8 @@ module-scoped fixture (the rank function is
 package runs here on the first four of the conftest's virtual devices,
 on a mesh of the same shape and the same numpy inputs.  Tolerances: the
 pipeline rtol 1e-5, atol 1e-5, forward and gradients, against the JAX
-package's pipeline and the sequential stages; the serving runner as the
+package's pipeline (and its ``build_mlp_pipeline`` forward on the port's
+parameters) and the sequential stages; the serving runner as the
 JAX tests' (sums rtol 1e-4, atol 1e-6; the quantized MLP rtol 2e-2, atol
 1e-2 with equal predicted classes); the refusals the JAX texts.
 """
@@ -20,7 +21,8 @@ import pytest
 import _torch_port_parallel_worker as W
 from tq_tpu.models import mlp as jmlp
 from tq_tpu.parallel.mesh import make_mesh as j_make_mesh
-from tq_tpu.parallel.pp import (make_pipeline_mesh as j_pipeline_mesh,
+from tq_tpu.parallel.pp import (build_mlp_pipeline as j_build_mlp_pipeline,
+                                make_pipeline_mesh as j_pipeline_mesh,
                                 make_tr_block_fn as j_tr_block,
                                 pipeline_apply as j_pipeline_apply)
 from tq_tpu.parallel.serving import BatchRunner as JBatchRunner
@@ -149,11 +151,19 @@ def test_tr_block_under_pipeline(world4, inputs):
     assert np.isfinite(got).all()
 
 
-def test_mlp_pipeline_end_to_end(world4):
-    """Stem, pipelined trunk and head: normalized log-probs equal to the
-    same parameters run stage after stage."""
+def test_mlp_pipeline_end_to_end(world4, inputs):
+    """Stem, pipelined trunk and head: the port's log-probs equal the JAX
+    package's ``build_mlp_pipeline`` forward on the port's parameters
+    and the same images (a 4-stage mesh), and the same parameters run
+    stage after stage; they are normalized."""
     logp = world4["mlp_pipeline"]
     assert logp.shape == (4, 8, 10)
+    _, j_forward = j_build_mlp_pipeline(jax.random.PRNGKey(0), n_stage=4,
+                                        width=32, in_dim=20, n_classes=10)
+    mesh = j_pipeline_mesh(4, devices=jax.devices()[:DEVICES])
+    want = j_forward(jax.tree.map(jnp.asarray, world4["mlp_params"]),
+                     jnp.asarray(inputs["mlp_x"]), mesh)
+    np.testing.assert_allclose(logp, np.asarray(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(np.exp(logp).sum(-1), 1.0, rtol=1e-5)
     np.testing.assert_allclose(logp, world4["mlp_sequential"], rtol=1e-5,
                                atol=1e-5)

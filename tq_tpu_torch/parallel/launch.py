@@ -37,32 +37,48 @@ import traceback
 import torch
 import torch.distributed as dist
 
-__all__ = ["run", "run_ranks", "backend_for"]
+__all__ = ["run", "run_ranks", "backend_for", "local_world_size"]
 
 
-def backend_for(device, world: int) -> str:
+def backend_for(device, local_world: int) -> str:
     """NCCL for CUDA ranks each on a card of its own, else gloo (the CPU,
-    or more ranks than cards)."""
+    or more ranks on this host than it has cards).  ``local_world``: the
+    ranks on this host (:func:`local_world_size`)."""
     if torch.device(device).type == "cuda" and (
-            world <= torch.cuda.device_count()):
+            local_world <= torch.cuda.device_count()):
         return "nccl"
     return "gloo"
 
 
+def local_world_size(world: int) -> int:
+    """The ranks on this host: ``LOCAL_WORLD_SIZE`` where a launcher
+    (``torchrun``) set it, else ``world`` (every rank here)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", world))
+
+
+def _in_group(fn, args, backend, local_rank, local_world, **init):
+    """``fn(*args)`` as one rank: TF32 off, this rank's share of the
+    host's CPU cores for torch's threads, card ``local_rank %
+    device_count``, the group joined (``init``: ``init_process_group``'s
+    keywords) and left again."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+    if torch.cuda.is_available():
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+    dist.init_process_group(backend, **init)
+    try:
+        return fn(*args)
+    finally:
+        dist.destroy_process_group()
+
+
 def _rank_main(rank, world, backend, init_file, timeout, fn, args, results):
     try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-        if torch.cuda.is_available():
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method=f"file://{init_file}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout))
-        try:
-            out = fn(*args)
-        finally:
-            dist.destroy_process_group()
+        out = _in_group(fn, args, backend, rank, world,
+                        init_method=f"file://{init_file}", rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=timeout))
         results.put((rank, "ok", out if rank == 0 else None))
     except BaseException:
         results.put((rank, "error", traceback.format_exc()))
@@ -160,17 +176,9 @@ def run_ranks(fn, args=(), world: int = 1, device="cuda",
     ``torchrun`` this process is one rank of its group (``env://``);
     otherwise :func:`run` starts ``world`` ranks here."""
     if _under_torchrun():
-        world = int(os.environ["WORLD_SIZE"])
-        backend = backend_for(device, world)
-        if torch.device(device).type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
-                                  % torch.cuda.device_count())
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        dist.init_process_group(backend, init_method="env://")
-        try:
-            out = fn(*args)
-        finally:
-            dist.destroy_process_group()
+        local = local_world_size(int(os.environ["WORLD_SIZE"]))
+        out = _in_group(fn, args, backend_for(device, local),
+                        int(os.environ.get("LOCAL_RANK", 0)), local,
+                        init_method="env://")
         return out if int(os.environ["RANK"]) == 0 else None
     return run(fn, world, args, backend_for(device, world), timeout)

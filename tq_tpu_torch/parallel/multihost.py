@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from tq_tpu_torch.parallel._compat import axis_size, device
+from tq_tpu_torch.parallel.launch import backend_for, local_world_size
 from tq_tpu_torch.parallel.mesh import make_mesh
 
 __all__ = ["initialize", "global_mesh", "host_local_batch", "scaling_report"]
@@ -27,12 +28,16 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None):
     """``torch.distributed.init_process_group`` when ``num_processes > 1``
-    (a no-op otherwise, as the JAX wrapper is single-host), over NCCL
-    when there is a GPU, else gloo.  ``coordinator_address``:
-    ``host:port`` (TCP) or any init-method URL (``file://...``)."""
+    (a no-op otherwise, as the JAX wrapper is single-host), over
+    :func:`~tq_tpu_torch.parallel.launch.backend_for`: NCCL when this
+    host has a card for each of its processes
+    (:func:`~tq_tpu_torch.parallel.launch.local_world_size`), else gloo.
+    ``coordinator_address``: ``host:port`` (TCP) or any init-method URL
+    (``file://...``)."""
     if num_processes is None or num_processes <= 1:
         return
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend_for("cuda" if torch.cuda.is_available() else "cpu",
+                          local_world_size(num_processes))
     url = (coordinator_address if "://" in coordinator_address
            else f"tcp://{coordinator_address}")
     dist.init_process_group(backend, init_method=url,

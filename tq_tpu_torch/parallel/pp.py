@@ -64,15 +64,6 @@ def make_pipeline_mesh(n_stage: int, n_data: int | None = None,
     return mesh_over(ranks, (n_data, n_stage), ("data", "stage"), device)
 
 
-def _stage_slice(leaf: torch.Tensor, sid: int, n_stage: int):
-    if leaf.shape[0] == n_stage:  # stacked over every stage
-        return leaf[sid]
-    if leaf.shape[0] == 1:        # this rank's shard (spec ("stage",))
-        return leaf[0]
-    raise ValueError(f"stage parameter of leading size {leaf.shape[0]}: "
-                     f"want {n_stage} (every stage) or 1 (this stage)")
-
-
 def pipeline_apply(stage_params, x_micro: torch.Tensor, block_fn, mesh,
                    stage_axis: str = "stage") -> torch.Tensor:
     """Run microbatches through the stage pipeline; returns their outputs.
@@ -80,8 +71,7 @@ def pipeline_apply(stage_params, x_micro: torch.Tensor, block_fn, mesh,
     Args:
       stage_params: dict of tensors with a leading axis of length
         ``n_stage`` (stage s's slice is its parameters; each rank reads
-        only its own), or this rank's shards under the spec ``("stage",)``
-        (leading axis 1).
+        only its own).
       x_micro: (n_micro, micro_batch, width) input microbatches: this
         rank's rows of each microbatch when a 'data' dimension shards
         them (:func:`~tq_tpu_torch.parallel.sharding.shard_batch` with
@@ -101,8 +91,7 @@ def pipeline_apply(stage_params, x_micro: torch.Tensor, block_fn, mesh,
     if n_micro < 1:
         raise ValueError("need at least one microbatch")
     sid = axis_index(mesh, stage_axis)
-    params = {k: _stage_slice(v, sid, n_stage) for k, v in
-              stage_params.items()}
+    params = {k: v[sid] for k, v in stage_params.items()}
     ticks = n_micro + n_stage - 1
     fwd = [(i, i + 1) for i in range(n_stage - 1)]
     is_first = torch.tensor(sid == 0, device=x_micro.device)

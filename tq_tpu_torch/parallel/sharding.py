@@ -17,11 +17,10 @@ from __future__ import annotations
 
 import torch
 
-from tq_tpu_torch.kernels.term_matmul import PackedWeight8
 from tq_tpu_torch.parallel._compat import axis_index, axis_size, device
 
 __all__ = ["P", "mlp_param_specs", "batch_spec", "cnn_param_specs",
-           "shard", "shard_batch", "shard_pytree"]
+           "shard", "shard_batch", "shard_pytree", "spec_of"]
 
 
 def P(*dims) -> tuple:
@@ -103,32 +102,35 @@ def shard_batch(x, mesh, axis: int = 0) -> torch.Tensor:
     return shard(x, (), mesh)
 
 
-def _spec_at(specs, path):
+def spec_of(specs, path) -> tuple:
+    """The spec of the leaf at ``path`` (its keys from the root, or the
+    'a/b' string of a checkpoint) under ``specs``, which may be a prefix
+    tree: () (replicated) where none names it.  A
+    :class:`~tq_tpu_torch.kernels.term_matmul.PackedWeight8` takes the
+    spec of its own path: its ``lo`` and ``signs`` planes split under it,
+    its ``w_sf`` replicates."""
+    if isinstance(path, str):
+        path = path.split("/")
     spec = specs
-    for key in path:
+    for i, key in enumerate(path):
         if isinstance(spec, dict) and key in spec:
             spec = spec[key]
+        elif (isinstance(spec, tuple) and i == len(path) - 1
+              and key in ("lo", "signs")):
+            return spec
         else:
-            return None
-    return spec
+            return ()
+    return spec if isinstance(spec, tuple) else ()
 
 
 def shard_pytree(tree, specs, mesh, _path=()):
-    """Each rank's shards of ``tree`` under per-leaf specs.
-
-    ``specs`` may be a prefix tree; leaves without a spec (e.g. scalar
-    'w_sf', histogram state) are replicated.  A
-    :class:`~tq_tpu_torch.kernels.term_matmul.PackedWeight8` is sharded
-    per field: under a spec ``(None, "model")`` its ``lo`` and ``signs``
-    planes split over N and its ``w_sf`` is replicated (a PackedWeight8
-    of specs names each field's).
-    """
-    if isinstance(tree, PackedWeight8):
-        spec = _spec_at(specs, _path)
-        if not isinstance(spec, PackedWeight8):
-            spec = PackedWeight8(spec, spec, ())
-        return PackedWeight8(*(shard(v, s, mesh)
-                               for v, s in zip(tree, spec)))
+    """Each rank's shards of ``tree`` under per-leaf specs
+    (:func:`spec_of`: leaves without a spec, e.g. scalar 'w_sf' or
+    histogram state, are replicated; a PackedWeight8's planes split under
+    its path's spec)."""
+    if hasattr(tree, "_fields"):  # NamedTuple node: PackedWeight8
+        return type(tree)(*(shard_pytree(v, specs, mesh, _path + (k,))
+                            for k, v in zip(tree._fields, tree)))
     if isinstance(tree, dict):
         return {k: shard_pytree(v, specs, mesh, _path + (k,))
                 for k, v in tree.items()}
@@ -137,5 +139,4 @@ def shard_pytree(tree, specs, mesh, _path=()):
                 for i, v in enumerate(tree)]
     if tree is None:
         return None
-    spec = _spec_at(specs, _path)
-    return shard(tree, spec if isinstance(spec, tuple) else (), mesh)
+    return shard(tree, spec_of(specs, _path), mesh)

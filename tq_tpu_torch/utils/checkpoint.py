@@ -152,10 +152,12 @@ def load_params(path: str | Path, with_meta: bool = False):
 def _dcp_leaves(tree, mesh, specs):
     """``tree``'s tensors by path for ``torch.distributed.checkpoint``:
     with ``mesh``, each leaf a DTensor over this rank's shard (its
-    placements from ``specs``, as
-    :func:`~tq_tpu_torch.parallel.sharding.shard_pytree` cut it: a
-    dimension named there is ``Shard``, the rest ``Replicate``); the
-    markers of :func:`flatten_tree` as strings."""
+    placements from ``specs`` by
+    :func:`~tq_tpu_torch.parallel.sharding.spec_of`, as ``shard_pytree``
+    cut it: a dimension named there is ``Shard``, the rest ``Replicate``);
+    the markers of :func:`flatten_tree` as strings."""
+    from tq_tpu_torch.parallel.sharding import spec_of
+
     flat = flatten_tree(tree, leaf=torch.as_tensor)
     out = {}
     for path, v in flat.items():
@@ -164,23 +166,8 @@ def _dcp_leaves(tree, mesh, specs):
         elif mesh is None:
             out[path] = v
         else:
-            out[path] = _as_dtensor(v, mesh, _spec_for(specs, path))
+            out[path] = _as_dtensor(v, mesh, spec_of(specs, path))
     return out
-
-
-def _spec_for(specs, path: str):
-    """The spec of the leaf at ``path`` ('a/b/lo' of a PackedWeight8
-    takes the spec of 'a/b' for 'lo' and 'signs'); () if none."""
-    keys = path.split("/")
-    spec = specs
-    for i, k in enumerate(keys):
-        if isinstance(spec, dict) and k in spec:
-            spec = spec[k]
-        elif isinstance(spec, tuple) and i == len(keys) - 1:
-            return spec if k in ("lo", "signs") else ()
-        else:
-            return ()
-    return spec if isinstance(spec, tuple) else ()
 
 
 def _as_dtensor(t, mesh, spec):
