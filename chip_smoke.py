@@ -213,13 +213,37 @@ non-zero without printing a result:
     (350, 650, 33278), timed here alone beside ``torch.matmul``, the plain
     version and the bound;
 32. ``par_examples``: the three parallel examples at ``--world 2``, each
-    in its own process, each printing its JAX twin's line.
+    in its own process, each printing its JAX twin's line;
+33. ``par_dryrun``: the rest of the JAX package's multi-device dry run on
+    ranks, world 1 (NCCL) and world 2 (two gloo ranks on the card), world
+    2 held against world 1: TR ResNet-18 at 224, batch 16, the flagship
+    setting, its conv kernels and fc over 'model'
+    (``parallel/tp.py::make_tp_cnn_apply``): each conv within LAYER_RTOL
+    of the unsharded conv on the same input, the logits within LOGIT_RTOL
+    of the unsharded forward's and of world 1's, B1 launched once a
+    converted conv a rank (at world 1 B1 on every conv's input and B2 on
+    every weight bit for bit against the CPU), VGG-16-bn likewise at batch
+    2 (world 2); one ``eval_setting(mesh=)`` of the flagship setting (128
+    images at 224, batch 64, labelled by the float model's argmax) over
+    'data': tmacs, avg_terms, params and every scale equal to world 1's,
+    the accuracy equal to what the gathered predictions give and within
+    world 1's near-ties of world 1's, the histograms' counts equal,
+    elements moved between bins printed; one
+    full-width Transformer step over 'data' (tokens (35, 20), dropout 0):
+    loss rtol 1e-5, parameters rtol 1e-4; the GRU LM at 650/650/33278
+    (u8s): a quantized eval chunk at (35, 20) within atol 1e-4, 16 greedy
+    steps at batch 64 with the flipped rows counted; the Transformer's
+    KV-cache decode (u8s, batch 20, 16 steps), rows with a near-tie
+    counted; ``term_matmul`` at the decode's shapes against its plain
+    version.  The path's launches are those of its own calls only (the
+    conversions, the checked forward, the eval, the step, the LM loops):
+    the reference runs, checks and timing repeats are not counted.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only
 mlp|lstm|cnn|zoo|tfm|train|leaf|par`` runs the build and those groups of
-phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-32).
+phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-33).
 """
 
 from __future__ import annotations
@@ -4205,6 +4229,25 @@ def _sum_counts(*counts: dict) -> dict:
             for k in set().union(*counts)}
 
 
+class _PathCounts:
+    """The launches of a path's own calls: ``self(fn, *args)`` runs
+    ``fn`` and adds what it launched to ``total`` (``last`` is that call's
+    alone); checks, reference runs and timing repeats run outside it.  A
+    wrapper counts where it launches, on the host, so no synchronize is
+    needed."""
+
+    def __init__(self):
+        self.total: dict = {}
+        self.last: dict = {}
+
+    def __call__(self, fn, *args, **kwargs):
+        before = _read_counts()
+        out = fn(*args, **kwargs)
+        self.last = {k: n - before[k] for k, n in _read_counts().items()}
+        self.total = _sum_counts(self.total, self.last)
+        return out
+
+
 def _leaf_model(torch, ckpt: Path, device: str):
     """The flagship's converted ResNet-18 (every scale 0.05) and its
     images, on ``device``."""
@@ -5223,6 +5266,552 @@ def phase_par_examples() -> dict:
     return out
 
 
+# ------------------------------------------------------- phase par_dryrun
+#
+# The rest of the JAX package's multi-device dry run on ranks, world 1
+# (NCCL, this process) and world 2 (two gloo ranks sharing the card): the
+# tensor-parallel CNN forward, the data-parallel CNN eval and the LM rows
+# with the batch over 'data'.
+
+DRY_EVAL = dict(batch=64, n_synth=128)   # one setting of the sweep at 224
+DRY_TOKENS = (35, 20)                    # the LM chunk: 10 columns a rank
+DRY_GREEDY = dict(batch=64, steps=16)
+DRY_DECODE = dict(batch=20, steps=16)
+DRY_VGG_BATCH = 2
+DRY_TIE = 1e-4  # a greedy row whose top two log-probs are this close
+
+
+def _dry_tp(torch, arch: str, params, x, mesh, world1: bool,
+            path: _PathCounts) -> dict:
+    """``arch`` TR-converted at the flagship's setting, its conv kernels
+    and dense layers over 'model' (``make_tp_cnn_apply``): each converted
+    conv within LAYER_RTOL of the unsharded conv on the same input, the
+    logits within the CNN rule of the unsharded forward's; one B1 launch a
+    converted conv a rank, images/s.  At world 1 also B1 on every recorded
+    conv input and B2 on every converted weight bit for bit against their
+    plain versions on the CPU.  ``path`` counts the conversion and the
+    checked forward only."""
+    import dataclasses
+    import functools
+
+    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply,
+                                      static_conv_layer_settings)
+    from tq_tpu_torch.evals.cnn import get_model
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.layers.qctx import QuantCtx
+    from tq_tpu_torch.parallel._compat import axis_size
+    from tq_tpu_torch.parallel.sharding import cnn_param_specs, shard_pytree
+    from tq_tpu_torch.parallel.tp import TPQuantCtx, make_tp_cnn_apply
+
+    m = get_model(arch)
+    f = FLAGSHIP
+    settings = static_conv_layer_settings(m.conv_specs(), *f["tr"])
+    qp, qc, qs = path(convert_cnn, m, params, settings, f["db"], f["dt"])
+    qs = _with_sf(torch, qs, f["sf"])
+    tp_qp = shard_pytree(qp, cnn_param_specs(qp), mesh)
+    fwd = make_tp_cnn_apply(m, qc, mesh)
+    seen = {}
+
+    @dataclasses.dataclass
+    class Recorder(TPQuantCtx):
+        def conv(self, name, params, x, stride=(1, 1), padding="SAME",
+                 groups=1, x_channels=None):
+            y = super().conv(name, params, x, stride, padding, groups,
+                             x_channels)
+            if name in self.cfg:
+                seen[name] = (x, y, stride, padding, groups)
+            return y
+
+    with torch.no_grad():
+        logits, _ = path(fwd, tp_qp, qs, x)
+        b1 = path.last["tr_quantize_elementwise"]
+        if b1 != len(qc):
+            fail(f"par_dryrun TP {arch}: {b1} B1 launches a forward on a "
+                 f"rank, {len(qc)} converted convs")
+        make_cnn_apply(m, qc, track=False, context=functools.partial(
+            Recorder, mesh=mesh))(tp_qp, qs, x)
+        ref, _ = make_cnn_apply(m, qc, track=False)(qp, qs, x)
+        plain = QuantCtx(cfg=qc, state=qs)
+        worst = (0.0, "")
+        for name, (xin, y, stride, padding, groups) in seen.items():
+            want = plain.conv(name, qp[name], xin, stride, padding, groups)
+            err = float((y - want).abs().max() / want.abs().max())
+            worst = max(worst, (err, name))
+        if worst[0] > LAYER_RTOL:
+            fail(f"par_dryrun TP {arch}: {worst[1]} {worst[0]} of max |y| "
+                 "from the unsharded conv on the same input")
+        rtol = ZOO_LOGIT_RTOL.get(arch, LOGIT_RTOL)
+        logit_err = float((logits - ref).abs().max() / ref.abs().max())
+        if logit_err > rtol or not bool(torch.isfinite(logits).all()):
+            fail(f"par_dryrun TP {arch}: logits {logit_err} of max |logit| "
+                 f"from the unsharded forward (limit {rtol})")
+        ips = _images_per_s(torch, lambda: fwd(tp_qp, qs, x), x.shape[0],
+                            reps=3)
+        out = {"conv_max_rel_err": worst[0], "conv_worst": worst[1],
+               "logits_rel_err_vs_unsharded": logit_err,
+               "b1_launches_a_forward_a_rank": b1,
+               "images_per_s_one_shared_card": ips,
+               "logits": logits.cpu().numpy(),
+               "n_model": axis_size(mesh, "model")}
+        if world1:
+            for name, (xin, _, _, _, _) in seen.items():
+                tr = qc[name]
+                got = tr_quantize(xin, qs[name]["sf"], tr.data_bits, 1,
+                                  tr.data_terms)
+                want = tr_quantize(xin.cpu(), qs[name]["sf"].cpu(),
+                                   tr.data_bits, 1, tr.data_terms)
+                if not torch.equal(got.cpu(), want):
+                    fail(f"par_dryrun B1 at {name}'s input "
+                         f"{tuple(xin.shape)}: not bit for bit")
+            cpu_qp, _, _ = convert_cnn(
+                m, {k: {n: t.cpu() for n, t in v.items()}
+                    for k, v in params.items()}, settings, f["db"], f["dt"])
+            for name in qc:
+                if not torch.equal(qp[name]["w"].cpu(), cpu_qp[name]["w"]):
+                    fail(f"par_dryrun B2 on {name}'s weights "
+                         f"{tuple(qp[name]['w'].shape)}: not bit for bit")
+            out["b1_b2_held"] = len(seen)
+    return out
+
+
+def _dry_eval(torch, params, mesh, spec: dict, world1: bool,
+              path: _PathCounts) -> dict:
+    """``eval_setting(mesh=)`` at the flagship setting, batch 64, 128
+    synthetic images at 224, each labelled by the float model's argmax at
+    world 1 (so that the accuracy is not 0): the columns, every layer's
+    calibrated histogram and scale, and each image's quantized prediction
+    and top-two logit margin, gathered over 'data' in image order.
+    ``path`` counts the ``eval_setting`` call only."""
+    from tq_tpu_torch.evals import cnn
+    from tq_tpu_torch.layers.qctx import fp32_ctx
+    from tq_tpu_torch.models import resnet
+    from tq_tpu_torch.parallel._compat import all_gather
+
+    batches = list(cnn._batches("resnet18", None, DRY_EVAL["batch"],
+                                DRY_EVAL["n_synth"]))
+    if world1:
+        with torch.no_grad():
+            labels = [resnet.apply(params, torch.as_tensor(x, device="cuda"),
+                                   fp32_ctx()).argmax(-1).cpu().numpy()
+                      for x, _ in batches]
+        np.save(spec["w1_labels"], np.stack(labels))
+    labels = np.load(spec["w1_labels"])
+    calibrated, logits = [], []
+    finalize, make_apply, synth = (cnn.finalize_cnn, cnn.make_cnn_apply,
+                                   cnn._batches)
+
+    def recording(qstate, qcfg):
+        calibrated.append(finalize(qstate, qcfg))
+        return calibrated[-1]
+
+    def recording_apply(m, qcfg, track, **kw):
+        fwd = make_apply(m, qcfg, track, **kw)
+        if track:
+            return fwd
+
+        def run(*args):
+            out = fwd(*args)
+            logits.append(out[0])
+            return out
+        return run
+
+    cnn.finalize_cnn, cnn.make_cnn_apply = recording, recording_apply
+    cnn._batches = lambda *a: ((x, y) for (x, _), y in zip(batches, labels))
+    try:
+        wb, gs, wt = FLAGSHIP["tr"]
+        cols = path(cnn.eval_setting, resnet, params, wb, gs, wt,
+                    FLAGSHIP["db"], FLAGSHIP["dt"], arch="resnet18",
+                    batch_size=DRY_EVAL["batch"],
+                    n_synth=DRY_EVAL["n_synth"], mesh=mesh)
+    finally:
+        cnn.finalize_cnn, cnn.make_cnn_apply, cnn._batches = (
+            finalize, make_apply, synth)
+    # Every batch here is split over 'data' (64 rows a batch): gathered a
+    # batch at a time, the rows come back in image order.
+    every = torch.cat([all_gather(t, mesh, "data") for t in logits])
+    top = every.topk(2, dim=-1)
+    return {"columns": list(cols),
+            "labels": labels.reshape(-1),
+            "pred": top.indices[:, 0].cpu().numpy(),
+            "margin": (top.values[:, 0] - top.values[:, 1]).cpu().numpy(),
+            "max_logit": float(every.abs().max()),
+            "hist": {k: v["hist"].cpu().numpy()
+                     for k, v in calibrated[-1].items()},
+            "sf": {k: float(v["sf"]) for k, v in calibrated[-1].items()}}
+
+
+def _dry_train(torch, spec: dict, mesh, world1: bool,
+               path: _PathCounts) -> dict:
+    """One Transformer chunk at full width, tokens (35, 20) over 'data',
+    dropout 0, lr 20, clip 0.25 (``_train_step_transformer(mesh=)``):
+    world 1 saves its parameters, world 2's rank 0 holds its own against
+    them within rtol 1e-4."""
+    import torch.distributed as dist
+
+    from tq_tpu_torch.evals.train_lstm import _train_step_transformer
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params = params_from_jax(load_params(spec["tfm_ckpt"]), "cuda")
+    rng = np.random.default_rng(GEN_SEED)
+    T, B = DRY_TOKENS
+    toks = torch.as_tensor(rng.integers(0, VOCAB, (T, B)), device="cuda")
+    targets = torch.as_tensor(rng.integers(0, VOCAB, (T * B,)),
+                              device="cuda")
+    loss = path(_train_step_transformer, params, toks, targets, None, 20.0,
+                0.25, dropout=0.0, nhead=TFM_NHEAD, mesh=mesh)
+    out = {"loss": float(loss)}
+    if world1:
+        torch.save(params, spec["w1_train"])
+    elif dist.get_rank() == 0:
+        want = torch.load(spec["w1_train"], map_location="cuda")
+        worst = 0.0
+        with torch.no_grad():
+            for name, leaves in want.items():
+                for leaf, w in leaves.items():
+                    got = params[name][leaf]
+                    err = float((got - w).abs().max())
+                    worst = max(worst, err)
+                    if not torch.allclose(got, w, rtol=1e-4, atol=1e-7):
+                        fail(f"par_dryrun train {name}.{leaf}: max |diff| "
+                             f"{err} from world 1")
+        out["params_max_abs_err_vs_world1"] = worst
+    return out
+
+
+def _dry_gru(torch, spec: dict, mesh, world1: bool,
+             path: _PathCounts) -> dict:
+    """The GRU LM at 650/650/33278 (seeded init), packed u8s as the LSTM's
+    serving path packs it: one quantized eval chunk at tokens (35, 20)
+    over 'data' (world 1 saves its log-probs, each world-2 rank holds its
+    columns against them), then 16 greedy steps at batch 64, each rank
+    its columns (tokens, chosen log-probs and the quantized inputs'
+    fingerprints gathered)."""
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.parallel._compat import all_gather, axis_index
+    from tq_tpu_torch.parallel.sharding import shard_batch
+
+    params = lstm_lm.init(torch.Generator().manual_seed(PAR_SEED),
+                          cell="GRU", device="cuda")
+    qp, qc, qs = path(lstm_lm.convert, params, 8, 8, 24, 8, 8, cell="GRU")
+    qs = _with_sf(torch, qs, PAR_LSTM_SF)
+    qpk = path(lstm_lm.pack, qp, qc, fmt="u8s", rnn=True)
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    H = params["rnn"][0]["w_hh"].shape[0]
+    rng = np.random.default_rng(GEN_SEED + 1)
+    T, B = DRY_TOKENS
+    toks = shard_batch(rng.integers(0, VOCAB, (T, B)), mesh, axis=1)
+    out = {}
+    with torch.no_grad():
+        hidden = lstm_lm.init_hidden(toks.shape[1], nhid=H, cell="GRU",
+                                     device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logp, _, _ = path(fwd, qpk, qs, toks, hidden)
+        torch.cuda.synchronize()
+        out["eval_seconds"] = time.perf_counter() - t0
+        logp = logp.reshape(T, toks.shape[1], -1)
+        if not bool(torch.isfinite(logp).all()):
+            fail("par_dryrun GRU eval: log-probs not finite")
+        if world1:
+            torch.save(logp, spec["w1_gru"])
+        else:
+            # The chunk quantizes the embeddings and the zero initial state
+            # only, the same in both worlds: no row can flip.
+            n = toks.shape[1]
+            me = axis_index(mesh, "data")
+            want = torch.load(spec["w1_gru"], map_location="cuda")
+            want = want[:, me * n:(me + 1) * n]
+            out["eval_logp_max_abs_err_vs_world1"] = float(
+                (logp - want).abs().max())
+            if out["eval_logp_max_abs_err_vs_world1"] > 1e-4:
+                fail("par_dryrun GRU eval: log-probs "
+                     f"{out['eval_logp_max_abs_err_vs_world1']} from world 1")
+        Bg = DRY_GREEDY["batch"]
+        tok = shard_batch(rng.integers(0, VOCAB, (1, Bg)), mesh, axis=1)
+        hidden = lstm_lm.init_hidden(tok.shape[1], nhid=H, cell="GRU",
+                                     device="cuda")
+        toks_out, lps, fps = [], [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DRY_GREEDY["steps"]):
+            fps.append(_par_codes(torch, qpk, qs, qc["rnn"], tok, (hidden,)))
+            logp, hidden, _ = path(fwd, qpk, qs, tok, hidden)
+            nxt = logp.argmax(-1)
+            lps.append(logp.gather(1, nxt[:, None])[:, 0])
+            toks_out.append(nxt)
+            tok = nxt[None, :]
+        torch.cuda.synchronize()
+        out["greedy_tokens_per_s_one_shared_card"] = (
+            DRY_GREEDY["steps"] * tok.shape[1] / (time.perf_counter() - t0))
+        for key, rows in (("tokens", toks_out), ("logp", lps),
+                          ("codes", fps)):
+            out[key] = all_gather(torch.stack(rows), mesh, "data",
+                                  axis=1).T.cpu().numpy()
+    return out
+
+
+def _dry_decode(torch, spec: dict, mesh, path: _PathCounts) -> dict:
+    """The Transformer's KV-cache decode at full width, u8s (the dry run's
+    raw-input conversion), batch 20 over 'data', 16 greedy steps: tokens
+    and each step's top-two log-prob margin, gathered."""
+    from tq_tpu_torch.models import transformer_lm as tl
+    from tq_tpu_torch.parallel._compat import all_gather
+    from tq_tpu_torch.parallel.sharding import shard_batch
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params = params_from_jax(load_params(spec["tfm_ckpt"]), "cuda")
+    qp, qc, qs = path(tl.convert, params, 8, 8, 24, 8, 8)
+    qs = _with_sf(torch, qs, PAR_SF)
+    qp = path(tl.pack, qp, qc, fmt="u8s")
+    steps = DRY_DECODE["steps"]
+    tok = shard_batch(np.random.default_rng(GEN_SEED + 2).integers(
+        0, VOCAB, (1, DRY_DECODE["batch"])), mesh, axis=1)
+    cache = tl.decode_init_cache(steps + 1, tok.shape[1],
+                                 params["encoder"]["w"].shape[1], TFM_NHEAD,
+                                 tl._nlayers(params), device="cuda")
+    toks, margins = [], []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for n in range(steps):
+            logp, cache = path(tl.decode_step, qp, tok, n, cache,
+                               nhead=TFM_NHEAD, qcfg=qc, qstate=qs)
+            top = logp.topk(2, dim=-1).values
+            margins.append(top[:, 0] - top[:, 1])
+            tok = logp.argmax(-1)[None, :]
+            toks.append(tok[0])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return {"tokens": all_gather(torch.stack(toks), mesh, "data",
+                                 axis=1).T.cpu().numpy(),
+            "margins": all_gather(torch.stack(margins), mesh, "data",
+                                  axis=1).T.cpu().numpy(),
+            "tokens_per_s_one_shared_card": steps * tok.shape[1] / seconds}
+
+
+def par_dryrun_rank(spec: dict):
+    """One rank of phase par_dryrun (world 1 in this process over NCCL, or
+    each of two gloo ranks sharing the card): each row's seconds and the
+    bytes gloo staged for it, the launches of the path's own calls
+    (:class:`_PathCounts`) summed over the ranks; rank 0 returns
+    everything."""
+    import torch
+    import torch.distributed as dist
+
+    from tq_tpu_torch.evals.cnn import get_model
+    from tq_tpu_torch.parallel import _compat
+    from tq_tpu_torch.parallel.mesh import make_mesh
+    from tq_tpu_torch.utils.checkpoint import load_params
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    world = dist.get_world_size()
+    world1 = world == 1
+    model = make_mesh(1, world, device="cuda")
+    data = make_mesh(world, 1, device="cuda")
+    resnet = params_from_jax(load_params(spec["resnet_ckpt"]), "cuda")
+    x = np.random.default_rng(0).normal(
+        size=(FLAGSHIP["batch"], FLAGSHIP["image"], FLAGSHIP["image"], 3))
+    x = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    path = _PathCounts()
+    rows = [("tp_resnet18", lambda: _dry_tp(torch, "resnet18", resnet, x,
+                                            model, world1, path)),
+            ("dp_eval", lambda: _dry_eval(torch, resnet, data, spec, world1,
+                                          path)),
+            ("dp_train", lambda: _dry_train(torch, spec, data, world1,
+                                            path)),
+            ("gru", lambda: _dry_gru(torch, spec, data, world1, path)),
+            ("decode", lambda: _dry_decode(torch, spec, data, path))]
+    if not world1:
+        def vgg():
+            params = get_model("vgg16_bn").init(
+                torch.Generator().manual_seed(ZOO_SEED), device="cuda")
+            xv = torch.as_tensor(np.random.default_rng(1).normal(
+                size=(DRY_VGG_BATCH, 224, 224, 3)), dtype=torch.float32,
+                device="cuda")
+            return _dry_tp(torch, "vgg16_bn", params, xv, model, world1,
+                           path)
+        rows.insert(1, ("tp_vgg16_bn", vgg))
+    for k in _compat.staged:
+        _compat.staged[k] = 0
+    out = {"world": world, "backend": dist.get_backend(), "seconds": {},
+           "staged": {}}
+    with _NoPlainOnCard():
+        for name, row in rows:
+            before = dict(_compat.staged)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = row()
+            torch.cuda.synchronize()
+            out["seconds"][name] = time.perf_counter() - t0
+            out["staged"][name] = {k: _compat.staged[k] - before[k]
+                                   for k in before}
+            torch.cuda.empty_cache()
+    everyone = [None] * world
+    dist.all_gather_object(everyone, path.total)
+    out["launches"] = _sum_counts(*everyone)
+    return out if dist.get_rank() == 0 else None
+
+
+def _dry_held(torch) -> dict:
+    """``term_matmul`` at the decode's shapes (M = 20 at world 1, 10 a
+    rank at world 2; f32_raw_packed8 on ``mma``), against its plain
+    version on the card."""
+    from tq_tpu_torch.kernels.term_matmul import term_matmul, term_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    errs = {}
+    for M, K, N in ((20, 650, VOCAB), (10, 650, VOCAB), (10, 650, 650)):
+        wp, _, _ = _tm_weights(torch, "packed8", K, N, gen, "cuda")
+        xm = torch.randn(M, K, generator=gen, device="cuda")
+        got = term_matmul(xm, wp, 1.0, 8, 8, quantize_x=False)
+        want = term_matmul_ref(xm, wp, 1.0, 8, 8, quantize_x=False)
+        errs[f"f32_raw_packed8 {M}x{K}x{N}"] = _par_close(
+            got, want, 1e-5, f"par_dryrun term_matmul {(M, K, N)}")
+    return errs
+
+
+def phase_par_dryrun(torch, smi: str, tmp: Path) -> dict:
+    """Phase par_dryrun: :func:`par_dryrun_rank` at world 1 (NCCL, here)
+    and world 2 (gloo, two ranks on the one card), world 2 held against
+    world 1; ``tmp`` holds group par's Transformer checkpoint."""
+    import torch.distributed as dist
+
+    from tq_tpu_torch.parallel import launch
+
+    spec = {"tfm_ckpt": str(tmp / "transformer_seeded.npz"),
+            "resnet_ckpt": str(tmp / "resnet_seeded.npz"),
+            "w1_train": str(tmp / "dryrun_w1_train.pt"),
+            "w1_gru": str(tmp / "dryrun_w1_gru.pt"),
+            "w1_labels": str(tmp / "dryrun_w1_labels.npy")}
+    resnet_checkpoint(spec["resnet_ckpt"])
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdv_dry'}",
+                            rank=0, world_size=1)
+    try:
+        w1 = par_dryrun_rank(spec)
+    finally:
+        dist.destroy_process_group()
+    w1_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w2 = launch.run(par_dryrun_rank, 2, args=(spec,), backend="gloo",
+                    timeout=600)
+    w2_seconds = time.perf_counter() - t0
+
+    a, b = w1["tp_resnet18"], w2["tp_resnet18"]
+    want = torch.from_numpy(a.pop("logits"))
+    tp_err = float((torch.from_numpy(b.pop("logits")) - want).abs().max()
+                   / want.abs().max())
+    if tp_err > LOGIT_RTOL:
+        fail(f"par_dryrun TP resnet18: world 2's logits {tp_err} of max "
+             "|logit| from world 1's")
+    w2["tp_vgg16_bn"].pop("logits")
+
+    e1, e2 = w1["dp_eval"], w2["dp_eval"]
+    if e1["columns"][1:] != e2["columns"][1:]:
+        fail(f"par_dryrun eval: columns {e2['columns']} at world 2, "
+             f"{e1['columns']} at world 1")
+    # The accuracy: each world's (from the correct counts, summed over
+    # 'data' at world 2) is what its gathered predictions give, and the
+    # worlds' predictions differ only on images whose top two logits at
+    # world 1 lie within 2 LOGIT_RTOL of max |logit| (a quantized input
+    # flipped by another cuDNN algorithm at batch 32 moves the logits by
+    # less than LOGIT_RTOL of max |logit|, as the TP rows show).
+    n_img = len(e1["labels"])
+    correct = {}
+    for w, e in (("world1", e1), ("world2", e2)):
+        correct[w] = int((e["pred"] == e["labels"]).sum())
+        if e["columns"][0] != 100.0 * correct[w] / n_img:
+            fail(f"par_dryrun eval: accuracy {e['columns'][0]} at {w}, "
+                 f"{correct[w]} of {n_img} predictions right")
+    near_tie = e1["margin"] <= 2 * LOGIT_RTOL * e1["max_logit"]
+    differ = e1["pred"] != e2["pred"]
+    if (differ & ~near_tie).any():
+        fail(f"par_dryrun eval: {int((differ & ~near_tie).sum())} "
+             "predictions differ from world 1's away from a near-tie")
+    moved = {}
+    for name, h1 in e1["hist"].items():
+        h2 = e2["hist"][name]
+        if h1.sum() != h2.sum():
+            fail(f"par_dryrun eval {name}: {h2.sum()} counts at world 2, "
+                 f"{h1.sum()} at world 1")
+        if e1["sf"][name] != e2["sf"][name]:
+            fail(f"par_dryrun eval {name}: scale {e2['sf'][name]} at world "
+                 f"2, {e1['sf'][name]} at world 1")
+        if (h1 != h2).any():  # another cuDNN algorithm at batch 32
+            moved[name] = int(np.abs(h1 - h2).sum()) // 2
+    eval_out = {"columns_world1": e1["columns"],
+                "columns_world2": e2["columns"],
+                "correct_world1": correct["world1"],
+                "correct_world2": correct["world2"],
+                "images": n_img,
+                "images_with_near_tie_world1": int(near_tie.sum()),
+                "predictions_differing": int(differ.sum()),
+                "hist_counts": int(sum(h.sum() for h in e1["hist"].values())),
+                "elements_moved_between_bins": moved,
+                "scales_equal": True}
+
+    t1, t2 = w1["dp_train"]["loss"], w2["dp_train"]["loss"]
+    if abs(t2 - t1) > 1e-5 * abs(t1):
+        fail(f"par_dryrun train: loss {t2} at world 2, {t1} at world 1")
+
+    g1, g2 = w1["gru"], w2["gru"]
+    flipped = (g1["codes"] != g2["codes"]).any(axis=1)
+    keep = ~flipped
+    if not keep.any():
+        fail("par_dryrun GRU greedy: every row's quantized inputs flipped")
+    if not (g1["tokens"][keep] == g2["tokens"][keep]).all():
+        fail("par_dryrun GRU greedy: tokens differ on rows without a flip")
+    gru_err = float(np.abs(g1["logp"][keep] - g2["logp"][keep]).max())
+    if gru_err > 1e-4:
+        fail(f"par_dryrun GRU greedy: log-probs {gru_err} from world 1")
+
+    d1, d2 = w1["decode"], w2["decode"]
+    tied = ((d1["margins"] <= DRY_TIE) | (d2["margins"] <= DRY_TIE)).any(
+        axis=1)
+    if not (d1["tokens"][~tied] == d2["tokens"][~tied]).all():
+        fail("par_dryrun decode: tokens differ on rows without a near-tie")
+
+    launches = _sum_counts(w1["launches"], w2["launches"])
+    _require_launched(launches, ["tr_quantize_elementwise",
+                                 "tr_quantize_grouped",
+                                 "term_matmul_kernel_mma"], "par_dryrun")
+    held = _dry_held(torch)
+    strip = ("tokens", "logp", "codes", "margins")
+    emit({"phase": "par_dryrun", "ok": True, "nvidia_smi": smi,
+          "note": "world 2 is two processes sharing one card over gloo: "
+                  "no multi-GPU run; rates are not a scaling figure",
+          "world1": {"backend": w1["backend"], "seconds": w1_seconds,
+                     "row_seconds": w1["seconds"],
+                     "tp_resnet18": a},
+          "world2": {"backend": w2["backend"], "seconds": w2_seconds,
+                     "row_seconds": w2["seconds"],
+                     "gloo_staged_bytes": w2["staged"],
+                     "tp_resnet18": b, "tp_vgg16_bn": w2["tp_vgg16_bn"]},
+          "tp_resnet18_logits_rel_err_world2_vs_world1": tp_err,
+          "eval": eval_out,
+          "train": {"loss_world1": t1, "loss_world2": t2,
+                    **{k: v for k, v in w2["dp_train"].items()
+                       if k != "loss"}},
+          "gru": {"eval": {k: v for k, v in g2.items()
+                           if k not in strip},
+                  "eval_seconds_world1": g1["eval_seconds"],
+                  "greedy_rows_with_boundary_flip": int(flipped.sum()),
+                  "greedy_logp_max_abs_err_vs_world1": gru_err,
+                  "greedy_tokens_per_s_world1":
+                      g1["greedy_tokens_per_s_one_shared_card"]},
+          "decode": {"rows_with_near_tie": int(tied.sum()),
+                     "tokens_per_s_world1":
+                         d1["tokens_per_s_one_shared_card"],
+                     "tokens_per_s_world2_one_shared_card":
+                         d2["tokens_per_s_one_shared_card"]},
+          "term_matmul_held": held,
+          "launches_world1": {k: v for k, v in w1["launches"].items() if v},
+          "launches_world2": {k: v for k, v in w2["launches"].items() if v}})
+    return launches
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -5355,6 +5944,7 @@ def main(argv=None) -> None:
     if "par" in groups:
         with tempfile.TemporaryDirectory() as tmp:
             by_path["par"] = phase_par(torch, smi, Path(tmp))
+            by_path["par_dryrun"] = phase_par_dryrun(torch, smi, Path(tmp))
         _attach_cells(kernel_results, phase_par_cells(torch, smi),
                       "par_shapes")
         phase_par_examples()

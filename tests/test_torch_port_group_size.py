@@ -38,8 +38,10 @@ def test_grid_constants_match_jax():
     assert tgs.ALPHAS == jgs.ALPHAS == (1.0, 1.25, 1.5, 2.0, 3.0)
     params = inspect.signature(tgs.run_grid).parameters
     assert params["device"].default == "cuda"
-    assert list(params)[:-1] == list(inspect.signature(jgs.run_grid)
+    assert params["mesh"].default is None  # the JAX package's local_mesh()
+    assert list(params)[:-2] == list(inspect.signature(jgs.run_grid)
                                      .parameters)
+    assert list(params)[-2:] == ["device", "mesh"]
 
 
 @pytest.mark.parametrize("g", tgs.GROUP_SIZES)

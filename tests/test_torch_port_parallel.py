@@ -517,3 +517,18 @@ def test_multihost_initialize_backend(monkeypatch, n, local_env, cards,
     else:
         assert seen == [(want, {"init_method": "tcp://localhost:29500",
                                 "world_size": n, "rank": 0})]
+
+
+def test_multihost_initialize_without_an_address(monkeypatch):
+    """No coordinator address: torchrun's ``env://`` rendezvous, with no
+    rank where none is given (the JAX wrapper hands None on to
+    ``jax.distributed.initialize``, which discovers the cluster)."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    multihost.initialize(None, 2, None)
+    multihost.initialize("file:///tmp/rdv", 2, 1)
+    assert seen == [("gloo", {"init_method": "env://", "world_size": 2}),
+                    ("gloo", {"init_method": "file:///tmp/rdv",
+                              "world_size": 2, "rank": 1})]

@@ -64,7 +64,8 @@ def _cast(tree, dtype):
     return tree
 
 
-def make_cnn_apply(model_mod, qcfg, track: bool, compute_dtype=None):
+def make_cnn_apply(model_mod, qcfg, track: bool, compute_dtype=None,
+                   count_reduce=None, context=QuantCtx):
     """Two-phase forward: ``f(qparams, qstate, x) -> (logits, new_qstate)``.
 
     ``track`` picks calibration vs quantized eval.  ``compute_dtype=
@@ -73,14 +74,18 @@ def make_cnn_apply(model_mod, qcfg, track: bool, compute_dtype=None):
     move as bfloat16, and so does every conv output; the quantization math
     stays float32/int32 inside the kernel.  Default None is the
     reference's float32 fake-quant structure (the parity path).
+    ``count_reduce``: see :class:`~tq_tpu_torch.layers.qctx.QuantCtx`
+    (calibration on a batch split over 'data').  ``context``: the
+    QuantCtx class or factory (the tensor-parallel one of
+    :func:`~tq_tpu_torch.parallel.tp.make_tp_cnn_apply`).
     """
 
     def forward(qparams, qstate, x):
         if compute_dtype is not None and not track:
             qparams = _cast(qparams, compute_dtype)
             x = x.to(compute_dtype)
-        ctx = QuantCtx(cfg=qcfg, state=qstate, track=track,
-                       compute_dtype=compute_dtype)
+        ctx = context(cfg=qcfg, state=qstate, track=track,
+                      compute_dtype=compute_dtype, count_reduce=count_reduce)
         logits = model_mod.apply(qparams, x, ctx)
         return logits, {**qstate, **ctx.out_state}
 

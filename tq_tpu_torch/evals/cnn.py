@@ -11,8 +11,9 @@ results files were made with; ``committed``, the reference repository's
 committed script.  Without real ImageNet the batches are deterministic
 synthetic ones (accs are then meaningless; tmacs, avg_terms and params
 still reproduce the published files).  Runs on ``--device cuda`` by
-default, on the one device (no mesh), and raises if there is no CUDA
-device; ``--device cpu`` runs the plain versions of the kernels.
+default on the one device, and raises if there is no CUDA device;
+``--device cpu`` runs the plain versions of the kernels.  From code,
+``mesh=`` runs each setting data-parallel over ranks.
 """
 
 from __future__ import annotations
@@ -26,12 +27,14 @@ import torch
 
 from tq_tpu_torch.convert import (convert_cnn, finalize_cnn, make_cnn_apply,
                                   static_conv_layer_settings)
+from tq_tpu_torch.parallel._compat import axis_index, axis_size, psum
+from tq_tpu_torch.parallel.sharding import shard_batch
 from tq_tpu_torch.profilers import cnn_cost, param_count
 from tq_tpu_torch.utils.device import resolve_device
 from tq_tpu_torch.utils.params import params_from_jax
 
 __all__ = ["ARCHS", "COMMITTED_GRID", "PUBLISHED_GRIDS", "get_model",
-           "load_params", "eval_setting", "run_sweep", "main"]
+           "load_params", "eval_setting", "first_rank", "run_sweep", "main"]
 
 ARCHS = ("alexnet", "vgg16_bn", "resnet18", "mobilenet_v2", "efficientnet_b0")
 
@@ -107,9 +110,19 @@ def _batches(arch: str, data_dir, batch_size: int, n_synth: int):
 
 def eval_setting(m, params, wb: int, gs: int, wt: int, db: int, dt: int,
                  arch: str, data_dir=None, batch_size: int = 64,
-                 calib_pct: float = 0.05, n_synth: int = 512):
+                 calib_pct: float = 0.05, n_synth: int = 512, mesh=None):
     """One (wb, gs, wt, db, dt) setting on the parameters' device ->
-    (acc %, tmacs, avg_terms, params)."""
+    (acc %, tmacs, avg_terms, params).
+
+    ``mesh``: data-parallel over its 'data' dimension (the JAX package's
+    ``mesh=``; every rank calls this with the same batches and
+    replicated parameters).  Each rank runs its rows of a batch
+    (``shard_batch``); the calibration counts and the correct count of a
+    split batch are summed over 'data', so every rank calibrates the
+    one-device histograms and returns the one-device columns.  A batch
+    that does not divide is replicated (``shard_batch``) and counted
+    once.  None: the one device.
+    """
     specs = m.conv_specs()
     device = params[specs[0].name]["w"].device
     settings = static_conv_layer_settings(specs, wb, gs, wt)
@@ -122,24 +135,47 @@ def eval_setting(m, params, wb: int, gs: int, wt: int, db: int, dt: int,
     total = sum(len(y) for _, y in batches)
     n_calib = max(1, round(calib_pct * total))
 
-    track_fwd = make_cnn_apply(m, qcfg, track=True)
+    n_data = 1 if mesh is None else axis_size(mesh, "data")
+
+    def rows(a):  # this rank's rows of a batch, on its device
+        if mesh is None:
+            return torch.as_tensor(a, device=device)
+        return shard_batch(a, mesh)
+
+    def split(y) -> bool:  # a batch the 'data' ranks share out
+        return n_data > 1 and len(y) % n_data == 0
+
+    track_fwd = {False: make_cnn_apply(m, qcfg, track=True),
+                 True: make_cnn_apply(
+                     m, qcfg, track=True,
+                     count_reduce=lambda c: psum(c, mesh, "data"))}
     seen = 0
     for x, y in batches:
-        x = torch.as_tensor(x, device=device)
-        _, qstate = track_fwd(qparams, qstate, x)
+        _, qstate = track_fwd[split(y)](qparams, qstate, rows(x))
         seen += len(y)
         if seen >= n_calib:
             break
     qstate = finalize_cnn(qstate, qcfg)
 
     eval_fwd = make_cnn_apply(m, qcfg, track=False)
-    # Counted on the device; one fetch at the end.
-    correct = torch.zeros((), dtype=torch.int64, device=device)
+    # Counted on the device, whole batches and split ones apart; one sum
+    # over 'data' and one fetch at the end.
+    correct = torch.zeros(2, dtype=torch.int64, device=device)
     for x, y in batches:
-        x, y = (torch.as_tensor(a, device=device) for a in (x, y))
-        logits, _ = eval_fwd(qparams, qstate, x)
-        correct += (logits.argmax(-1) == y).sum()
-    return 100.0 * int(correct) / total, tmacs, avg_terms, n_params
+        logits, _ = eval_fwd(qparams, qstate, rows(x))
+        correct[int(split(y))] += (logits.argmax(-1) == rows(y)).sum()
+    if n_data > 1:
+        correct[1] = psum(correct[1], mesh, "data")
+    return (100.0 * int(correct.sum()) / total, tmacs, avg_terms,
+            n_params)
+
+
+def first_rank(mesh) -> bool:
+    """Whether this process writes a sweep's results: always on one
+    device, else the rank at index 0 of every mesh dimension."""
+    if mesh is None:
+        return True
+    return all(axis_index(mesh, d) == 0 for d in mesh.mesh_dim_names)
 
 
 def run_sweep(arch: str, checkpoint: str | None = None,
@@ -147,10 +183,12 @@ def run_sweep(arch: str, checkpoint: str | None = None,
               batch_size: int = 64, n_synth: int = 512,
               uq_bits=(6, 7, 8, 9), uq_wt=9, uq_db=9, uq_dt=9,
               tr_data_terms=(2, 3, 4), tr_weight_terms=(12, 16, 20, 24),
-              verbose: bool = True, device="cuda"):
+              verbose: bool = True, device="cuda", mesh=None):
     """The UQ rows, then the TR rows (wb=9, g=8, db=9) of every data term
     count; returns the results dict, skipping what a partial ``out_file``
-    already holds."""
+    already holds.  ``mesh``: each setting data-parallel over its ranks
+    (:func:`eval_setting`); only its first rank prints and writes
+    ``out_file``."""
     device = resolve_device(device)
     m, params = load_params(arch, checkpoint, device=device)
     results = {key: {"accs": [], "tmacs": [], "avg_terms": [], "params": []}
@@ -169,6 +207,8 @@ def run_sweep(arch: str, checkpoint: str | None = None,
         results[key]["tmacs"].append(float(tmacs))
         results[key]["avg_terms"].append(avg_terms)
         results[key]["params"].append(float(n_params))
+        if not first_rank(mesh):
+            return
         if verbose:
             print(key, acc, tmacs, avg_terms, n_params, flush=True)
         if out_file:
@@ -177,7 +217,7 @@ def run_sweep(arch: str, checkpoint: str | None = None,
                 json.dump(results, fp)
 
     kw = dict(arch=arch, data_dir=data_dir, batch_size=batch_size,
-              n_synth=n_synth)
+              n_synth=n_synth, mesh=mesh)
     for i, wb in enumerate(uq_bits):
         if i < done["quant"]:
             continue

@@ -17,7 +17,8 @@ from pathlib import Path
 
 import torch
 
-from tq_tpu_torch.evals.cnn import ARCHS, eval_setting, load_params
+from tq_tpu_torch.evals.cnn import (ARCHS, eval_setting, first_rank,
+                                    load_params)
 from tq_tpu_torch.utils.device import resolve_device
 
 __all__ = ["ALPHAS", "GROUP_SIZES", "run_grid", "main"]
@@ -29,9 +30,11 @@ GROUP_SIZES = (1, 2, 8, 16, 32)
 def run_grid(arch: str = "resnet18", checkpoint=None, data_dir=None,
              out_file=None, batch_size: int = 64, n_synth: int = 512,
              group_sizes=GROUP_SIZES, alphas=ALPHAS, verbose: bool = True,
-             device="cuda"):
+             device="cuda", mesh=None):
     """Every (g, alpha) setting not already in a partial ``out_file``;
-    returns the results dict."""
+    returns the results dict.  ``mesh``: each setting data-parallel over
+    its ranks (``eval_setting``); only its first rank prints and writes
+    ``out_file``."""
     device = resolve_device(device)
     m, params = load_params(arch, checkpoint, device=device)
     results = {}
@@ -44,10 +47,12 @@ def run_grid(arch: str = "resnet18", checkpoint=None, data_dir=None,
             wt = round(alpha * g)
             acc, tmacs, avg_terms, _ = eval_setting(
                 m, params, 9, g, wt, 9, 3, arch=arch, data_dir=data_dir,
-                batch_size=batch_size, n_synth=n_synth)
+                batch_size=batch_size, n_synth=n_synth, mesh=mesh)
             row["accs"].append(acc)
             row["tmacs"].append(float(tmacs))
             row["avg_terms"].append(avg_terms)
+            if not first_rank(mesh):
+                continue
             if verbose:
                 print(g, wt, acc, tmacs, flush=True)
             if out_file:

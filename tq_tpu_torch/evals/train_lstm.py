@@ -33,6 +33,8 @@ from tq_tpu_torch.evals.train_mlp import nll_loss, trainable
 from tq_tpu_torch.layers.common import dropout as _dropout
 from tq_tpu_torch.layers.lstm import _cell_scan
 from tq_tpu_torch.models import lstm_lm, transformer_lm
+from tq_tpu_torch.parallel._compat import all_gather, axis_size, psum
+from tq_tpu_torch.parallel.sharding import shard_batch
 from tq_tpu_torch.utils.checkpoint import save_params
 from tq_tpu_torch.utils.device import resolve_device
 
@@ -84,33 +86,83 @@ def _sgd_clip_update(params, grads, lr: float, clip: float) -> None:
         p.sub_(step * g)
 
 
+class _DataParallel:
+    """A chunk's batch over the 'data' dimension of ``mesh``: this rank's
+    columns of the (T, B) tokens, of the flat (T*B) targets (their (T, B)
+    view's columns, not a contiguous slice) and of the (L, B, H) hidden
+    state; the gradients and the loss averaged over 'data' (each rank's
+    loss is the mean over its equal share of the tokens).  A batch that
+    does not divide is replicated (``shard_batch``): every rank then
+    computes the whole step and nothing is reduced.  ``mesh=None``: the
+    one device."""
+
+    def __init__(self, mesh, batch: int):
+        n = 1 if mesh is None else axis_size(mesh, "data")
+        self.mesh, self.n = mesh, n
+        self.split = n > 1 and batch % n == 0
+
+    def cols(self, t: torch.Tensor, axis: int = 1) -> torch.Tensor:
+        return shard_batch(t, self.mesh, axis) if self.split else t
+
+    def targets(self, targets: torch.Tensor, T: int) -> torch.Tensor:
+        return self.cols(targets.reshape(T, -1)).reshape(-1)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return (all_gather(t, self.mesh, "data", axis=1) if self.split
+                else t)
+
+    def mean(self, ts):
+        """Each tensor of ``ts`` averaged over 'data': one collective on
+        their concatenation."""
+        if not self.split:
+            return list(ts)
+        flat = psum(torch.cat([t.reshape(-1) for t in ts]), self.mesh,
+                    "data") / self.n
+        return [p.view_as(t) for p, t in
+                zip(flat.split([t.numel() for t in ts]), ts)]
+
+
 def _train_step(params, tokens: torch.Tensor, targets: torch.Tensor, hidden,
                 generator: torch.Generator | None, lr: float, clip: float,
-                dropout: float = 0.2, cell: str = "LSTM"):
+                dropout: float = 0.2, cell: str = "LSTM", mesh=None):
     """One chunk of the recurrent recipe, updating ``params`` in place;
     returns (loss, new hidden), both on the device and detached: the
-    hidden state enters the next chunk as a constant."""
+    hidden state enters the next chunk as a constant.
+
+    ``mesh``: data-parallel over its 'data' dimension (see
+    :class:`_DataParallel`); the arguments and results are the global
+    batch's, as on one device (the new hidden state gathered over
+    'data'), and the gradients are averaged before the clip, so the
+    global norm is the one-device one.  ``generator``: this rank's
+    (:func:`~tq_tpu_torch.parallel.train.data_generator`)."""
+    dp = _DataParallel(mesh, tokens.shape[1])
     leaves = trainable(params)
-    logp, new_hidden = _apply_train(params, tokens, hidden, generator,
+    logp, new_hidden = _apply_train(params, dp.cols(tokens),
+                                    tree_map(dp.cols, hidden), generator,
                                     dropout, cell)
-    loss = nll_loss(logp, targets)
-    _sgd_clip_update(leaves, torch.autograd.grad(loss, leaves), lr, clip)
-    return loss.detach(), tree_map(torch.Tensor.detach, new_hidden)
+    loss = nll_loss(logp, dp.targets(targets, tokens.shape[0]))
+    _sgd_clip_update(leaves, dp.mean(torch.autograd.grad(loss, leaves)), lr,
+                     clip)
+    return (dp.mean([loss.detach()])[0],
+            tree_map(lambda t: dp.gather(t.detach()), new_hidden))
 
 
 def _train_step_transformer(params, tokens: torch.Tensor,
                             targets: torch.Tensor,
                             generator: torch.Generator | None, lr: float,
                             clip: float, dropout: float = 0.2,
-                            nhead: int = 2) -> torch.Tensor:
+                            nhead: int = 2, mesh=None) -> torch.Tensor:
     """One chunk of the Transformer recipe, updating ``params`` in place;
-    returns the loss, on the device and detached."""
+    returns the loss, on the device and detached.  ``mesh``, the global
+    batch and ``generator`` as in :func:`_train_step`."""
+    dp = _DataParallel(mesh, tokens.shape[1])
     leaves = trainable(params)
-    logp = transformer_lm.apply_train(params, tokens, generator,
+    logp = transformer_lm.apply_train(params, dp.cols(tokens), generator,
                                       nhead=nhead, dropout=dropout)
-    loss = nll_loss(logp, targets)
-    _sgd_clip_update(leaves, torch.autograd.grad(loss, leaves), lr, clip)
-    return loss.detach()
+    loss = nll_loss(logp, dp.targets(targets, tokens.shape[0]))
+    _sgd_clip_update(leaves, dp.mean(torch.autograd.grad(loss, leaves)), lr,
+                     clip)
+    return dp.mean([loss.detach()])[0]
 
 
 def _chunk(stream: np.ndarray, i: int, bptt: int, device):

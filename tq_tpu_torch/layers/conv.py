@@ -153,7 +153,8 @@ def pack_conv_weights(qp, tr: TRParams, checks: list | None = None):
 
 def tr_conv_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
                   stride: Sequence[int] = (1, 1), padding="SAME",
-                  groups: int = 1, compute_dtype=None):
+                  groups: int = 1, compute_dtype=None, count_reduce=None,
+                  x_channels: slice | None = None):
     """Two-phase forward of a converted conv layer; returns (y, qs).
 
     track=True  (phase 1): accumulate the input histogram, conv the raw
@@ -167,6 +168,12 @@ def tr_conv_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
     conv in bfloat16 with bfloat16 output.  Integer-packed weights
     (:func:`pack_conv_weights`) run the exact int8 conv when they are int8
     and ``tr.data_bits <= 7``; otherwise they are dequantized on the fly.
+
+    ``count_reduce``: passed to
+    :func:`~tq_tpu_torch.layers.quantize.histogram_update`.
+    ``x_channels``: the input channels the conv reads (a rank's groups of
+    a grouped conv under tensor parallelism); the histogram and the
+    quantization still see the whole of ``x``.
     """
     w = qp["w"]
     w_packed = not w.dtype.is_floating_point
@@ -174,6 +181,8 @@ def tr_conv_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
             and not track and tr.quantize_input):
         xi = tr_quantize_int(x, qs["sf"], tr.data_bits,
                              tr.data_terms).to(torch.int8)
+        if x_channels is not None:
+            xi = xi[..., x_channels]
         y = int8_conv2d(xi, w, stride, padding, groups)
         y = y.to(torch.float32) * (qs["sf"] * qp["w_sf"])
         if qp.get("b") is not None:
@@ -184,12 +193,15 @@ def tr_conv_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
     if w_packed:  # int16 grid or ineligible phase: dequantize on the fly
         w = w.to(torch.float32) * qp["w_sf"]
     if track:
-        qs = {**qs, "hist": histogram_update(qs["hist"], x)}
+        qs = {**qs, "hist": histogram_update(qs["hist"], x,
+                                             count_reduce=count_reduce)}
         xq = x
     elif tr.quantize_input:
         xq = act_quantize(x, qs["sf"], tr.data_bits, tr.data_terms)
     else:
         xq = x
+    if x_channels is not None:
+        xq = xq[..., x_channels]
     if compute_dtype is not None and not track:
         xq = xq.to(compute_dtype)
         w = w.to(compute_dtype)

@@ -93,7 +93,7 @@ def _add_bias(y: torch.Tensor, qp) -> torch.Tensor:
 
 
 def tr_dense_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
-                   use_fused: bool | None = None):
+                   use_fused: bool | None = None, count_reduce=None):
     """Forward through a converted dense layer; returns (y, updated_qs).
 
     track=True  (phase 1): accumulate the input histogram, compute with
@@ -113,12 +113,15 @@ def tr_dense_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
     <= 7 bits), bf16 mode (8-bit grids) or f32 mode; raw inputs stream the
     packed weights through the kernel's raw-input mode; an n-D input (or
     ``use_fused=False``) decodes the weights outside the kernel.
+    ``count_reduce``: passed to
+    :func:`~tq_tpu_torch.layers.quantize.histogram_update`.
     """
     w = qp["w"]
     w_packed8 = isinstance(w, PackedWeight8)
     w_packed = w_packed8 or not w.dtype.is_floating_point
     if track:
-        qs = {**qs, "hist": histogram_update(qs["hist"], x)}
+        qs = {**qs, "hist": histogram_update(qs["hist"], x,
+                                             count_reduce=count_reduce)}
         xq = x
     elif tr.quantize_input:
         if (w_packed and not w_packed8 and x.ndim == 2

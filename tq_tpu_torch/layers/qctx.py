@@ -10,6 +10,7 @@ quantizer state (histogram + scale) and the phase flag.  Models call
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -27,7 +28,13 @@ class QuantCtx:
     {'hist', 'sf'}; ``track``: phase-1 histogram accumulation vs phase-2
     quantized eval; ``out_state`` collects the updated state (read it
     after the forward); ``compute_dtype``: e.g. ``torch.bfloat16``, the
-    serving mode's conv operand and output dtype (float32 sums either way).
+    serving mode's conv operand and output dtype (float32 sums either way);
+    ``count_reduce``: applied to each calibration batch's int64 histogram
+    counts (the sum over the 'data' ranks that split the batch).
+
+    ``conv``'s ``x_channels`` (a subclass's hook: a tensor-parallel rank's
+    groups) narrows the input the conv reads, after the histogram and the
+    quantization have seen all of it.
     """
 
     cfg: dict | None
@@ -35,9 +42,13 @@ class QuantCtx:
     track: bool = False
     out_state: dict = dataclasses.field(default_factory=dict)
     compute_dtype: torch.dtype | None = None
+    count_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
 
-    def conv(self, name, params, x, stride=(1, 1), padding="SAME", groups=1):
+    def conv(self, name, params, x, stride=(1, 1), padding="SAME", groups=1,
+             x_channels: slice | None = None):
         if self.cfg is None or name not in self.cfg:
+            if x_channels is not None:
+                x = x[..., x_channels]
             # An unconverted layer (the stem) runs at compute_dtype too: the
             # serving mode is whole-model bfloat16 IO.
             dt = self.compute_dtype
@@ -51,7 +62,9 @@ class QuantCtx:
             return y
         y, qs = tr_conv_apply(params, self.cfg[name], self.state[name], x,
                               self.track, stride, padding, groups,
-                              compute_dtype=self.compute_dtype)
+                              compute_dtype=self.compute_dtype,
+                              count_reduce=self.count_reduce,
+                              x_channels=x_channels)
         self.out_state[name] = qs
         return y
 
@@ -65,7 +78,7 @@ class QuantCtx:
                 y = y + params["b"].to(torch.float32)
             return y
         y, qs = tr_dense_apply(params, self.cfg[name], self.state[name], x,
-                               self.track)
+                               self.track, count_reduce=self.count_reduce)
         self.out_state[name] = qs
         return y
 

@@ -61,14 +61,18 @@ def init_histogram(cfg: CalibConfig = CalibConfig(),
 
 
 def histogram_update(hist: torch.Tensor, x: torch.Tensor,
-                     cfg: CalibConfig = CalibConfig()) -> torch.Tensor:
+                     cfg: CalibConfig = CalibConfig(),
+                     count_reduce=None) -> torch.Tensor:
     """Accumulate ``x`` into the fixed-range histogram.
 
     Values outside [minv, maxv] are ignored and the top edge falls in the
     last bin.  The bin is ``floor((x - minv) * (1 / width))`` in float32:
     XLA turns the JAX package's division by the constant bin width into
     that multiplication, and ``torch.histc`` bins edges differently.
-    Counts are exact integers.
+    Counts are exact integers.  ``count_reduce`` (e.g. a sum over the
+    'data' ranks that split the batch) takes the batch's int64 counts
+    before they are cast and added, so the histogram is the one of the
+    whole batch, exact past 2^24 a bin.
     """
     x = x.reshape(-1)
     inv_width = np.float32(1.0) / np.float32((cfg.maxv - cfg.minv)
@@ -78,6 +82,8 @@ def histogram_update(hist: torch.Tensor, x: torch.Tensor,
     valid = (x >= cfg.minv) & (x <= cfg.maxv)
     counts = torch.zeros(cfg.num_bins, dtype=torch.int64, device=x.device)
     counts.index_add_(0, idx, valid.to(torch.int64))
+    if count_reduce is not None:
+        counts = count_reduce(counts)
     return hist + counts.to(hist.dtype)
 
 

@@ -32,16 +32,25 @@ def initialize(coordinator_address: str | None = None,
     :func:`~tq_tpu_torch.parallel.launch.backend_for`: NCCL when this
     host has a card for each of its processes
     (:func:`~tq_tpu_torch.parallel.launch.local_world_size`), else gloo.
-    ``coordinator_address``: ``host:port`` (TCP) or any init-method URL
-    (``file://...``)."""
+    ``coordinator_address``: ``host:port`` (TCP), any init-method URL
+    (``file://...``), or None: ``env://``, the rendezvous ``torchrun``
+    sets up (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``),
+    the port's counterpart of JAX's cluster discovery.  ``process_id``
+    None leaves the rank to the rendezvous."""
     if num_processes is None or num_processes <= 1:
         return
     backend = backend_for("cuda" if torch.cuda.is_available() else "cpu",
                           local_world_size(num_processes))
-    url = (coordinator_address if "://" in coordinator_address
-           else f"tcp://{coordinator_address}")
+    if coordinator_address is None:
+        url = "env://"
+    elif "://" in coordinator_address:
+        url = coordinator_address
+    else:
+        url = f"tcp://{coordinator_address}"
+    given = {"world_size": num_processes, "rank": process_id}
     dist.init_process_group(backend, init_method=url,
-                            world_size=num_processes, rank=process_id)
+                            **{k: v for k, v in given.items()
+                               if v is not None})
 
 
 def global_mesh(n_model: int = 1, device="cuda"):

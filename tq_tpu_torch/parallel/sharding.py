@@ -56,8 +56,8 @@ def batch_spec() -> tuple:
 def cnn_param_specs(params) -> dict:
     """TP specs for a CNN param tree: conv kernels (HWIO) shard their
     output channels over 'model', dense layers their output features;
-    BN / biases / scalars replicate.  (The partitioned CNN forward is not
-    ported: the specs only.)"""
+    BN / biases / scalars replicate.  The forward that runs on these
+    shards is :func:`~tq_tpu_torch.parallel.tp.make_tp_cnn_apply`."""
     specs = {}
     for name, leaves in params.items():
         if not isinstance(leaves, dict):
@@ -139,4 +139,7 @@ def shard_pytree(tree, specs, mesh, _path=()):
                 for i, v in enumerate(tree)]
     if tree is None:
         return None
-    return shard(tree, spec_of(specs, _path), mesh)
+    try:
+        return shard(tree, spec_of(specs, _path), mesh)
+    except ValueError as e:  # name the leaf that does not divide
+        raise ValueError(f"{'/'.join(map(str, _path))}: {e}") from None

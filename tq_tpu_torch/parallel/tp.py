@@ -19,14 +19,19 @@ column-parallel layouts and the ring, replicated for row-parallel.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from tq_tpu_torch.kernels.term_matmul import PackedWeight8, term_matmul
-from tq_tpu_torch.parallel._compat import (axis_index, axis_size, psum,
-                                           ppermute_start)
+from tq_tpu_torch.layers.qctx import QuantCtx
+from tq_tpu_torch.parallel._compat import (all_gather, axis_index, axis_size,
+                                           psum, ppermute_start)
 
 __all__ = ["tp_term_matmul_col", "tp_term_matmul_row",
-           "tp_term_matmul_overlap", "tp_term_matmul_col_packed"]
+           "tp_term_matmul_overlap", "tp_term_matmul_col_packed",
+           "TPQuantCtx", "make_tp_cnn_apply"]
 
 
 def _local_mm(x, w, sf, bits, num_keep_terms, w_sf, int8, bf16):
@@ -109,3 +114,74 @@ def tp_term_matmul_row(x, w, sf, bits: int, num_keep_terms: int, mesh,
     """
     part = _local_mm(x, w, sf, bits, num_keep_terms, w_sf, int8, bf16)
     return psum(part, mesh, "model")
+
+
+@dataclasses.dataclass
+class TPQuantCtx(QuantCtx):
+    """A QuantCtx whose convs and dense layers run column-parallel over
+    the 'model' dimension of ``mesh``: the CNN forward of the JAX
+    package's GSPMD partitioning under ``cnn_param_specs``, with the
+    collectives written out.
+
+    Each site gets this rank's shard of the weight (output channels of an
+    HWIO kernel, output features of an (in, out) one, as
+    :func:`~tq_tpu_torch.parallel.sharding.shard_pytree` cuts them) and
+    the replicated input: a converted conv reveals the whole input (B1),
+    then multiplies it by the shard; the rank's slice of the replicated
+    bias is added and the output channels are gathered over 'model' in
+    rank order, so BN, the activations, residual adds and pools see whole
+    tensors and the model's own code runs unchanged.  A grouped conv
+    reads the input channels of this rank's groups (``groups`` must
+    divide over 'model'; a depthwise conv's channels do when its width
+    does).  Weights are term-revealed whole before they are sharded:
+    groups run along the input-channel axis, so a shard of output
+    channels never splits one.
+    """
+
+    mesh: object = None
+
+    def _slice(self, t: torch.Tensor | None, n_out: int):
+        if t is None:
+            return None
+        me = axis_index(self.mesh, "model")
+        return t[me * n_out:(me + 1) * n_out]
+
+    def conv(self, name, params, x, stride=(1, 1), padding="SAME", groups=1,
+             x_channels=None):
+        n = axis_size(self.mesh, "model")
+        if groups > 1:
+            if groups % n:
+                raise ValueError(f"{name}: {groups} groups do not divide "
+                                 f"over the {n} ranks of 'model'")
+            width = x.shape[-1] // n
+            me = axis_index(self.mesh, "model")
+            x_channels = slice(me * width, (me + 1) * width)
+            groups //= n
+        y = super().conv(name, {**params, "b": None}, x, stride, padding,
+                         groups, x_channels)
+        b = self._slice(params.get("b"), y.shape[-1])
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return all_gather(y, self.mesh, "model", axis=3)
+
+    def dense(self, name, params, x):
+        y = super().dense(name, {**params, "b": None}, x)
+        b = self._slice(params.get("b"), y.shape[-1])
+        if b is not None:
+            y = y + b.to(y.dtype)
+        return all_gather(y, self.mesh, "model", axis=y.ndim - 1)
+
+
+def make_tp_cnn_apply(model_mod, qcfg, mesh):
+    """The quantized-eval CNN forward of
+    :func:`~tq_tpu_torch.convert.cnn.make_cnn_apply` (float32, no
+    calibration), tensor-parallel over the 'model' dimension of ``mesh``
+    (:class:`TPQuantCtx`): ``f(qparams, qstate, x) -> (logits,
+    new_qstate)`` on this rank's shards, ``shard_pytree(qparams,
+    cnn_param_specs(qparams), mesh)``, and this rank's rows of the batch
+    (``shard_batch``); the logits are this rank's rows, whole.  No model
+    module changes."""
+    from tq_tpu_torch.convert.cnn import make_cnn_apply
+
+    return make_cnn_apply(model_mod, qcfg, track=False,
+                          context=functools.partial(TPQuantCtx, mesh=mesh))

@@ -19,17 +19,28 @@ Megatron style, each forward/backward pair an autograd function:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tq_tpu_torch.layers.common import dropout as _dropout
 from tq_tpu_torch.models import mlp
 from tq_tpu_torch.parallel._compat import (ReduceBackward, ReduceForward,
-                                           axis_size, psum)
+                                           axis_index, axis_size, psum)
 from tq_tpu_torch.parallel.sharding import (batch_spec, mlp_param_specs,
                                             shard, shard_pytree)
 
 __all__ = ["make_sharded_train_step", "make_sharded_eval_step",
-           "setup_mlp_training", "sharded_apply"]
+           "setup_mlp_training", "sharded_apply", "data_generator"]
+
+
+def data_generator(seed: int, mesh, device="cuda") -> torch.Generator:
+    """A dropout generator on ``device`` for this rank: seeded from
+    ``seed`` and the rank's index on 'data' (numpy's ``SeedSequence`` of
+    the pair), so the ranks that split a batch draw different masks and
+    the ranks of one 'data' index (its 'model' shards) the same ones."""
+    index = axis_index(mesh, "data")
+    state = np.random.SeedSequence([seed, index]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def sharded_apply(params, x: torch.Tensor, mesh, train: bool = False,
