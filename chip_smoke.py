@@ -87,12 +87,13 @@ non-zero without printing a result:
 11. ``flagship``: the JAX package's ``entry()`` program (TR ResNet-18,
     wb=9, g=8, wt=12, db=9, dt=3, every sf 0.05, batch 16 at 224x224) on
     ``resnet_checkpoint``'s weights, then its bf16 serving mode and the
-    int8-packed UQ model (wb=db=7, g=1, wt=7, dt=5); held layer by layer
-    against the CPU plain path (the quantized input exact and the output
-    within LAYER_RTOL on the same input; boundary flips counted), the
-    logits within LOGIT_RTOL of the CPU's and of the JAX package's
-    (``EXPECTED_CNN``), every int8 conv equal to its int64 plain version;
-    images/s of each variant and of the unquantized forward at batch 64;
+    int8-packed UQ model (wb=db=7, g=1, wt=7, dt=5) in float32 and
+    bfloat16; held layer by layer against the CPU plain path (the
+    quantized input exact and the output within LAYER_RTOL on the same
+    input; boundary flips counted), the logits within LOGIT_RTOL of the
+    CPU's and of the JAX package's (``EXPECTED_CNN``); the int8 forms as
+    in ``cnn_zoo`` (``_int8_held``); images/s of each variant and of the
+    unquantized forward at batch 64;
 12. ``cnn_sweep``: ``evals/cnn.py``'s ``run_sweep('resnet18')`` over the
     published grid (15 settings, 512 synthetic images, batch 64): tmacs,
     avg_terms and params equal to ``results/resnet18-results.json``, the
@@ -114,7 +115,15 @@ non-zero without printing a result:
     card against CPU within LAYER_RTOL on the same input (boundary flips
     counted), the bf16 mode within 0.2 of the float32 one, the sweep's
     tmacs, avg_terms and params equal to ``results/``, its (9, 8, 12, 9,
-    3) scales equal to the JAX package's (or near-ties);
+    3) scales equal to the JAX package's (or near-ties); then int8
+    serving (``pack_cnn`` at UQ wb=db=7, g=1, wt=7, dt=5, every sf 0.05)
+    in float32 and bfloat16 at batch 8: B1's int32-output variants bit
+    for bit with their plain version and every int8 conv bit for bit
+    with a float64 conv on the card (exact: every sum is an integer
+    below 2^53), each int8 conv within LAYER_RTOL of the float32 UQ conv
+    on the same input, the logits within ZOO_LOGIT_RTOL of the float32
+    UQ model's, the bf16 form within 0.2 of the float32 one; images/s of
+    every form;
 15. ``group_size``: ``evals/group_size.py``'s ``run_grid('resnet18')``
     over all 25 settings (64 synthetic images): tmacs and avg_terms equal
     to ``results/resnet18-group-size-results.json``, the grouped body
@@ -140,7 +149,9 @@ non-zero without printing a result:
     step exported with ``torch.export``, saved, reloaded and run beside
     the direct step over 16 steps (log-probs and carry within 1e-6), the
     streaming kernel (and the LSTM's B1) launched inside the loaded
-    program;
+    program; then each exported on the CPU as a portable artifact
+    (``platforms=("cpu", "cuda")``), loaded on the card and on the CPU,
+    and held the same way against the card's and the CPU's direct steps;
 20. ``st_kernels``: ``term_reveal_st`` (the straight-through op of QAT)
     on the card at (784, 512) g = 1 bits 1, (784, 512) g = 8 axis 0 bits 4
     and a (64, 784) input at bits 6: the forward bit for bit with the
@@ -628,6 +639,15 @@ KERNELS = {
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:192"),
     "tr_quantize_elementwise_bf16": dict(
+        route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
+        replaces="tq_tpu/kernels/tr_quantize.py:192"),
+    # B1's int32-output variants (tr_quantize_int): the int8 convs' input
+    # codes (pack_cnn's models in float32 and bfloat16) and the LSTM
+    # decoder's wide-N integer route.
+    "tr_quantize_elementwise_int": dict(
+        route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
+        replaces="tq_tpu/kernels/tr_quantize.py:192"),
+    "tr_quantize_elementwise_bf16_int": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:192"),
     "tr_quantize_grouped": dict(
@@ -2007,11 +2027,8 @@ def _read_counts() -> dict:
     from tq_tpu_torch.kernels.term_matmul import term_matmul
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
-    out = {"tr_quantize_elementwise": tr_quantize.launches["elementwise"],
-           "tr_quantize_elementwise_bf16":
-               tr_quantize.launches["elementwise_bf16"],
-           "tr_quantize_grouped": tr_quantize.launches["grouped"],
-           "tr_scale_copy": tr_scale_copy.launches["scale_copy"]}
+    out = {f"tr_quantize_{k}": n for k, n in tr_quantize.launches.items()}
+    out["tr_scale_copy"] = tr_scale_copy.launches["scale_copy"]
     for row, variant in TERM_MATMUL_ROWS.items():
         out[row] = term_matmul.launches[variant]
     out["term_matmul_other"] = sum(
@@ -2529,7 +2546,7 @@ def phase_cnn_kernels(torch):
         per_shape["x".join(map(str, shape))] = cells
     for name in ("tr_quantize_elementwise", "tr_quantize_elementwise_bf16"):
         rows[name]["copy_ceiling_ms"] = rows["tr_scale_copy"]["ms"]
-        rows[name]["int_out"] = rows.pop(name + "_int")
+        rows[name + "_int"]["copy_ceiling_ms"] = rows["tr_scale_copy"]["ms"]
         rows[name]["per_shape"] = {
             s: {"ms": c[name]["ms"], "eager_ms": c[name]["eager_ms"],
                 "plain_ms": c[name]["plain_ms"],
@@ -2593,9 +2610,11 @@ def phase_cnn_kernels(torch):
 # --------------------------------------------------------------- phase 11
 
 
-def _record_convs(torch, model, qp, qc, qs, x):
+def _record_convs(torch, model, qp, qc, qs, x, compute_dtype=None):
     """(logits, {name: (input, stride, padding, groups)} of each converted
-    conv) of the float32 eval forward."""
+    conv) of the eval forward (``make_cnn_apply``'s, in float32 or
+    ``compute_dtype``)."""
+    from tq_tpu_torch.convert import make_cnn_apply
     from tq_tpu_torch.layers.qctx import QuantCtx
 
     seen = {}
@@ -2607,8 +2626,148 @@ def _record_convs(torch, model, qp, qc, qs, x):
                 seen[name] = (x, stride, padding, groups)
             return super().conv(name, params, x, stride, padding, groups)
 
-    logits = model.apply(qp, x, Recorder(cfg=qc, state=qs))
+    logits, _ = make_cnn_apply(model, qc, track=False,
+                               compute_dtype=compute_dtype,
+                               context=Recorder)(qp, qs, x)
     return logits, seen
+
+
+# The UQ setting of int8 serving, as the JAX package's
+# bench_resnet(int8=True, uq=True): (wb, gs, wt) and (db, dt).
+INT8_UQ = ((7, 1, 7), (7, 5))
+
+
+def _int8_held(torch, model, qp, packed, qc, qs, x, limit: float,
+               what: str, timed: bool = False, flip_limit: float = None):
+    """The int8 serving forms of a UQ model packed by ``pack_cnn``, on the
+    card at ``x`` (uncounted).  In float32 and bfloat16, on each form's
+    own inputs: B1's int32-output variant bit for bit with its plain
+    version, and every int8 conv bit for bit with a float64 conv of the
+    same codes (exact: |code| <= 127, |w| <= 127 and K <= 4,608, so every
+    sum is an integer below 2^53).  Each int8 conv within LAYER_RTOL of
+    the float32 UQ conv on the UQ forward's input.  Between the int8 and
+    the float32 UQ forwards every converted conv's input codes are
+    compared: where a code differs, the signed uniform code must differ
+    too (a flip at a rounding boundary, or one carried on from an earlier
+    layer), the flips counted per image.  The
+    int8 logits within ``limit`` of max |logit| of the float32 UQ
+    model's on images without a flip, within ``flip_limit`` (default
+    ``limit``) on the others; the bf16 form's
+    float32 logits finite and within 0.2 (relative norm) of the float32
+    form's.  ``timed``: also B1's int32-output variants timed at the
+    first int8 conv's input, beside the byte bound (returned as kernel
+    cells)."""
+    from tq_tpu_torch.kernels.tr_quantize import (tr_quantize_int,
+                                                  tr_quantize_int_ref)
+    from tq_tpu_torch.layers.conv import conv2d, int8_conv2d, tr_conv_apply
+    from tq_tpu_torch.ops.term_reveal import uniform_quantize
+
+    int8 = [n for n in qc if packed[n]["w"].dtype == torch.int8]
+    logits_uq, seen_uq = _record_convs(torch, model, qp, qc, qs, x)
+    forms = {"f32": _record_convs(torch, model, packed, qc, qs, x),
+             "bf16": _record_convs(torch, model, packed, qc, qs, x,
+                                   torch.bfloat16)}
+    nonzero = {}
+    for form, (_, seen) in forms.items():
+        codes = total = 0
+        for n in int8:
+            xin, stride, padding, groups = seen[n]
+            tr = qc[n]
+            xi = tr_quantize_int(xin, qs[n]["sf"], tr.data_bits,
+                                 tr.data_terms)
+            _exact(torch, f"{what} int8 {form} {n} codes", xi,
+                   tr_quantize_int_ref(xin, qs[n]["sf"], tr.data_bits,
+                                       tr.data_terms))
+            xi = xi.to(torch.int8)
+            got = int8_conv2d(xi, packed[n]["w"], stride, padding, groups)
+            ref = conv2d(xi.double(), packed[n]["w"].double(), stride,
+                         padding, groups)
+            torch.cuda.synchronize()
+            if got.dtype != torch.int32 or not torch.equal(got.double(),
+                                                           ref):
+                fail(f"{what} int8 {form} {n}: the int8 conv differs from "
+                     "the float64 conv of the same codes")
+            codes += int((xi != 0).sum())
+            total += xi.numel()
+        nonzero[form] = codes / total
+    layer_err = 0.0
+    for n in int8:
+        xin, stride, padding, groups = seen_uq[n]
+        y8, _ = tr_conv_apply(packed[n], qc[n], qs[n], xin, False, stride,
+                              padding, groups)
+        y32, _ = tr_conv_apply(qp[n], qc[n], qs[n], xin, False, stride,
+                               padding, groups)
+        err = float((y8 - y32).abs().max()) / max(float(y32.abs().max()),
+                                                  1e-30)
+        if err > LAYER_RTOL:
+            fail(f"{what} int8 {n}: {err} (relative) from the float32 UQ "
+                 "conv on the same input")
+        layer_err = max(layer_err, err)
+    flipped = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+    flips = 0
+    for n, tr in qc.items():
+        xa, xb = forms["f32"][1][n][0], seen_uq[n][0]
+        differ = (tr_quantize_int(xa, qs[n]["sf"], tr.data_bits,
+                                  tr.data_terms)
+                  != tr_quantize_int(xb, qs[n]["sf"], tr.data_bits,
+                                     tr.data_terms))
+        # The kept terms are a function of the signed uniform code: where
+        # the codes differ, it differs too (a flip at a rounding boundary,
+        # or an earlier layer's flip carried on).
+        ua, sa = uniform_quantize(xa[differ], qs[n]["sf"], tr.data_bits)
+        ub, sb = uniform_quantize(xb[differ], qs[n]["sf"], tr.data_bits)
+        if bool((ua * sa == ub * sb).any()):
+            fail(f"{what} int8 {n}: an input code differs from the float32 "
+                 "UQ forward's where the uniform codes agree")
+        flips += int(differ.sum())
+        flipped |= differ.reshape(x.shape[0], -1).any(dim=1)
+    logits8, logits_bf16 = forms["f32"][0], forms["bf16"][0]
+    for form, t in (("f32", logits8), ("bf16", logits_bf16)):
+        if t.dtype != torch.float32 or not bool(torch.isfinite(t).all()):
+            fail(f"{what} int8 {form}: logits of type {t.dtype}, or not "
+                 "finite")
+    row_gap = ((logits8 - logits_uq).abs().max(dim=1).values
+               / logits_uq.abs().max())
+    flip_limit = limit if flip_limit is None else flip_limit
+    gap = float(row_gap.max())
+    gap_unflipped = float(row_gap[~flipped].max()) if bool(
+        (~flipped).any()) else 0.0
+    if gap_unflipped > limit or gap > flip_limit:
+        fail(f"{what} int8: logits {gap} of max |logit| from the float32 UQ "
+             f"model's ({gap_unflipped} on images without a flip; limits "
+             f"{limit}, {flip_limit} with a flip; {flips} flips)")
+    bf16_rel = float((logits_bf16 - logits8).norm() / logits8.norm())
+    if bf16_rel >= 0.2:
+        fail(f"{what} int8 bf16: {bf16_rel} (relative norm) from the "
+             "float32 int8 form")
+    out = dict(int8_layers=len(int8), nonzero_code_share=nonzero,
+               layer_max_rel_err_vs_uq=layer_err, boundary_flips_vs_uq=flips,
+               images_flipped=int(flipped.sum()),
+               logit_max_rel_err_vs_uq=gap,
+               logit_max_rel_err_vs_uq_unflipped=gap_unflipped, limit=limit,
+               flip_limit=flip_limit,
+               top1_agree_vs_uq=int((logits8.argmax(1)
+                                     == logits_uq.argmax(1)).sum()),
+               bf16_vs_f32_rel_norm=bf16_rel)
+    if not timed:
+        return out, {}
+    xin = forms["f32"][1][int8[0]][0]
+    xb = forms["bf16"][1][int8[0]][0]
+    sf, tr = qs[int8[0]]["sf"], qc[int8[0]]
+    n_el = xin.numel()
+    cells = {}
+    for row, xs, nbytes in (("tr_quantize_elementwise_int", xin, 8 * n_el),
+                            ("tr_quantize_elementwise_bf16_int", xb,
+                             6 * n_el)):
+        b, by = bound_ms(nbytes, 6 * n_el)
+        cells[row] = {f"{what} {'x'.join(map(str, xs.shape))}": dict(
+            shape=list(xs.shape), bits=tr.data_bits, terms=tr.data_terms,
+            max_abs_err=0.0, bound_ms=b, bound_by=by,
+            **timings(torch, lambda xs=xs: tr_quantize_int(
+                xs, sf, tr.data_bits, tr.data_terms),
+                lambda xs=xs: tr_quantize_int_ref(
+                    xs, sf, tr.data_bits, tr.data_terms)))}
+    return out, cells
 
 
 def _with_sf(torch, qstate, sf: float):
@@ -2642,14 +2801,14 @@ def phase_flagship(torch, ckpt: Path):
     """The JAX package's entry() program (TR ResNet-18, wb=9, g=8, wt=12,
     db=9, dt=3, every sf 0.05) at 224x224 on the card, through the port's
     entry points; then its bf16 serving mode and the int8-packed UQ model
-    (wb=db=7, g=1, wt=7, dt=5).  Held against the CPU plain path layer by
-    layer and against the JAX package's numbers (EXPECTED_CNN)."""
+    (wb=db=7, g=1, wt=7, dt=5) in float32 and bfloat16.  Held against the
+    CPU plain path layer by layer and against the JAX package's numbers
+    (EXPECTED_CNN); the int8 forms by ``_int8_held``."""
     from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply, pack_cnn,
                                       static_conv_layer_settings)
     from tq_tpu_torch.evals.cnn import load_params
-    from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_quantize_int
-    from tq_tpu_torch.layers.conv import (int8_conv2d, int8_conv2d_ref,
-                                          tr_conv_apply)
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.layers.conv import tr_conv_apply
     from tq_tpu_torch.models import resnet
     from tq_tpu_torch.ops.term_reveal import uniform_quantize
 
@@ -2657,10 +2816,11 @@ def phase_flagship(torch, ckpt: Path):
     x_np = np.random.default_rng(0).normal(
         size=(f["batch"], f["image"], f["image"], 3)).astype(np.float32)
     tr_settings = static_conv_layer_settings(resnet.conv_specs(), *f["tr"])
-    uq_settings = static_conv_layer_settings(resnet.conv_specs(), 7, 1, 7)
+    uq_settings = static_conv_layer_settings(resnet.conv_specs(),
+                                             *INT8_UQ[0])
 
     # The main path, counted: convert, the float32 program, the bf16
-    # serving mode, the int8-packed UQ model.
+    # serving mode, the int8-packed UQ model in float32 and bfloat16.
     _reset_counts()
     t0 = time.perf_counter()
     _, params = load_params("resnet18", str(ckpt), device="cuda")
@@ -2670,18 +2830,23 @@ def phase_flagship(torch, ckpt: Path):
     logits, _ = make_cnn_apply(resnet, qc, track=False)(qp, qs, x)
     logits_bf16, _ = make_cnn_apply(resnet, qc, track=False,
                                     compute_dtype=torch.bfloat16)(qp, qs, x)
-    uqp, uqc, uqs = convert_cnn(resnet, params, uq_settings, 7, 5)
+    uqp, uqc, uqs = convert_cnn(resnet, params, uq_settings, *INT8_UQ[1])
     uqs = _with_sf(torch, uqs, f["sf"])
     packed = pack_cnn(uqp, uqc)
     logits_int8, _ = make_cnn_apply(resnet, uqc, track=False)(packed, uqs, x)
+    logits_int8_bf16, _ = make_cnn_apply(resnet, uqc, track=False,
+                                         compute_dtype=torch.bfloat16)(
+        packed, uqs, x)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = _read_counts()
     _require_launched(launches, ["tr_quantize_elementwise",
                                  "tr_quantize_elementwise_bf16",
+                                 "tr_quantize_elementwise_int",
+                                 "tr_quantize_elementwise_bf16_int",
                                  "tr_quantize_grouped"], "ResNet flagship")
     for name, t in (("f32", logits), ("bf16", logits_bf16),
-                    ("int8", logits_int8)):
+                    ("int8", logits_int8), ("int8_bf16", logits_int8_bf16)):
         if t.shape != (f["batch"], 1000) or not bool(torch.isfinite(t).all()):
             fail(f"flagship {name}: logits of shape {tuple(t.shape)}, or "
                  "not finite")
@@ -2766,21 +2931,8 @@ def phase_flagship(torch, ckpt: Path):
             fail(f"flagship image {i}: top-1 {a}, the JAX package's {b} "
                  f"(margin {m})")
 
-    # The int8 conv on the card against its int64 plain version, on the
-    # first image's int8 activations of every converted conv.
-    _, seen_i = _record_convs(torch, resnet, packed, uqc, uqs, x[:1])
-    for name, tr in uqc.items():
-        xi_f, stride, padding, _ = seen_i[name]
-        xi = tr_quantize_int(xi_f, uqs[name]["sf"], tr.data_bits,
-                             tr.data_terms).to(torch.int8)
-        got = int8_conv2d(xi, packed[name]["w"], stride, padding)
-        ref = int8_conv2d_ref(xi.cpu(), packed[name]["w"].cpu(), stride,
-                              padding)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or not torch.equal(got.cpu().long(), ref):
-            fail(f"flagship int8 {name}: the int8 conv differs from its "
-                 "int64 plain version")
-    logits_uq, _ = make_cnn_apply(resnet, uqc, track=False)(uqp, uqs, x)
+    int8, _ = _int8_held(torch, resnet, uqp, packed, uqc, uqs, x,
+                         LOGIT_RTOL, "flagship")
 
     def agreement(a, b):
         return dict(top1_agree=int((a.argmax(1) == b.argmax(1)).sum()),
@@ -2794,13 +2946,17 @@ def phase_flagship(torch, ckpt: Path):
     bf16_fwd = make_cnn_apply(resnet, qc, track=False,
                               compute_dtype=torch.bfloat16)
     int8_fwd = make_cnn_apply(resnet, uqc, track=False)
+    int8_bf16_fwd = make_cnn_apply(resnet, uqc, track=False,
+                                   compute_dtype=torch.bfloat16)
     images_per_s = {
         "fp32_unquantized": _images_per_s(
             torch, lambda: resnet.apply(params, x64), 64),
         "tr_f32": _images_per_s(torch, lambda: f32_fwd(qp, qs, x64), 64),
         "tr_bf16": _images_per_s(torch, lambda: bf16_fwd(qp, qs, x64), 64),
         "uq_int8": _images_per_s(torch, lambda: int8_fwd(packed, uqs, x64),
-                                 64)}
+                                 64),
+        "uq_int8_bf16": _images_per_s(
+            torch, lambda: int8_bf16_fwd(packed, uqs, x64), 64)}
     emit({"phase": "flagship", "ok": True, "seconds": seconds,
           "batch": f["batch"], "image": f["image"], "launches": launches,
           "layer_max_rel_err": max(layer_err.values()),
@@ -2810,7 +2966,7 @@ def phase_flagship(torch, ckpt: Path):
           "logit_max_rel_err_vs_cpu": logit_err,
           "logit_stat_max_rel_err_vs_jax": jax_err, "top1": top1,
           "bf16_vs_f32": agreement(logits_bf16, logits),
-          "int8_vs_uq_f32": agreement(logits_int8, logits_uq),
+          "int8": int8,
           "images_per_s_batch64": images_per_s})
     return launches
 
@@ -3043,6 +3199,11 @@ def phase_zoo_kernels(torch):
 # EfficientNet 2.5e-16.  Each wider limit leaves room for 3x the reading.
 ZOO_LOGIT_RTOL = {"vgg16_bn": 1.5e-1, "mobilenet_v2": LOGIT_RTOL,
                   "efficientnet_b0": LOGIT_RTOL, "alexnet": 3e-2}
+# The int8 logits against the float32 UQ model's on an image where some
+# conv's input code flipped at a rounding boundary between the two: the
+# bound of tests/test_torch_port_zoo.py's LOGIT_RTOL for such an image
+# where it exceeds ZOO_LOGIT_RTOL (MobileNet-v2's 52 layers: 1e-1).
+ZOO_FLIP_RTOL = {**ZOO_LOGIT_RTOL, "mobilenet_v2": 1e-1}
 # Images of the pinned program held card against CPU layer by layer.
 ZOO_CPU_IMAGES = 2
 
@@ -3184,13 +3345,17 @@ def phase_cnn_zoo(torch, tmp: Path):
     """VGG-16-bn, MobileNet-v2, EfficientNet-b0 and AlexNet at 224x224 on
     zoo_params' weights, through the port's entry points: the pinned
     program (ZOO_PROGRAM) and its bf16 serving mode, then ``run_sweep``
-    over the arch's published grid on 64 synthetic images at batch 64; the
-    launches of each arch's run counted from 0.  Then, uncounted: the
-    program's logits against the JAX package's (EXPECTED_ZOO), each conv
-    card against CPU on the same input, the boundary flips, the bf16 mode
-    within the JAX test's class, the sweep's columns against ``results/``
-    and its scales against the JAX package's; images/s at batch 64."""
-    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply,
+    over the arch's published grid on 64 synthetic images at batch 64, and
+    int8 serving (UQ packed by ``pack_cnn``, every sf 0.05) in float32 and
+    bfloat16 at the program's batch; the launches of each arch's run
+    counted from 0.  Then, uncounted: the program's logits against the JAX
+    package's (EXPECTED_ZOO), each conv card against CPU on the same
+    input, the boundary flips, the bf16 mode within the JAX test's class,
+    the sweep's columns against ``results/`` and its scales against the
+    JAX package's, the int8 forms (``_int8_held``); images/s of every
+    form at batch 64.  Returns (launches, B1's int32-output cells at each
+    arch's first int8 conv)."""
+    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply, pack_cnn,
                                       static_conv_layer_settings)
     from tq_tpu_torch.data.imagenet import find_imagenet_val
     from tq_tpu_torch.evals import cnn as cnn_eval
@@ -3203,6 +3368,7 @@ def phase_cnn_zoo(torch, tmp: Path):
         size=(f["batch"], f["image"], f["image"], 3)).astype(np.float32)
     finalize = cnn_eval.finalize_cnn
     total: dict = {}
+    int8_cells: dict = {}
     results = {}
     misses: list = []  # against the JAX package: reported after every arch
     t_phase = time.perf_counter()
@@ -3231,6 +3397,20 @@ def phase_cnn_zoo(torch, tmp: Path):
             qp, qs, x)
         torch.cuda.synchronize()
         program_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        uqp, uqc, uqs = convert_cnn(
+            m, params, static_conv_layer_settings(m.conv_specs(),
+                                                  *INT8_UQ[0]),
+            *INT8_UQ[1])
+        uqs = _with_sf(torch, uqs, f["sf"])
+        packed = pack_cnn(uqp, uqc)
+        int8_fwd = make_cnn_apply(m, uqc, track=False)
+        int8_bf16_fwd = make_cnn_apply(m, uqc, track=False,
+                                       compute_dtype=torch.bfloat16)
+        int8_fwd(packed, uqs, x)
+        int8_bf16_fwd(packed, uqs, x)
+        torch.cuda.synchronize()
+        int8_s = time.perf_counter() - t0
         cnn_eval.finalize_cnn = capture
         try:
             t0 = time.perf_counter()
@@ -3246,6 +3426,8 @@ def phase_cnn_zoo(torch, tmp: Path):
         launches = _read_counts()
         _require_launched(launches, ["tr_quantize_elementwise",
                                      "tr_quantize_elementwise_bf16",
+                                     "tr_quantize_elementwise_int",
+                                     "tr_quantize_elementwise_bf16_int",
                                      "tr_quantize_grouped"], arch)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -3270,6 +3452,11 @@ def phase_cnn_zoo(torch, tmp: Path):
         misses += [f"{arch}: {m}" for m in jax_misses]
         _sweep_columns_hold(arch, out_file)
         near_ties = _sweep_scales_hold(torch, arch, calibrated)
+        int8, cells = _int8_held(torch, m, uqp, packed, uqc, uqs, x, limit,
+                                 arch, timed=True,
+                                 flip_limit=ZOO_FLIP_RTOL[arch])
+        for row, c in cells.items():
+            int8_cells.setdefault(row, {}).update(c)
         check_s = time.perf_counter() - t0
         # A forward's throughput at batch 64: unquantized, TR f32, TR bf16
         # (the depthwise convs stay cuDNN float32 convs with groups).
@@ -3284,18 +3471,23 @@ def phase_cnn_zoo(torch, tmp: Path):
                 torch, lambda: m.apply(params, x64), 64),
             "tr_f32": _images_per_s(torch, lambda: f32_fwd(qp, qs, x64), 64),
             "tr_bf16": _images_per_s(torch, lambda: bf16_fwd(qp, qs, x64),
-                                     64)}
+                                     64),
+            "uq_int8": _images_per_s(
+                torch, lambda: int8_fwd(packed, uqs, x64), 64),
+            "uq_int8_bf16": _images_per_s(
+                torch, lambda: int8_bf16_fwd(packed, uqs, x64), 64)}
         del x64
         results[arch] = dict(
-            program_seconds=program_s, sweep_seconds=sweep_s,
+            program_seconds=program_s, int8_seconds=int8_s,
+            sweep_seconds=sweep_s,
             settings=sum(len(v["accs"]) for v in sweep.values()),
             check_seconds=check_s, launches=launches,
             logit_stat_max_rel_err_vs_jax=jax_err, limit=limit,
             top1=logits.argmax(1).tolist(), bf16_vs_f32_rel_norm=bf16_rel,
             sf_equal=len(EXPECTED_ZOO[arch]["sweep_sf"]["sf"])
             - len(near_ties), sf_near_ties=near_ties,
-            images_per_s_batch64=images_per_s, **lw)
-        del qp, qs, params, logits, logits_bf16, logits_g
+            images_per_s_batch64=images_per_s, int8=int8, **lw)
+        del qp, qs, params, logits, logits_bf16, logits_g, uqp, packed
         torch.cuda.empty_cache()
         ckpt.unlink()  # VGG's is 553 MB
     t0 = time.perf_counter()
@@ -3306,7 +3498,7 @@ def phase_cnn_zoo(torch, tmp: Path):
           "batch": f["batch"], "image": f["image"], "results": results})
     if misses:
         fail(f"cnn_zoo: {misses}")
-    return total
+    return total, int8_cells
 
 
 # --------------------------------------------------------------- phase 15
@@ -3697,6 +3889,43 @@ def _step_ms(torch, step, inputs, carry) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(inputs)
 
 
+# Steps of the portable artifacts loaded on the CPU, held against the CPU
+# direct step (the plain versions at full width: about 0.1 s a step).
+PORTABLE_CPU_STEPS = 4
+
+
+def _portable(torch, export, direct, direct_cpu, inputs, carry) -> dict:
+    """One step exported on the CPU as a portable artifact (``export(
+    platforms)``), loaded on the card, run beside the card's direct step
+    over ``inputs`` from ``carry`` (no plain version on the card), then
+    loaded on the CPU and run beside the CPU's direct step over the first
+    PORTABLE_CPU_STEPS inputs; the export's seconds, host ms a step of
+    the loaded program on the card."""
+    from tq_tpu_torch.utils.export import (load_serving, serving_platforms,
+                                           to_cpu)
+
+    platforms = ("cpu", "cuda")
+    t0 = time.perf_counter()
+    data = export(platforms)
+    export_s = time.perf_counter() - t0
+    if serving_platforms(data) != platforms:
+        fail(f"portable artifact: platforms {serving_platforms(data)}")
+    loaded = load_serving(data)  # the card: the default of a portable one
+    with _NoPlainOnCard():
+        r = dict(zip(("logp_max_abs_err", "cache_max_abs_err",
+                      "loaded_launches"),
+                     _reloaded_steps(torch, direct, loaded, inputs, carry)))
+        r["step_ms_loaded"] = _step_ms(torch, loaded, inputs, carry)
+    cpu = dict(zip(("logp_max_abs_err", "cache_max_abs_err"),
+                   _reloaded_steps(torch, direct_cpu,
+                                   load_serving(data, device="cpu"),
+                                   to_cpu(inputs[:PORTABLE_CPU_STEPS]),
+                                   to_cpu(carry))))
+    return dict(r, cpu=dict(cpu, steps=PORTABLE_CPU_STEPS),
+                export_seconds_cpu=export_s, bytes=len(data),
+                platforms=list(platforms))
+
+
 def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
     """The serving steps as ``torch.export`` programs on the card: the
     Transformer's u8s ``decode_step`` at cache length GEN_WORDS + 1 and the
@@ -3704,12 +3933,15 @@ def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
     beside the direct step over 16 steps: the same log-probs and carry,
     bit for bit or within 1e-6, and the streaming kernel launched inside
     the loaded program (and B1, the LSTM's activation quantizer); host ms
-    a step of each."""
+    a step of each.  Then each as a portable artifact (``_portable``):
+    traced on the CPU for ("cpu", "cuda"), held the same way on the card
+    and against the CPU direct step on the CPU."""
     from tq_tpu_torch.evals.generate import (export_transformer_step,
                                              serving_model)
     from tq_tpu_torch.models import lstm_lm, transformer_lm
     from tq_tpu_torch.utils.checkpoint import load_params
-    from tq_tpu_torch.utils.export import export_lm_step, load_serving
+    from tq_tpu_torch.utils.export import (export_lm_step, load_serving,
+                                           to_cpu)
     from tq_tpu_torch.utils.params import params_from_jax
 
     results = {}
@@ -3737,6 +3969,17 @@ def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
         export_seconds=export_s, bytes=len(data), cache_length=L,
         step_ms_direct=_step_ms(torch, direct, inputs, cache0),
         step_ms_loaded=_step_ms(torch, loaded, inputs, cache0))
+    qp_c, qs_c = to_cpu(qp), to_cpu(qs)
+
+    def direct_cpu(tok, pos, cache):
+        return transformer_lm.decode_step(qp_c, tok, pos, cache,
+                                          nhead=TFM_NHEAD, qcfg=qc,
+                                          qstate=qs_c)
+
+    results["transformer_u8s_portable"] = _portable(
+        torch, lambda platforms: export_transformer_step(
+            qp, qc, qs, L, nhead=TFM_NHEAD, platforms=platforms),
+        direct, direct_cpu, inputs, cache0)
 
     lstm = params_from_jax(load_params(lstm_ckpt), "cuda")
     lqp, lqc, lqs = serving_model(lstm, (8, 8, 24, 8, 8), "u8s", stream)
@@ -3760,17 +4003,32 @@ def phase_tfm_export(torch, served: dict, lstm_ckpt: Path, stream):
         export_seconds=export_s, bytes=len(data),
         step_ms_direct=_step_ms(torch, lstm_direct, inputs, hidden0),
         step_ms_loaded=_step_ms(torch, loaded, inputs, hidden0))
+    lqp_c, lqs_c = to_cpu(lqp), to_cpu(lqs)
+
+    def lstm_direct_cpu(tok, hidden):
+        logp, hidden, _ = fwd(lqp_c, lqs_c, tok, hidden)
+        return logp, hidden
+
+    results["lstm_u8s_portable"] = _portable(
+        torch, lambda platforms: export_lm_step(lqp, lqc, lqs,
+                                                platforms=platforms),
+        lstm_direct, lstm_direct_cpu, inputs, hidden0)
     for name, r in results.items():
-        worst = max(r["logp_max_abs_err"], r["cache_max_abs_err"])
-        if worst > 1e-6:
-            fail(f"exported {name} step differs from the direct step by "
-                 f"{worst}")
-        r["bit_exact"] = worst == 0.0
+        for where, rr in (("card", r), ("cpu", r.get("cpu"))):
+            if rr is None:
+                continue
+            worst = max(rr["logp_max_abs_err"], rr["cache_max_abs_err"])
+            if worst > 1e-6:
+                fail(f"exported {name} step loaded on the {where} differs "
+                     f"from the direct step by {worst}")
+            rr["bit_exact"] = worst == 0.0
         if r["loaded_launches"]["term_matmul_kernel_stream"] <= 0:
             fail(f"exported {name} step: the loaded program launched no "
                  "streaming term_matmul kernel")
-    if results["lstm_u8s"]["loaded_launches"]["tr_quantize_elementwise"] <= 0:
-        fail("exported LSTM step: the loaded program launched no tr_quantize")
+    for name in ("lstm_u8s", "lstm_u8s_portable"):
+        if results[name]["loaded_launches"]["tr_quantize_elementwise"] <= 0:
+            fail(f"exported {name} step: the loaded program launched no "
+                 "tr_quantize")
     emit({"phase": "tfm_export", "ok": True, "steps": TEACHER_TOKENS,
           "results": results})
 
@@ -5883,7 +6141,9 @@ def main(argv=None) -> None:
         cnn = phase_cnn_kernels(torch)
         for name in ("tr_quantize_elementwise", "tr_quantize_grouped"):
             kernel_results.setdefault(name, {})["resnet_shape"] = cnn[name]
-        for name in ("tr_quantize_elementwise_bf16", "tr_scale_copy"):
+        for name in ("tr_quantize_elementwise_bf16", "tr_scale_copy",
+                     "tr_quantize_elementwise_int",
+                     "tr_quantize_elementwise_bf16_int"):
             kernel_results[name] = cnn[name]
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = Path(tmp) / "resnet_seeded.npz"
@@ -5896,7 +6156,8 @@ def main(argv=None) -> None:
             ckpt = Path(tmp) / "resnet_seeded.npz"
             resnet_checkpoint(ckpt)
             by_path["group_size"] = phase_group_size(torch, ckpt, Path(tmp))
-            by_path["cnn_zoo"] = phase_cnn_zoo(torch, Path(tmp))
+            by_path["cnn_zoo"], int8_cells = phase_cnn_zoo(torch, Path(tmp))
+        _attach_cells(kernel_results, int8_cells, "zoo_int8_shapes")
     if "tfm" in groups:
         _attach_cells(kernel_results, phase_tfm_kernels(torch), "tfm_shapes")
         with tempfile.TemporaryDirectory() as tmp:
@@ -5964,6 +6225,7 @@ def main(argv=None) -> None:
                       **{k: r[k] for k in ("cold_ms", "tiled_ms",
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
+                                           "zoo_int8_shapes",
                                            "tfm_shapes", "train_shapes",
                                            "leaf_shapes", "par_shapes",
                                            "modes_m_gt_8", "narrow_f32",

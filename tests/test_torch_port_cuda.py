@@ -306,3 +306,42 @@ def test_empirical_counts_card_equal_cpu(cuda):
     pair_map = empirical.conv_term_pair_map(xq, w["w"], sf, w["w_sf"], 9, 9,
                                             stride, padding)
     assert int(pair_map.sum()) == card["layer4.1.conv1"]["pairs"]
+
+
+@pytest.mark.cuda
+def test_portable_lstm_step_on_the_card(cuda):
+    """A u8s LSTM step (vocab 1000, width 64, sf 0.05) exported on the CPU
+    for ("cpu", "cuda") and loaded on the card: within 1e-6 of the card's
+    direct step, the streaming term_matmul kernel and B1 launched inside
+    the loaded program; a closure on the card is refused for a portable
+    artifact."""
+    from tq_tpu_torch.kernels.tr_quantize import tr_quantize
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.utils.export import (export_lm_step, export_serving,
+                                           load_serving)
+
+    params = lstm_lm.init(torch.Generator().manual_seed(0), vocab=1000,
+                          emsize=64, nhid=64, device=cuda)
+    qp, qc, qs = lstm_lm.convert(params, 8, 8, 24, 8, 8)
+    qs = {k: {**v, "sf": torch.tensor(0.05, device=cuda)}
+          for k, v in qs.items()}
+    qp = lstm_lm.pack(qp, qc, fmt="u8s")
+    step = load_serving(export_lm_step(qp, qc, qs,
+                                       platforms=("cpu", "cuda")))
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    hd = he = lstm_lm.init_hidden(1, nhid=64, device=cuda)
+    for t in (3, 999, 0):
+        tok = torch.tensor([[t]], device=cuda)
+        logp_d, hd, _ = fwd(qp, qs, tok, hd)
+        stream0 = tm.term_matmul.kernel_launches["stream"]
+        b1 = tr_quantize.launches["elementwise"]
+        logp_e, he = step(tok, he)
+        torch.cuda.synchronize()
+        assert tm.term_matmul.kernel_launches["stream"] > stream0
+        assert tr_quantize.launches["elementwise"] > b1
+        assert logp_e.is_cuda
+        torch.testing.assert_close(logp_e, logp_d, rtol=0, atol=1e-6)
+    w = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="traced from CPU tensors"):
+        export_serving(lambda x: x * w, (torch.zeros(4),),
+                       platforms=("cpu", "cuda"))

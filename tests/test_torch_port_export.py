@@ -191,21 +191,23 @@ def test_generate_cli_export_requires_tr(tmp_path):
 
 
 def test_platforms_refused(tmp_path):
-    """A torch.export program holds its constants on one device: the JAX
-    package's multi-platform artifact has no counterpart (ROADMAP)."""
+    """A platform the port does not serve ("tpu": the JAX package's) is
+    refused by the four entry points; "cpu" and "cuda" are taken
+    (``test_torch_port_export_platforms.py``)."""
     p = _lstm_np(32, 8, 8, 1)
     _, (tqp, tqc, tqs) = _lstm_serving(p, "LSTM", "u8s")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        export_lm_step(tqp, tqc, tqs, platforms=("cpu", "cuda"))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        export_serving(lambda x: x, (torch.zeros(1),), platforms=("cpu",))
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown: \\['tpu'\\]"):
+        export_lm_step(tqp, tqc, tqs, platforms=("cpu", "tpu"))
+    with pytest.raises(ValueError, match="unknown: \\['tpu'\\]"):
+        export_serving(lambda x: x, (torch.zeros(1),), platforms=("tpu",))
+    with pytest.raises(ValueError, match="unknown: \\['tpu'\\]"):
         tgen.generate_tr(p, 32, words=2, export_path=tmp_path / "x",
-                         export_platforms=["cpu"], device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+                         export_platforms=["cuda", "tpu"], device="cpu")
+    with pytest.raises(ValueError, match="unknown: \\['tpu'\\]"):
         tgen.main(["--checkpoint", str(_lstm_ckpt(tmp_path)), "--tr", "8",
                    "8", "24", "8", "8", "--export", str(tmp_path / "x"),
-                   "--export-platforms", "cpu,cuda", "--device", "cpu"])
+                   "--export-platforms", "cpu,tpu", "--device", "cpu"])
+    assert not (tmp_path / "x").exists()
 
 
 # ---------------------------------------------------------- the operators

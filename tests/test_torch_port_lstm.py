@@ -578,15 +578,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
 
 
 def test_unported_options_raise(tmp_path):
-    """What still raises: the JAX package's multi-platform export
-    (``--export-platforms``), which a torch.export program, holding its
-    constants on one device, has no counterpart of (ROADMAP)."""
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """What still raises: an export platform the port does not serve
+    ("tpu", the JAX package's; "cpu" and "cuda" are taken,
+    test_torch_port_export_platforms.py)."""
+    with pytest.raises(ValueError, match="unknown"):
         tgen.generate_tr(_np_params(), VOCAB, words=2, export_path="x",
-                         export_platforms=["cpu", "cuda"], device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+                         export_platforms=["cpu", "tpu"], device="cpu")
+    with pytest.raises(ValueError, match="unknown"):
         tgen.main(["--tr", "8", "8", "24", "8", "8", "--export",
-                   str(tmp_path / "x"), "--export-platforms", "cpu,cuda",
+                   str(tmp_path / "x"), "--export-platforms", "tpu",
                    "--device", "cpu"])
     assert not (tmp_path / "x").exists()
     # Torch checkpoints load now (utils/torch_import), as in the JAX package.

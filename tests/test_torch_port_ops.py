@@ -163,7 +163,10 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(rng):
                        tk.tr_quantize_ref(xb, 0.05, 8, 1, 3))
     assert torch.equal(tk.tr_scale_copy(x, 0.05), x * 0.05)
     assert tk.tr_quantize.launches == {"elementwise": 0,
-                                       "elementwise_bf16": 0, "grouped": 0}
+                                       "elementwise_bf16": 0,
+                                       "elementwise_int": 0,
+                                       "elementwise_bf16_int": 0,
+                                       "grouped": 0}
     assert tk.tr_scale_copy.launches == {"scale_copy": 0}
 
 

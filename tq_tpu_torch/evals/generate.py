@@ -37,7 +37,7 @@ from tq_tpu_torch.layers.lstm import GATE_MULT
 from tq_tpu_torch.models import lstm_lm, transformer_lm
 from tq_tpu_torch.utils.device import resolve_device
 from tq_tpu_torch.utils.export import (check_platforms, export_lm_step,
-                                       export_serving)
+                                       export_serving, to_cpu)
 from tq_tpu_torch.utils.params import params_from_jax
 
 __all__ = ["generate", "generate_tr", "calibrate", "serving_model",
@@ -159,15 +159,16 @@ def generate_tr(params, vocab: int, words: int = 100,
     :func:`serving_model`, then :func:`sample_quantized`.  ``cell``: None
     infers it from the gate shapes.  ``export_path``: also save the
     calibrated (packed) serving step there
-    (:func:`~tq_tpu_torch.utils.export.export_lm_step`);
-    ``export_platforms`` is refused."""
+    (:func:`~tq_tpu_torch.utils.export.export_lm_step`), for the devices
+    ``export_platforms`` names (e.g. ``("cpu", "cuda")``) if given."""
     check_platforms(export_platforms)
     device = resolve_device(device)
     params = params_from_jax(params, device)
     qparams, qcfg, qstate = serving_model(params, tr, pack_fmt, calib_stream,
                                           calib_chunks, cell)
     if export_path is not None:
-        export_lm_step(qparams, qcfg, qstate, export_path)
+        export_lm_step(qparams, qcfg, qstate, export_path,
+                       platforms=export_platforms)
     return sample_quantized(qparams, qcfg, qstate, vocab, words, temperature,
                             seed)
 
@@ -268,10 +269,14 @@ def sample_transformer(qparams, qcfg, qstate, vocab: int, words: int = 100,
 
 
 def export_transformer_step(qparams, qcfg, qstate, L: int, path=None,
-                            nhead: int = 2) -> bytes:
+                            nhead: int = 2, platforms=None) -> bytes:
     """Save the KV-cache ``decode_step`` at cache length ``L`` as a
     program ``step(tok (1, 1) int64, pos () int64, cache) -> (logp,
-    cache)``, the (packed) weights and scales its constants."""
+    cache)``, the (packed) weights and scales its constants: on their
+    device, or, with ``platforms`` (e.g. ``("cpu", "cuda")``), traced
+    from CPU copies of them as an artifact for those devices."""
+    if check_platforms(platforms) is not None:
+        qparams, qstate = to_cpu(qparams), to_cpu(qstate)
     device = qparams["encoder"]["w"].device
 
     def step(tok, pos, cache):
@@ -282,7 +287,7 @@ def export_transformer_step(qparams, qcfg, qstate, L: int, path=None,
     return export_serving(
         step, (torch.zeros((1, 1), dtype=torch.int64, device=device),
                torch.zeros((), dtype=torch.int64, device=device),
-               _init_cache(qparams, L, nhead)), path)
+               _init_cache(qparams, L, nhead)), path, platforms)
 
 
 def generate_transformer_tr(params, vocab: int, words: int = 100,
@@ -295,8 +300,8 @@ def generate_transformer_tr(params, vocab: int, words: int = 100,
     """Sample from the TR-quantized Transformer at serving speed:
     :func:`transformer_serving_model`, then :func:`sample_transformer`.
     ``export_path``: also save the decode step at cache length ``words +
-    1`` there (:func:`export_transformer_step`); ``export_platforms`` is
-    refused."""
+    1`` there (:func:`export_transformer_step`), for the devices
+    ``export_platforms`` names if given."""
     _check_temperature(temperature)
     check_platforms(export_platforms)
     device = resolve_device(device)
@@ -305,7 +310,7 @@ def generate_transformer_tr(params, vocab: int, words: int = 100,
         params, tr, pack_fmt, calib_stream, calib_chunks, nhead)
     if export_path is not None:
         export_transformer_step(qparams, qcfg, qstate, words + 1,
-                                export_path, nhead)
+                                export_path, nhead, export_platforms)
     return sample_transformer(qparams, qcfg, qstate, vocab, words,
                               temperature, seed, nhead)
 
@@ -341,8 +346,12 @@ def main(argv=None):
                          "tq_tpu_torch.utils.export.load_serving); "
                          "requires --tr")
     ap.add_argument("--export-platforms", default=None, metavar="P1,P2",
-                    help="refused: a torch.export program holds its "
-                         "constants on the device it was exported on")
+                    help="comma-separated devices the --export artifact "
+                         "serves, of 'cpu' and 'cuda' (e.g. 'cpu,cuda': "
+                         "traced on the CPU, moved to the device it is "
+                         "loaded on; load_serving(path, device=...), "
+                         "default cuda); default: only the device it is "
+                         "exported on")
     ap.add_argument("--pack", default="none", choices=["u8s", "int", "none"],
                     help="weight format for --tr serving: none (float32 "
                          "fake-quant weights), u8s (9 bits per weight) or "
@@ -353,8 +362,8 @@ def main(argv=None):
     if a.export and a.tr is None:
         raise SystemExit("--export requires --tr (the artifact is the "
                          "quantized serving step)")
-    platforms = a.export_platforms.split(",") if a.export_platforms else None
-    check_platforms(platforms)
+    platforms = check_platforms(a.export_platforms.split(",")
+                                if a.export_platforms else None)
     device = resolve_device(a.device)
 
     corpus, source = load_corpus(a.data)
@@ -372,7 +381,8 @@ def main(argv=None):
             toks = generate_transformer_tr(
                 params, vocab, a.words, a.temperature, a.seed, nhead=a.nhead,
                 tr=tuple(a.tr), pack_fmt=pack_fmt, calib_stream=stream,
-                export_path=a.export, device=device)
+                export_path=a.export, export_platforms=platforms,
+                device=device)
         else:
             toks = generate_transformer(params, vocab, a.words,
                                         a.temperature, a.seed,
@@ -386,7 +396,8 @@ def main(argv=None):
             toks = generate_tr(params, vocab, a.words, a.temperature, a.seed,
                                tr=tuple(a.tr), pack_fmt=pack_fmt,
                                calib_stream=stream, cell=cell,
-                               export_path=a.export, device=device)
+                               export_path=a.export,
+                               export_platforms=platforms, device=device)
         else:
             toks = generate(params, vocab, a.words, a.temperature, a.seed,
                             cell=cell or lstm_lm.infer_cell(params),

@@ -289,8 +289,8 @@ def _launch_elementwise(x, sf, bits, budget, keep_mode, int_out: bool,
             xs.data_ptr(), sf.data_ptr(), outs.data_ptr(), p.head, p.n_vec,
             p.tail, p.blocks, bits, min(budget, _BUDGET_CAP), variant,
             _build.stream(x.device)), "tq_tr_quantize_elementwise")
-        tr_quantize.launches["elementwise_bf16" if in_bf16
-                             else "elementwise"] += 1
+        tr_quantize.launches["elementwise" + ("_bf16" if in_bf16 else "")
+                             + ("_int" if int_out else "")] += 1
     return out
 
 
@@ -375,7 +375,10 @@ def _tr_quantize_op_fake(x, sf, bits, group_size, num_keep_terms, axis,
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
+# Launches by body: element-wise (float32 or bfloat16 input; dequantized
+# or, from tr_quantize_int, int32 output) and grouped.
 tr_quantize.launches = {"elementwise": 0, "elementwise_bf16": 0,
+                        "elementwise_int": 0, "elementwise_bf16_int": 0,
                         "grouped": 0}
 
 

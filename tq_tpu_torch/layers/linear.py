@@ -102,7 +102,9 @@ def tr_dense_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
                 calibrated scale (unless ``tr.quantize_input`` is False,
                 reproducing the reference layer), then matmul.  With
                 ``use_fused`` (default: a 2-D input on the card, or packed
-                weights) the quantize and the matmul are one
+                weights, or any 2-D input while ``torch.export`` traces,
+                so that a program traced on the CPU is the card's) the
+                quantize and the matmul are one
                 ``term_matmul`` kernel, so the quantized activations never
                 reach device memory.
 
@@ -137,7 +139,8 @@ def tr_dense_apply(qp, tr: TRParams, qs, x: torch.Tensor, track: bool,
             y = torch.matmul(xi.to(torch.float32), w.to(torch.float32))
             return _add_bias(y * (qs["sf"] * qp["w_sf"]), qp), qs
         if use_fused is None:
-            use_fused = (w_packed or x.is_cuda) and x.ndim == 2
+            use_fused = (w_packed or x.is_cuda
+                         or torch.compiler.is_exporting()) and x.ndim == 2
         if use_fused:
             int8 = bool(not w_packed8 and w.dtype == torch.int8
                         and tr.data_bits <= 7)

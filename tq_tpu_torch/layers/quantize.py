@@ -170,7 +170,9 @@ def mse_search_scale(hist: torch.Tensor, bits: int, terms: int,
 def act_quantize(x: torch.Tensor, sf, bits: int, terms: int) -> torch.Tensor:
     """Phase-2 activation fake quantization (g=1, per-element top terms):
     the ``tr_quantize`` element-wise kernel on a CUDA tensor, the
-    loop-free plain version on a CPU tensor."""
-    if x.is_cuda:
+    loop-free plain version on a CPU tensor.  While ``torch.export``
+    traces, ``tr_quantize`` on either device: the program calls the
+    operator ``tq::tr_quantize``, whatever device it is traced on."""
+    if x.is_cuda or torch.compiler.is_exporting():
         return tr_quantize(x, sf, bits, 1, terms)
     return term_reveal_elementwise(x, sf, bits, terms)
