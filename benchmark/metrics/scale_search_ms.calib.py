@@ -1,0 +1,9 @@
+"""Device milliseconds a setting spends in the MSE scale search (the
+port's ``tq.calib.search`` spans, timed by CUDA events): their sum over
+the traced part's settings."""
+
+from benchmark.spans import device_ms_per_step
+
+
+def read(run):
+    return device_ms_per_step(run, "tq.calib.search")

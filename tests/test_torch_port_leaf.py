@@ -272,16 +272,6 @@ def test_device_trace_writes_chrome_trace(tmp_path):
     assert "aten::mm" in names
 
 
-def test_timer():
-    timer = ttrace.Timer()
-    assert timer.mean == 0 and timer.total == 0
-    for _ in range(3):
-        with timer.measure():
-            pass
-    assert len(timer.times) == 3 and timer.total >= 0
-    assert timer.mean == pytest.approx(timer.total / 3)
-
-
 def test_compilation_cache_is_the_build_directory(tmp_path, monkeypatch):
     default = _build.BUILD_DIR
     assert tcache.enable_compilation_cache() == default

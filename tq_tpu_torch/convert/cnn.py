@@ -18,6 +18,7 @@ import torch
 from tq_tpu_torch.layers.common import TRParams, quantize_weight
 from tq_tpu_torch.layers.linear import finalize_quant_state, init_quant_state
 from tq_tpu_torch.layers.qctx import QuantCtx
+from tq_tpu_torch.utils.trace import span
 
 __all__ = ["convert_cnn", "make_cnn_apply", "finalize_cnn", "pack_cnn"]
 
@@ -39,17 +40,19 @@ def convert_cnn(model_mod, params, settings: Sequence[tuple[int, int, int]],
         raise ValueError(f"{len(settings)} settings for {len(specs)} conv "
                          "layers")
     qparams, qcfg, qstate = dict(params), {}, {}
-    for i, (spec, (wb, gs, wt)) in enumerate(zip(specs, settings)):
-        if i == 0:
-            continue  # the stem is never replaced
-        tr = TRParams(weight_bits=wb, group_size=gs, weight_terms=wt,
-                      data_bits=data_bits, data_terms=data_terms,
-                      quantize_input=True)
-        w = params[spec.name]["w"]
-        w_q, w_sf = quantize_weight(w, tr, axis=2)
-        qparams[spec.name] = {**params[spec.name], "w": w_q, "w_sf": w_sf}
-        qcfg[spec.name] = tr
-        qstate[spec.name] = init_quant_state(device=w.device)
+    with span("tq.convert.cnn"):
+        for i, (spec, (wb, gs, wt)) in enumerate(zip(specs, settings)):
+            if i == 0:
+                continue  # the stem is never replaced
+            tr = TRParams(weight_bits=wb, group_size=gs, weight_terms=wt,
+                          data_bits=data_bits, data_terms=data_terms,
+                          quantize_input=True)
+            w = params[spec.name]["w"]
+            w_q, w_sf = quantize_weight(w, tr, axis=2)
+            qparams[spec.name] = {**params[spec.name], "w": w_q,
+                                  "w_sf": w_sf}
+            qcfg[spec.name] = tr
+            qstate[spec.name] = init_quant_state(device=w.device)
     return qparams, qcfg, qstate
 
 
@@ -81,13 +84,15 @@ def make_cnn_apply(model_mod, qcfg, track: bool, compute_dtype=None,
     """
 
     def forward(qparams, qstate, x):
-        if compute_dtype is not None and not track:
-            qparams = _cast(qparams, compute_dtype)
-            x = x.to(compute_dtype)
-        ctx = context(cfg=qcfg, state=qstate, track=track,
-                      compute_dtype=compute_dtype, count_reduce=count_reduce)
-        logits = model_mod.apply(qparams, x, ctx)
-        return logits, {**qstate, **ctx.out_state}
+        with span("tq.cnn.forward"):
+            if compute_dtype is not None and not track:
+                qparams = _cast(qparams, compute_dtype)
+                x = x.to(compute_dtype)
+            ctx = context(cfg=qcfg, state=qstate, track=track,
+                          compute_dtype=compute_dtype,
+                          count_reduce=count_reduce)
+            logits = model_mod.apply(qparams, x, ctx)
+            return logits, {**qstate, **ctx.out_state}
 
     return forward
 

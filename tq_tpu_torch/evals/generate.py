@@ -39,6 +39,7 @@ from tq_tpu_torch.utils.device import resolve_device
 from tq_tpu_torch.utils.export import (check_platforms, export_lm_step,
                                        export_serving, to_cpu)
 from tq_tpu_torch.utils.params import params_from_jax
+from tq_tpu_torch.utils.trace import span
 
 __all__ = ["generate", "generate_tr", "calibrate", "serving_model",
            "sample_quantized", "generate_transformer",
@@ -56,21 +57,25 @@ def _sample_scan(fwd, hidden0, vocab: int, words: int, temperature: float,
     or the Transformer's buffer or KV cache with its position), the next
     token drawn on the device (Gumbel-max: ``argmax(logp / T + Gumbel
     noise)`` is categorical ``logp / T``); the first token comes from
-    ``numpy`` seeded ``seed``."""
+    ``numpy`` seeded ``seed``.  Spans: ``tq.sampler.request`` (``rid``
+    the seed) around it all, ``tq.sampler.draw`` around each draw."""
     _check_temperature(temperature)
-    rng = np.random.default_rng(seed)
-    tok = torch.full((1, 1), int(rng.integers(0, vocab)), dtype=torch.int64,
-                     device=device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    tiny = torch.finfo(torch.float32).tiny
-    hidden, toks = hidden0, []
-    for _ in range(words):
-        logp, hidden = fwd(tok, hidden)
-        u = torch.rand(logp.shape[-1], generator=gen, device=device)
-        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
-        tok = torch.argmax(logp[0] / temperature + gumbel).reshape(1, 1)
-        toks.append(tok)
-    return torch.cat(toks).reshape(-1).tolist() if toks else []
+    with span("tq.sampler.request", rid=seed):
+        rng = np.random.default_rng(seed)
+        tok = torch.full((1, 1), int(rng.integers(0, vocab)),
+                         dtype=torch.int64, device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        tiny = torch.finfo(torch.float32).tiny
+        hidden, toks = hidden0, []
+        for _ in range(words):
+            logp, hidden = fwd(tok, hidden)
+            with span("tq.sampler.draw"):
+                u = torch.rand(logp.shape[-1], generator=gen, device=device)
+                gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+                tok = torch.argmax(logp[0] / temperature
+                                   + gumbel).reshape(1, 1)
+            toks.append(tok)
+        return torch.cat(toks).reshape(-1).tolist() if toks else []
 
 
 def generate(params, vocab: int, words: int = 100, temperature: float = 1.0,

@@ -31,6 +31,7 @@ from tq_tpu_torch.layers.quantize import (
     init_histogram,
     mse_search_scale,
 )
+from tq_tpu_torch.utils.trace import span
 
 __all__ = [
     "tr_dense_convert",
@@ -50,8 +51,10 @@ def init_quant_state(cfg: CalibConfig = CalibConfig(), device=None):
 def finalize_quant_state(qs, data_bits: int, data_terms: int,
                          cfg: CalibConfig = CalibConfig()):
     """Histogram -> MSE-searched scale (the reference's ``finish_tracking``)."""
-    return {"hist": qs["hist"],
-            "sf": mse_search_scale(qs["hist"], data_bits, data_terms, cfg)}
+    with span("tq.calib.search", device=qs["hist"].is_cuda):
+        return {"hist": qs["hist"],
+                "sf": mse_search_scale(qs["hist"], data_bits, data_terms,
+                                       cfg)}
 
 
 def tr_dense_convert(params, tr: TRParams):

@@ -30,6 +30,7 @@ import torch
 from tq_tpu_torch.kernels.tr_quantize import (_topk_value, max_hese_terms,
                                               tr_quantize)
 from tq_tpu_torch.ops.term_reveal import term_reveal_elementwise
+from tq_tpu_torch.utils.trace import span
 
 __all__ = [
     "CalibConfig",
@@ -74,17 +75,19 @@ def histogram_update(hist: torch.Tensor, x: torch.Tensor,
     before they are cast and added, so the histogram is the one of the
     whole batch, exact past 2^24 a bin.
     """
-    x = x.reshape(-1)
-    inv_width = np.float32(1.0) / np.float32((cfg.maxv - cfg.minv)
-                                             / cfg.num_bins)
-    idx = torch.floor((x - cfg.minv) * float(inv_width))
-    idx = idx.clamp(0, cfg.num_bins - 1).to(torch.int64)
-    valid = (x >= cfg.minv) & (x <= cfg.maxv)
-    counts = torch.zeros(cfg.num_bins, dtype=torch.int64, device=x.device)
-    counts.index_add_(0, idx, valid.to(torch.int64))
-    if count_reduce is not None:
-        counts = count_reduce(counts)
-    return hist + counts.to(hist.dtype)
+    with span("tq.calib.histogram", device=x.is_cuda):
+        x = x.reshape(-1)
+        inv_width = np.float32(1.0) / np.float32((cfg.maxv - cfg.minv)
+                                                 / cfg.num_bins)
+        idx = torch.floor((x - cfg.minv) * float(inv_width))
+        idx = idx.clamp(0, cfg.num_bins - 1).to(torch.int64)
+        valid = (x >= cfg.minv) & (x <= cfg.maxv)
+        counts = torch.zeros(cfg.num_bins, dtype=torch.int64,
+                             device=x.device)
+        counts.index_add_(0, idx, valid.to(torch.int64))
+        if count_reduce is not None:
+            counts = count_reduce(counts)
+        return hist + counts.to(hist.dtype)
 
 
 def _linspace_f32(start: float, stop: float, num: int) -> np.ndarray:

@@ -38,6 +38,7 @@ from tq_tpu_torch.layers.lstm import (
     tr_lstm_convert,
     tr_lstm_pack,
 )
+from tq_tpu_torch.utils.trace import span
 
 VOCAB = 33278  # wikitext-2 word vocabulary
 EMSIZE = 650
@@ -165,15 +166,16 @@ def make_quantized_apply(qcfg, track: bool):
     cell = qcfg.get("cell", "LSTM")
 
     def forward(qparams, qstate, tokens, hidden):
-        out, hidden, qs_rnn = tr_lstm_apply(
-            qparams["rnn"], qcfg["rnn"], qstate["rnn"],
-            _embed(qparams, tokens), hidden, track, cell)
-        T, B, H = out.shape
-        logits, qs_dec = tr_dense_apply(
-            qparams["decoder"], qcfg["decoder"], qstate["decoder"],
-            out.reshape(T * B, H), track)
-        new_state = {"rnn": qs_rnn, "decoder": qs_dec}
-        return torch.log_softmax(logits, dim=-1), hidden, new_state
+        with span("tq.lstm.step"):
+            out, hidden, qs_rnn = tr_lstm_apply(
+                qparams["rnn"], qcfg["rnn"], qstate["rnn"],
+                _embed(qparams, tokens), hidden, track, cell)
+            T, B, H = out.shape
+            logits, qs_dec = tr_dense_apply(
+                qparams["decoder"], qcfg["decoder"], qstate["decoder"],
+                out.reshape(T * B, H), track)
+            new_state = {"rnn": qs_rnn, "decoder": qs_dec}
+            return torch.log_softmax(logits, dim=-1), hidden, new_state
 
     return forward
 

@@ -12,12 +12,16 @@ gathers the rows over 'data', so every rank holds every result in request
 order.  ``forward`` may return a tensor or a tuple of tensors, each with
 the batch on its leading axis; a result is then the tuple of one row of
 each.
+
+``counts`` holds the requests launched and their summed queue wait, from
+``submit`` to the launch of their batch, in nanoseconds.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -25,6 +29,7 @@ import torch
 
 from tq_tpu_torch.parallel._compat import (all_gather, axis_index,
                                            axis_size, device)
+from tq_tpu_torch.utils.trace import span
 
 __all__ = ["BatchRunner"]
 
@@ -33,6 +38,7 @@ __all__ = ["BatchRunner"]
 class _Pending:
     request_id: int
     example: np.ndarray
+    submitted_ns: int
 
 
 class BatchRunner:
@@ -65,26 +71,34 @@ class BatchRunner:
         self._results: dict[int, Any] = {}
         self._next_id = 0
         self._inflight: list[tuple[list[int], Any]] = []
+        self.counts = {"requests": 0, "queue_wait_ns": 0}
 
     def submit(self, example) -> int:
         """Enqueue one example; returns a request id."""
         rid = self._next_id
         self._next_id += 1
-        self._queue.append(_Pending(rid, np.asarray(example)))
+        self._queue.append(_Pending(rid, np.asarray(example),
+                                    time.perf_counter_ns()))
         if len(self._queue) >= self._batch:
             self._launch(self._batch)
         return rid
 
     def _launch(self, n: int):
-        take = [self._queue.popleft() for _ in range(n)]
-        x = np.stack([p.example for p in take])
-        if n < self._batch:  # pad the tail to the batch size
-            pad_shape = (self._batch - n,) + x.shape[1:]
-            x = np.concatenate([x, np.full(pad_shape, self._pad, x.dtype)])
-        rows = torch.as_tensor(x[self._first:self._first + self._rows],
-                               device=self._device)
-        y = self._forward(rows)  # asynchronous on a card; gathered later
-        self._inflight.append(([p.request_id for p in take], y))
+        with span("tq.runner.launch"):
+            take = [self._queue.popleft() for _ in range(n)]
+            now = time.perf_counter_ns()
+            self.counts["requests"] += n
+            self.counts["queue_wait_ns"] += sum(now - p.submitted_ns
+                                                for p in take)
+            x = np.stack([p.example for p in take])
+            if n < self._batch:  # pad the tail to the batch size
+                pad_shape = (self._batch - n,) + x.shape[1:]
+                x = np.concatenate([x, np.full(pad_shape, self._pad,
+                                               x.dtype)])
+            rows = torch.as_tensor(x[self._first:self._first + self._rows],
+                                   device=self._device)
+            y = self._forward(rows)  # asynchronous on a card; gathered later
+            self._inflight.append(([p.request_id for p in take], y))
 
     def flush(self):
         """Run everything still queued (tail partial batch included)."""
@@ -100,16 +114,17 @@ class BatchRunner:
         """Gather the in-flight batches over 'data'; return {request_id:
         result row}."""
         out = {}
-        for rids, y in self._inflight:
-            if isinstance(y, (tuple, list)):
-                parts = [self._gather(t) for t in y]
-                for i, rid in enumerate(rids):
-                    out[rid] = tuple(p[i] for p in parts)
-            else:
-                y = self._gather(y)
-                for i, rid in enumerate(rids):
-                    out[rid] = y[i]
-        self._inflight.clear()
+        with span("tq.runner.harvest"):
+            for rids, y in self._inflight:
+                if isinstance(y, (tuple, list)):
+                    parts = [self._gather(t) for t in y]
+                    for i, rid in enumerate(rids):
+                        out[rid] = tuple(p[i] for p in parts)
+                else:
+                    y = self._gather(y)
+                    for i, rid in enumerate(rids):
+                        out[rid] = y[i]
+            self._inflight.clear()
         self._results.update(out)
         return out
 
