@@ -248,13 +248,25 @@ non-zero without printing a result:
     counted; ``term_matmul`` at the decode's shapes against its plain
     version.  The path's launches are those of its own calls only (the
     conversions, the checked forward, the eval, the step, the LM loops):
-    the reference runs, checks and timing repeats are not counted.
+    the reference runs, checks and timing repeats are not counted;
+34. ``histogram``: calibration's histogram kernel bit for bit against its
+    plain version (``index_add_``) on ResNet-18's 20 conv inputs at batch
+    64 after a ReLU, an all-zero (64, 56, 56, 64), every bin edge with
+    NaN, +-inf and -0.0, odd-length views off 16 bytes, a strided 1-D
+    view, and 1,024 and 16,384 bins; ``histogram_update`` launches it on a
+    float32 CUDA tensor, once a tracked layer in a tracked batch of the
+    flagship setting (``resnet_checkpoint``'s weights, 8 images at 224;
+    the path's count); timed by CUDA-graph replay beside the bytes bound
+    (4 bytes an element), the all-zero input within 3x of the ReLU input
+    of its shape (the hot bin does not serialise), and a tracked batch's
+    sum.  Every path that calibrates on the card must launch it.
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only
-mlp|lstm|cnn|zoo|tfm|train|leaf|par`` runs the build and those groups of
-phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-33).
+mlp|lstm|cnn|zoo|tfm|train|leaf|par|calib`` runs the build and those groups
+of phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-33,
+34).
 """
 
 from __future__ import annotations
@@ -653,6 +665,11 @@ KERNELS = {
     "tr_quantize_grouped": dict(
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:205"),
+    # No TPU kernel: the JAX package counts with .at[].add.  Calibration's
+    # histograms of float32 CUDA inputs; held and timed in phase histogram.
+    "histogram": dict(
+        route="cuda", source="tq_tpu_torch/csrc/histogram.cu",
+        replaces="none (tq_tpu/layers/quantize.py:56, .at[idx].add)"),
     # No user path runs B5 (the JAX package calls it from bench.py alone):
     # it is B1's copy ceiling, held and timed in phase cnn_kernels.
     "tr_scale_copy": dict(
@@ -1463,7 +1480,8 @@ def phase_main_path(torch):
                 fail(f"{name} {key}: {got[name][key]} != JAX {exp[key]}")
     _require_launched(launches, ["tr_quantize_elementwise",
                                  "tr_quantize_grouped",
-                                 "term_matmul_kernel_mma"], "main")
+                                 "term_matmul_kernel_mma", "histogram"],
+                      "main")
     if launches["term_matmul_kernel_tiled"]:  # the f32 route at M > 8
         fail(f"the main path launched the tiled kernel "
              f"{launches['term_matmul_kernel_tiled']} times")
@@ -2013,22 +2031,26 @@ def phase_term_matmul_modes(torch, smi: str):
 
 
 def _reset_counts():
+    from tq_tpu_torch.kernels.histogram import histogram
     from tq_tpu_torch.kernels.term_matmul import term_matmul
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
     for counts in (tr_quantize.launches, term_matmul.launches,
-                   term_matmul.kernel_launches, tr_scale_copy.launches):
+                   term_matmul.kernel_launches, tr_scale_copy.launches,
+                   histogram.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts() -> dict:
     """Launches per kernel row since the last reset."""
+    from tq_tpu_torch.kernels.histogram import histogram
     from tq_tpu_torch.kernels.term_matmul import term_matmul
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
 
     out = {f"tr_quantize_{k}": n for k, n in tr_quantize.launches.items()}
     out["tr_scale_copy"] = tr_scale_copy.launches["scale_copy"]
+    out["histogram"] = histogram.launches["histogram"]
     for row, variant in TERM_MATMUL_ROWS.items():
         out[row] = term_matmul.launches[variant]
     out["term_matmul_other"] = sum(
@@ -2076,7 +2098,8 @@ def phase_lstm_sweep(torch, ckpt: Path):
         fail(f"LSTM sweep ppl differs from the JAX package's by {gap} "
              "(relative)")
     _require_launched(launches, ["tr_quantize_elementwise",
-                                 "tr_quantize_grouped"], "LSTM sweep")
+                                 "tr_quantize_grouped", "histogram"],
+                      "LSTM sweep")
     emit({"phase": "lstm_sweep", "ok": True, "seconds": seconds,
           "sweep_seconds": sweep_seconds,
           "settings": sum(len(e["ppls"]) for e in
@@ -2125,7 +2148,7 @@ def phase_generation(torch, ckpt: Path):
     total = time.perf_counter() - t0
     launches = _read_counts()
     _require_launched(launches, [
-        "tr_quantize_elementwise", "tr_quantize_grouped",
+        "tr_quantize_elementwise", "tr_quantize_grouped", "histogram",
         "term_matmul_raw_packed8", "term_matmul_raw_int16",
         "term_matmul_raw_int8", "term_matmul_bf16_int16",
         "term_matmul_bf16_packed8", "term_matmul_int8",
@@ -3044,7 +3067,8 @@ def phase_cnn_sweep(torch, ckpt: Path):
             near_ties[name] = dict(card=have, jax=want, err_card=ea,
                                    err_jax=eb)
     _require_launched(launches, ["tr_quantize_elementwise",
-                                 "tr_quantize_grouped"], "ResNet sweep")
+                                 "tr_quantize_grouped", "histogram"],
+                      "ResNet sweep")
     t1 = time.perf_counter()
     list(cnn_eval._batches("resnet18", None, 64, 512))
     data_seconds = time.perf_counter() - t1
@@ -3545,7 +3569,8 @@ def phase_group_size(torch, ckpt: Path, tmp: Path):
            for ln in lines):
         fail(f"group-size grid: the compare finds {lines}")
     _require_launched(total, ["tr_quantize_elementwise",
-                              "tr_quantize_grouped"], "group-size grid")
+                              "tr_quantize_grouped", "histogram"],
+                      "group-size grid")
     emit({"phase": "group_size", "ok": True,
           "seconds": time.perf_counter() - t_phase,
           "settings": sum(len(v["accs"]) for v in got.values()),
@@ -3684,7 +3709,8 @@ def phase_tfm_sweep(torch, ckpt: Path):
         fail(f"Transformer sweep ppl differs from the JAX package's by {gap} "
              "(relative)")
     _require_launched(launches, ["tr_quantize_elementwise",
-                                 "tr_quantize_grouped"], "Transformer sweep")
+                                 "tr_quantize_grouped", "histogram"],
+                      "Transformer sweep")
     emit({"phase": "tfm_sweep", "ok": True, "seconds": seconds,
           "seconds_per_setting": setting_seconds,
           "settings": sum(len(e["ppls"]) for e in
@@ -4901,11 +4927,13 @@ def phase_example(torch):
 
 
 class _NoPlainOnCard:
-    """Inside: the plain version of ``tr_quantize`` or ``term_matmul``
-    called on a CUDA tensor fails the run (the path must launch the
-    kernels); on CPU tensors (the comparisons) they run as usual."""
+    """Inside: the plain version of ``tr_quantize``, ``term_matmul`` or
+    ``histogram`` called on a CUDA tensor fails the run (the path must
+    launch the kernels); on CPU tensors (the comparisons) they run as
+    usual."""
 
     def __enter__(self):
+        import tq_tpu_torch.kernels.histogram as hg
         import tq_tpu_torch.kernels.term_matmul as tm
         import tq_tpu_torch.kernels.tr_quantize as tq
 
@@ -4917,7 +4945,8 @@ class _NoPlainOnCard:
             return on_cpu_only
 
         self.saved = [(tq, "tr_quantize_ref", tq.tr_quantize_ref),
-                      (tm, "term_matmul_ref", tm.term_matmul_ref)]
+                      (tm, "term_matmul_ref", tm.term_matmul_ref),
+                      (hg, "histogram_ref", hg.histogram_ref)]
         for module, name, fn in self.saved:
             setattr(module, name, guard(fn))
         return self
@@ -6034,7 +6063,8 @@ def phase_par_dryrun(torch, smi: str, tmp: Path) -> dict:
     launches = _sum_counts(w1["launches"], w2["launches"])
     _require_launched(launches, ["tr_quantize_elementwise",
                                  "tr_quantize_grouped",
-                                 "term_matmul_kernel_mma"], "par_dryrun")
+                                 "term_matmul_kernel_mma", "histogram"],
+                      "par_dryrun")
     held = _dry_held(torch)
     strip = ("tokens", "logp", "codes", "margins")
     emit({"phase": "par_dryrun", "ok": True, "nvidia_smi": smi,
@@ -6070,10 +6100,131 @@ def phase_par_dryrun(torch, smi: str, tmp: Path) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- group calib
+
+
+def _histogram_edges(torch, dev):
+    """Every bin edge of the default range and its float32 neighbour
+    below, the range's ends and their neighbours outside, NaN, +-inf,
+    -0.0 and values far out of range."""
+    edges = torch.tensor(np.float32(-50.0) + np.arange(8193, dtype=np.float32)
+                         * np.float32(100 / 8192), device=dev)
+    special = torch.tensor([-50.0, 50.0, -50.000004, 50.000004, 1e9, -1e9,
+                            float("nan"), float("inf"), float("-inf"), -0.0,
+                            0.0], device=dev)
+    return torch.cat([edges, torch.nextafter(edges, edges - 1), special])
+
+
+def phase_histogram(torch, ckpt: Path):
+    """The histogram kernel against its plain version on the card, bit for
+    bit: ResNet-18's 20 conv inputs at batch 64 after a ReLU, an all-zero
+    (64, 56, 56, 64), the edge cases, an odd-length view one element past
+    an aligned address, a strided 1-D view, and 1,024 and 16,384 bins;
+    ``histogram_update`` takes the kernel on a float32 CUDA tensor, once a
+    tracked layer in a tracked batch of the flagship setting (the path's
+    count, with the plain version barred on the card).  Timed (CUDA-graph
+    replay) beside the bytes bound, 4 bytes an element."""
+    from tq_tpu_torch.convert import (convert_cnn, make_cnn_apply,
+                                      static_conv_layer_settings)
+    from tq_tpu_torch.evals.cnn import load_params
+    from tq_tpu_torch.kernels.histogram import histogram, histogram_ref
+    from tq_tpu_torch.layers.quantize import (CalibConfig, histogram_update,
+                                              init_histogram)
+    from tq_tpu_torch.models import resnet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bins, lo, hi = 8192, -50.0, 50.0
+    launches0 = histogram.launches["histogram"]
+    n_checks = 0
+
+    def held(name, x, num_bins=bins):
+        nonlocal n_checks
+        got = histogram(x, num_bins, lo, hi)
+        _exact(torch, f"histogram {name} bins={num_bins}", got,
+               histogram_ref(x, num_bins, lo, hi))
+        n_checks += 1
+
+    # The conv inputs, each timed; their sum is a tracked batch's.
+    per_conv, batch_ms, elements = {}, 0.0, 0
+    for spec in resnet.conv_specs(224):
+        shape = (64, spec.out_h * spec.stride, spec.out_w * spec.stride,
+                 spec.in_ch)
+        x = torch.relu(torch.randn(*shape, generator=gen, device=dev) * 2)
+        held(f"{spec.name} {list(shape)}", x)
+        ms = device_ms(torch, lambda: histogram(x, bins, lo, hi))
+        per_conv[spec.name] = dict(shape=list(shape), ms=ms,
+                                   bound_ms=bound_ms(4 * x.numel(), 0)[0])
+        batch_ms += ms
+        elements += x.numel()
+    del x
+    shape = RESNET_ACTIVATIONS[0]
+    relu = torch.relu(torch.randn(*shape, generator=gen, device=dev) * 2)
+    zeros = torch.zeros(shape, device=dev)
+    held("all zero", zeros)
+    for num_bins in (1024, 16384):
+        held("layer1 after ReLU", relu, num_bins)
+    edges = _histogram_edges(torch, dev)
+    held("edges", edges)
+    held("edges 1,024 bins", edges, 1024)
+    n = 1_000_003
+    big = torch.randn(n + 8, generator=gen, device=dev) * 30
+    for off in range(1, 4):  # 4 to 12 bytes past a 16-byte boundary
+        held(f"odd length {n} at +{off}", big[off:off + n])
+    for m in range(1, 12):   # head and tail alone
+        held(f"{m} elements", big[1:1 + m])
+    held("strided 1-D view", big[1::3])  # made contiguous first
+    cfg = CalibConfig()
+    before = histogram.launches["histogram"]
+    h = histogram_update(init_histogram(cfg, dev), relu, cfg)
+    if histogram.launches["histogram"] != before + 1:
+        fail("histogram_update did not launch the histogram kernel on a "
+             "float32 CUDA tensor")
+    _exact(torch, "histogram_update", h,
+           histogram_ref(relu, bins, lo, hi).to(torch.float32))
+    # A tracked batch of the flagship setting: one launch a tracked layer.
+    _, params = load_params("resnet18", str(ckpt), device="cuda")
+    qp, qc, qs = convert_cnn(resnet, params, static_conv_layer_settings(
+        resnet.conv_specs(), *FLAGSHIP["tr"]), FLAGSHIP["db"],
+        FLAGSHIP["dt"])
+    images = torch.randn(8, 224, 224, 3, generator=gen, device=dev)
+    checked = histogram.launches["histogram"] - launches0
+    _reset_counts()  # the path's count: the tracked batch alone
+    with _NoPlainOnCard():
+        _, qs = make_cnn_apply(resnet, qc, track=True)(qp, qs, images)
+    launches = _read_counts()
+    tracked_launches = launches["histogram"]
+    if tracked_launches != len(qs):
+        fail(f"histogram: {tracked_launches} launches in a tracked batch of "
+             f"{len(qs)} tracked layers")
+
+    n = relu.numel()
+    b, by = bound_ms(4 * n, 0)
+    zero_ms = device_ms(torch, lambda: histogram(zeros, bins, lo, hi))
+    row = dict(shape=list(shape), bins=bins, cases=n_checks, max_abs_err=0.0,
+               **timings(torch, lambda: histogram(relu, bins, lo, hi),
+                         lambda: histogram_ref(relu, bins, lo, hi)),
+               bound_ms=b, bound_by=by, all_zero_ms=zero_ms,
+               all_zero_plain_ms=device_ms(
+                   torch, lambda: histogram_ref(zeros, bins, lo, hi)),
+               per_conv=per_conv, tracked_batch_ms=batch_ms,
+               tracked_batch_bound_ms=bound_ms(4 * elements, 0)[0],
+               tracked_batch_elements=elements)
+    if zero_ms > 3 * row["ms"]:
+        fail(f"histogram: all-zero input {zero_ms:.4f} ms, more than 3x the "
+             f"ReLU input's {row['ms']:.4f}: the hot bin serialises")
+    emit({"phase": "histogram", "ok": True, "cases": n_checks,
+          "launches": checked + histogram.launches["histogram"],
+          "launches_tracked_batch": tracked_launches,
+          "results": {"histogram": row}})
+    return {"histogram": row}, launches
+
+
 # ------------------------------------------------------------------ main
 
 
-GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf", "par")
+GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf", "par",
+          "calib")
 
 
 def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
@@ -6187,7 +6338,8 @@ def main(argv=None) -> None:
             # run_demo's evaluations run the reference layer
             # (quantize_input=False): plain products, no term_matmul.
             _require_launched(by_path["train"], [
-                "tr_quantize_elementwise", "tr_quantize_grouped"], "train")
+                "tr_quantize_elementwise", "tr_quantize_grouped",
+                "histogram"], "train")
     if "leaf" in groups:
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = Path(tmp) / "resnet_seeded.npz"
@@ -6200,7 +6352,8 @@ def main(argv=None) -> None:
                                    phase_example(torch))
             by_path["leaf"] = leaf
             _require_launched(leaf, ["tr_quantize_elementwise",
-                                     "tr_quantize_grouped"], "leaf")
+                                     "tr_quantize_grouped", "histogram"],
+                              "leaf")
         _attach_cells(kernel_results, phase_oracle(torch), "leaf_shapes")
     if "par" in groups:
         with tempfile.TemporaryDirectory() as tmp:
@@ -6209,6 +6362,12 @@ def main(argv=None) -> None:
         _attach_cells(kernel_results, phase_par_cells(torch, smi),
                       "par_shapes")
         phase_par_examples()
+    if "calib" in groups:
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "resnet_seeded.npz"
+            resnet_checkpoint(ckpt)
+            rows, by_path["calib"] = phase_histogram(torch, ckpt)
+            kernel_results.update(rows)
 
     lines = []
     for name, meta in KERNELS.items():
@@ -6231,7 +6390,10 @@ def main(argv=None) -> None:
                                            "modes_m_gt_8", "narrow_f32",
                                            "bound_fp32_ms",
                                            "raw_ms", "reveal_share",
-                                           "clusters_at_once")
+                                           "clusters_at_once",
+                                           "all_zero_ms", "per_conv",
+                                           "tracked_batch_ms",
+                                           "tracked_batch_bound_ms")
                          if k in r},
                       "match": True})
     emit({"kernels": lines, "card": smi, "groups": sorted(groups),

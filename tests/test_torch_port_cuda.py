@@ -10,6 +10,7 @@ installed; the repo's conftest imports JAX, so on the card run
 import pytest
 import torch
 
+from tq_tpu_torch.kernels import histogram as hist
 from tq_tpu_torch.kernels import term_matmul as tm
 
 
@@ -345,3 +346,45 @@ def test_portable_lstm_step_on_the_card(cuda):
     with pytest.raises(ValueError, match="traced from CPU tensors"):
         export_serving(lambda x: x * w, (torch.zeros(4),),
                        platforms=("cpu", "cuda"))
+
+
+def _histogram_input(case, cuda):
+    """The case's input on the card; views are taken there, so they keep
+    their offset and strides."""
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    if case == "relu_layer1":
+        return torch.relu(torch.randn(64, 56, 56, 64, generator=gen) * 2
+                          ).to(cuda)
+    if case == "all_zero":
+        return torch.zeros(64, 56, 56, 64, device=cuda)
+    if case == "edges":
+        edges = -50.0 + torch.arange(8193, dtype=torch.float32) * (100 / 8192)
+        special = torch.tensor([float("nan"), float("inf"), float("-inf"),
+                                -0.0, 50.000004, -50.000004, 1e9])
+        return torch.cat([edges, torch.nextafter(edges, edges - 1),
+                          special]).to(cuda)
+    if case == "odd_offset_view":  # 12 bytes past an aligned address
+        return (torch.randn(1_000_011, generator=gen) * 30).to(cuda)[
+            3:1_000_006]
+    if case == "strided_view":  # 1-D, not contiguous
+        return (torch.randn(3_000_017, generator=gen) * 30).to(cuda)[1::3]
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["relu_layer1", "all_zero", "edges",
+                                  "odd_offset_view", "strided_view"])
+@pytest.mark.parametrize("num_bins", [8192, 1024, 16384])
+def test_histogram_kernel_on_the_card(cuda, case, num_bins):
+    """The histogram kernel equals its plain version on the card bit for
+    bit, one launch a call, at the default bins, SMALL's 1,024 and the
+    16,384 that need dynamic shared memory past 48 KB."""
+    x = _histogram_input(case, cuda)
+    before = hist.histogram.launches["histogram"]
+    got = hist.histogram(x, num_bins, -50.0, 50.0)
+    want = hist.histogram_ref(x, num_bins, -50.0, 50.0)
+    torch.cuda.synchronize()
+    assert hist.histogram.launches["histogram"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), hist.histogram_ref(x.cpu(), num_bins,
+                                                     -50.0, 50.0))

@@ -40,6 +40,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # name -> argtypes; every entry point returns a cudaError_t as int.
 SIGNATURES = {
     # x, sf, out, head, n_vec, tail, blocks, bits, budget, variant, stream
@@ -68,6 +69,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _P],
     # mode, splits -> clusters of the mma_lp kernel the card runs at once
     "tq_term_matmul_mma_lp_clusters": [_I, _I],
+    # x, head, n_vec, tail, counts, num_bins, minv, maxv, inv_width,
+    # blocks, stream
+    "tq_histogram": [_P, _I64, _I64, _I64, _P, _I, _F, _F, _F, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tq_tpu_torch.kernels.histogram import histogram
 from tq_tpu_torch.kernels.tr_quantize import (_topk_value, max_hese_terms,
                                               tr_quantize)
 from tq_tpu_torch.ops.term_reveal import term_reveal_elementwise
@@ -70,21 +71,17 @@ def histogram_update(hist: torch.Tensor, x: torch.Tensor,
     last bin.  The bin is ``floor((x - minv) * (1 / width))`` in float32:
     XLA turns the JAX package's division by the constant bin width into
     that multiplication, and ``torch.histc`` bins edges differently.
-    Counts are exact integers.  ``count_reduce`` (e.g. a sum over the
-    'data' ranks that split the batch) takes the batch's int64 counts
-    before they are cast and added, so the histogram is the one of the
-    whole batch, exact past 2^24 a bin.
+    Counts are exact integers: on the card the histogram kernel counts
+    them (:func:`~tq_tpu_torch.kernels.histogram.histogram`; float32, up
+    to ``MAX_BINS`` bins), on the CPU its plain version, with equal
+    counts.  ``count_reduce`` (e.g. a sum over the 'data' ranks
+    that split the batch) takes the batch's int64 counts before they are
+    cast and added, so the histogram is the one of the whole batch, exact
+    past 2^24 a bin.
     """
     with span("tq.calib.histogram", device=x.is_cuda):
         x = x.reshape(-1)
-        inv_width = np.float32(1.0) / np.float32((cfg.maxv - cfg.minv)
-                                                 / cfg.num_bins)
-        idx = torch.floor((x - cfg.minv) * float(inv_width))
-        idx = idx.clamp(0, cfg.num_bins - 1).to(torch.int64)
-        valid = (x >= cfg.minv) & (x <= cfg.maxv)
-        counts = torch.zeros(cfg.num_bins, dtype=torch.int64,
-                             device=x.device)
-        counts.index_add_(0, idx, valid.to(torch.int64))
+        counts = histogram(x, cfg.num_bins, cfg.minv, cfg.maxv)
         if count_reduce is not None:
             counts = count_reduce(counts)
         return hist + counts.to(hist.dtype)
