@@ -47,7 +47,11 @@ def device_trace(out_dir: str = "traces", label: str = "run"):
     ``tq.runner.harvest`` (``BatchRunner``'s batches); ``tq.cnn.forward``
     (a CNN batch) and ``tq.convert.cnn`` (a CNN's conversion);
     ``tq.calib.histogram`` (a layer's histogram update) and
-    ``tq.calib.search`` (a layer's scale search)."""
+    ``tq.calib.search`` (a layer's scale search); ``tq.dsv3.prefill`` and
+    ``tq.dsv3.step`` (a DeepSeek-V3 prefill and decode step),
+    ``tq.mla.attend`` (a layer's latent attention), ``tq.moe.route`` (an
+    expert layer's router, sort and counts' copy to the host) and
+    ``tq.moe.experts`` (its experts' products)."""
     path = Path(out_dir) / label
     path.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
