@@ -261,12 +261,23 @@ non-zero without printing a result:
     of its shape (the hot bin does not serialise), and a tracked batch's
     sum.  Every path that calibrates on the card must launch it.
 
+35. ``moe_grouped``: the grouped expert product at the MoE cell's decode
+    shapes (64 experts, 2,048 -> 1,408 gate and up in one launch, 1,408
+    -> 2,048 down, 384 pairs routed over Zipf-repeated rows) against its
+    plain version, with half the experts held and at one row (K split);
+    ``moe_apply``'s grouped path against its per-expert path, the
+    per-expert launches it replaces counted, the grouped path free of
+    host syncs (sync debug mode "error"); each launch timed by
+    CUDA-graph replay beside its bytes bound, and a layer call on both
+    paths at 64 to 8,192 rows (the crossover ``GROUPED_MAX_PAIRS``
+    records).
+
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only
-mlp|lstm|cnn|zoo|tfm|train|leaf|par|calib`` runs the build and those groups
-of phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29, 30-33,
-34).
+mlp|lstm|cnn|zoo|tfm|train|leaf|par|calib|moe`` runs the build and those
+groups of phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29,
+30-33, 34, 35).
 """
 
 from __future__ import annotations
@@ -697,6 +708,12 @@ KERNELS = {
     "term_matmul_kernel_tiled": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
+    # No TPU kernel: the JAX package runs a term_matmul an expert.  The
+    # MoE cell's expert layer in a decode step, every expert a launch;
+    # held and timed in phase moe_grouped.
+    "term_matmul_kernel_grouped": dict(
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_grouped.cu",
+        replaces="none (one tq_tpu/kernels/term_matmul.py call an expert)"),
     "term_matmul_raw_packed8": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
         replaces="tq_tpu/kernels/term_matmul.py:151"),
@@ -6220,11 +6237,250 @@ def phase_histogram(torch, ckpt: Path):
     return {"histogram": row}, launches
 
 
+# The MoE cell's expert layer (benchmark cell moonlight16b-tr-decode-b64):
+# 64 experts of width 1,408 over hidden 2,048, 6 a token, batch 64; the
+# rows of the crossover sweep between the grouped and per-expert paths.
+MOE_EXPERTS, MOE_HIDDEN, MOE_WIDTH, MOE_TOP_K, MOE_SCALE = 64, 2048, 1408, \
+    6, 2.446
+MOE_ROWS = 64
+MOE_SWEEP_ROWS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def _moe_layer(torch, gen, dev):
+    """A seeded expert layer at the cell's widths: the router (N(0, 0.02),
+    bias U(-0.01, 0.01)), each expert's gate, up and down as 9-bit packs
+    of random 8-bit grids (scale 1e-4), their grouped tables, and the
+    per-expert SwiGLU on the same packs (``term_matmul``, raw input)."""
+    import torch.nn.functional as F
+
+    from tq_tpu_torch.kernels.term_matmul import pack_weight_u8s, term_matmul
+    from tq_tpu_torch.kernels.term_matmul_grouped import group_weights
+    from tq_tpu_torch.layers.moe import Grouped
+
+    sf = torch.tensor(1e-4, device=dev)
+
+    def packs(K, N):
+        return [pack_weight_u8s(torch.randint(
+            -255, 256, (K, N), generator=gen, device=dev).to(torch.float32)
+            * sf, sf, 8, checks=[]) for _ in range(MOE_EXPERTS)]
+
+    gate, up = packs(MOE_HIDDEN, MOE_WIDTH), packs(MOE_HIDDEN, MOE_WIDTH)
+    down = packs(MOE_WIDTH, MOE_HIDDEN)
+    router = {"w": torch.randn(MOE_EXPERTS, MOE_HIDDEN, generator=gen,
+                               device=dev) * 0.02,
+              "bias": (torch.rand(MOE_EXPERTS, generator=gen, device=dev)
+                       - 0.5) * 0.02}
+    grouped = Grouped(group_weights([gate, up], MOE_HIDDEN),
+                      group_weights([down], MOE_WIDTH))
+
+    def expert(e, rows):
+        g, u = (term_matmul(rows, w[e], 1.0, quantize_x=False)
+                for w in (gate, up))
+        return term_matmul(F.silu(g) * u, down[e], 1.0, quantize_x=False)
+
+    return router, grouped, expert
+
+
+def _zipf_rows(torch, gen, dev, rows: int, table: int = 1000):
+    """``rows`` hidden rows drawn from ``table`` N(0, 1) rows with Zipf
+    (s = 1) ids, as the cell's prompts repeat: the router then loads a few
+    experts heavily."""
+    weights = 1.0 / torch.arange(1, table + 1, device=dev, dtype=torch.float32)
+    ids = torch.multinomial(weights, rows, replacement=True, generator=gen)
+    return torch.randn(table, MOE_HIDDEN, generator=gen, device=dev)[ids]
+
+
+def phase_moe_grouped(torch):
+    """The grouped expert product (``kernels/term_matmul_grouped.py``) at
+    the MoE cell's decode shapes: 64 rows routed by a seeded router over
+    Zipf-repeated hidden rows (384 pairs), gate and up (2,048 -> 1,408) in
+    one launch on the rows gathered by the sort and down (1,408 -> 2,048)
+    in another on silu(gate) * up, scattered back times the weights,
+    each against the plain version (max |err| / max |ref| <= 1e-5), also
+    with half the experts held and at one row (6 pairs, K split over
+    clusters); the layer's grouped path against its per-expert path
+    (``moe_apply``, within 1e-4 of max |y|: the per-expert path takes
+    mma's 2xTF32 sums past 8 rows) with the per-expert launches it
+    replaces counted, and the grouped path under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no call of it
+    synchronizes with the host).  Timed: each launch by CUDA-graph replay
+    beside its bytes bound (each expert with pairs read once, 1.125 bytes
+    a weight; x in, the outputs out), the per-expert products' device
+    time on the same slices, and a layer call's host-clock time on both
+    paths at 64 to 8,192 rows (the crossover that ``GROUPED_MAX_PAIRS``
+    records; 8,192 rows are a prefill chunk)."""
+    import torch.nn.functional as F
+
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+    from tq_tpu_torch.kernels.term_matmul import term_matmul
+    from tq_tpu_torch.layers import moe
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    router, grouped, expert = _moe_layer(torch, gen, dev)
+    x = _zipf_rows(torch, gen, dev, MOE_ROWS)
+
+    def sort(rows):
+        idx, weight = moe.route(rows, router, MOE_TOP_K, MOE_SCALE)
+        flat = idx.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        loads = torch.bincount(flat, minlength=MOE_EXPERTS)
+        return order, torch.cumsum(loads, 0), loads, flat[order], \
+            weight.reshape(-1)
+
+    def held_err(got, want, rows=None):
+        if rows is not None:
+            got, want = got[:, rows], want[:, rows]
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    # The layer's two launches: gate and up on the rows gathered by the
+    # sort, down on silu(gate) * up, scattered back times the weights.
+    order, ends, loads, expert_of, weight = sort(x)
+    P = order.shape[0]
+    first = dict(gather=order, top_k=MOE_TOP_K)
+    second = dict(scatter=order, scale=weight)
+    before = term_matmul.kernel_launches["grouped"]
+    gu = tg.term_matmul_grouped(x, ends, grouped.gate_up, **first)
+    h = F.silu(gu[0]) * gu[1]
+    dn = tg.term_matmul_grouped(h, ends, grouped.down, **second)
+    torch.cuda.synchronize()
+    if term_matmul.kernel_launches["grouped"] != before + 2:
+        fail("term_matmul_grouped did not count its two launches")
+    errs = {"gate_up": held_err(gu, tg.term_matmul_grouped_ref(
+                x, ends, grouped.gate_up, **first)),
+            "down": held_err(dn, tg.term_matmul_grouped_ref(
+                h, ends, grouped.down, **second))}
+    mask = torch.zeros(MOE_EXPERTS, dtype=torch.bool, device=dev)
+    mask[::2] = True
+    errs["held_half"] = held_err(
+        tg.term_matmul_grouped(h, ends, grouped.down, mask, **second),
+        tg.term_matmul_grouped_ref(h, ends, grouped.down, mask, **second),
+        mask[expert_of].nonzero()[:, 0])
+    order1, ends1, _, _, _ = sort(x[:1])
+    p1 = tg.plan(order1.shape[0], MOE_EXPERTS, MOE_WIDTH, MOE_HIDDEN, 2,
+                 torch.cuda.get_device_properties(0).multi_processor_count)
+    errs["one_row_split"] = held_err(
+        tg.term_matmul_grouped(x, ends1, grouped.gate_up, gather=order1,
+                               top_k=MOE_TOP_K),
+        tg.term_matmul_grouped_ref(x, ends1, grouped.gate_up, gather=order1,
+                                   top_k=MOE_TOP_K))
+    for name, err in errs.items():
+        if not err <= 1e-5:
+            fail(f"term_matmul_grouped {name}: max |err| / max |ref| {err}")
+    # The layer: grouped path against the per-expert path.
+    k0 = dict(term_matmul.kernel_launches)
+    want, _ = moe.moe_apply(x, router, expert, MOE_TOP_K, MOE_SCALE,
+                            layer="smoke.per_expert")
+    replaced = {k: term_matmul.kernel_launches[k] - k0[k]
+                for k in ("stream", "mma")}
+    k0 = dict(term_matmul.kernel_launches)
+    got, _ = moe.moe_apply(x, router, expert, MOE_TOP_K, MOE_SCALE,
+                           layer="smoke.grouped", grouped=grouped)
+    torch.cuda.synchronize()
+    if (term_matmul.kernel_launches["grouped"] != k0["grouped"] + 2
+            or term_matmul.kernel_launches["stream"] != k0["stream"]
+            or term_matmul.kernel_launches["mma"] != k0["mma"]):
+        fail("the grouped path did not take two grouped launches alone")
+    layer_err = float((got - want).abs().max()) / float(want.abs().max())
+    if not layer_err <= 1e-4:
+        fail(f"moe_apply grouped against per expert: {layer_err}")
+    counts = moe.moe_apply.counts["smoke.grouped"]
+    if counts["grouped"] != 1 or counts["tokens"] != P:
+        fail(f"moe_apply.counts of the grouped call: {counts}")
+    # The grouped path makes no host sync: a synchronizing call raises.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe.moe_apply(x, router, expert, MOE_TOP_K, MOE_SCALE,
+                      layer="smoke.no_sync", grouped=grouped)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    # Times: each launch, the per-expert products on the same slices.
+    gu_ms = device_ms(torch, lambda: tg.term_matmul_grouped(
+        x, ends, grouped.gate_up, **first))
+    dn_ms = device_ms(torch, lambda: tg.term_matmul_grouped(
+        h, ends, grouped.down, **second))
+    host_loads = loads.tolist()
+    starts = np.concatenate([[0], np.cumsum(host_loads)]).tolist()
+    xs = x.index_select(0, order // MOE_TOP_K)
+
+    def per_expert():
+        for e, n in enumerate(host_loads):
+            if n:
+                expert(e, xs[starts[e]:starts[e + 1]])
+
+    per_expert_ms = device_ms(torch, per_expert, calls=2, replays=5)
+    with_rows = sum(1 for n in host_loads if n)
+    tiles = sum(-(-n // tg.TILE) for n in host_loads)
+    # Each byte once: the 64 rows in (gathered a pair at a time), gate and
+    # up out; silu(gate) * up in, down out.
+    gu_bytes = (2 * with_rows * MOE_HIDDEN * MOE_WIDTH * 9 / 8
+                + MOE_ROWS * MOE_HIDDEN * 4 + 2 * P * MOE_WIDTH * 4)
+    dn_bytes = (with_rows * MOE_WIDTH * MOE_HIDDEN * 9 / 8
+                + P * MOE_WIDTH * 4 + P * MOE_HIDDEN * 4)
+    flops = 3 * 2.0 * P * MOE_HIDDEN * MOE_WIDTH
+    bound, by = bound_ms(gu_bytes + dn_bytes, flops)
+
+    def layer(rows, grouped_path):
+        return lambda: moe.moe_apply(rows, router, expert, MOE_TOP_K,
+                                     MOE_SCALE, layer="smoke.sweep",
+                                     grouped=grouped if grouped_path
+                                     else None)
+
+    # The crossover: a layer call's host-clock time on both paths (each
+    # call ends with the device's work; the per-expert path syncs itself).
+    sweep, saved = [], moe.GROUPED_MAX_PAIRS
+    moe.GROUPED_MAX_PAIRS = 1 << 30
+    try:
+        for n in MOE_SWEEP_ROWS:
+            rows_n = _zipf_rows(torch, gen, dev, n)
+            sweep.append(dict(
+                rows=n, pairs=n * MOE_TOP_K,
+                per_expert_ms=eager_ms(torch, layer(rows_n, False),
+                                       iters=10, warmup=2),
+                grouped_ms=eager_ms(torch, layer(rows_n, True), iters=10,
+                                    warmup=2)))
+    finally:
+        moe.GROUPED_MAX_PAIRS = saved
+    row = dict(shape=[P, MOE_HIDDEN, MOE_WIDTH], experts=MOE_EXPERTS,
+               experts_with_rows=with_rows, tiles=tiles,
+               max_load=max(host_loads), max_abs_err=max(errs.values()),
+               errs=errs, layer_err=layer_err,
+               ms=gu_ms + dn_ms, gate_up_ms=gu_ms, down_ms=dn_ms,
+               eager_ms=eager_ms(torch, lambda: (
+                   tg.term_matmul_grouped(x, ends, grouped.gate_up, **first),
+                   tg.term_matmul_grouped(h, ends, grouped.down,
+                                          **second))),
+               plain_ms=eager_ms(torch, lambda: (
+                   tg.term_matmul_grouped_ref(x, ends, grouped.gate_up,
+                                              **first),
+                   tg.term_matmul_grouped_ref(h, ends, grouped.down,
+                                              **second)),
+                   iters=5, warmup=1),
+               bound_ms=bound, bound_by=by,
+               gate_up_bound_ms=bound_ms(gu_bytes, 0)[0],
+               down_bound_ms=bound_ms(dn_bytes, 0)[0], library_ms=None,
+               per_expert_launches=replaced,
+               per_expert_device_ms=per_expert_ms,
+               layer_eager_ms={"grouped": sweep[0]["grouped_ms"],
+                               "per_expert": sweep[0]["per_expert_ms"]},
+               one_row_splits=p1.splits, crossover=sweep)
+    _reset_counts()
+    with _NoPlainOnCard():
+        moe.moe_apply(x, router, expert, MOE_TOP_K, MOE_SCALE,
+                      layer="smoke.path", grouped=grouped)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    emit({"phase": "moe_grouped", "ok": True,
+          "results": {"term_matmul_kernel_grouped": row}})
+    return {"term_matmul_kernel_grouped": row}, launches
+
+
 # ------------------------------------------------------------------ main
 
 
 GROUPS = ("mlp", "lstm", "cnn", "zoo", "tfm", "train", "leaf", "par",
-          "calib")
+          "calib", "moe")
 
 
 def _attach_cells(kernel_results: dict, rows: dict, key: str) -> None:
@@ -6368,6 +6624,9 @@ def main(argv=None) -> None:
             resnet_checkpoint(ckpt)
             rows, by_path["calib"] = phase_histogram(torch, ckpt)
             kernel_results.update(rows)
+    if "moe" in groups:
+        rows, by_path["moe"] = phase_moe_grouped(torch)
+        kernel_results.update(rows)
 
     lines = []
     for name, meta in KERNELS.items():
@@ -6393,7 +6652,10 @@ def main(argv=None) -> None:
                                            "clusters_at_once",
                                            "all_zero_ms", "per_conv",
                                            "tracked_batch_ms",
-                                           "tracked_batch_bound_ms")
+                                           "tracked_batch_bound_ms",
+                                           "per_expert_launches",
+                                           "per_expert_device_ms",
+                                           "layer_eager_ms", "crossover")
                          if k in r},
                       "match": True})
     emit({"kernels": lines, "card": smi, "groups": sorted(groups),

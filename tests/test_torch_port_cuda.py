@@ -388,3 +388,114 @@ def test_histogram_kernel_on_the_card(cuda, case, num_bins):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), hist.histogram_ref(x.cpu(), num_bins,
                                                      -50.0, 50.0))
+
+
+def _grouped_case(case, cuda):
+    """(x, ends, held, GroupedWeights) of a grouped-product case on the
+    card: two products' experts, random 8-bit grids packed."""
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    if case == "decode":  # the MoE cell: 64 experts, 384 Zipf-like pairs
+        K, N, held = 2048, 1408, None
+        w = 1.0 / torch.arange(1, 65, dtype=torch.float32)
+        loads = torch.bincount(torch.multinomial(w, 384, True, generator=gen),
+                               minlength=64).tolist()
+    else:
+        loads, K, N, held = {
+            "ragged": ([0, 1, 11, 3, 0, 17], 24, 48, None),
+            "k_not_a_multiple_of_8": ([2, 0, 9, 1], 13, 16, [0, 2]),
+            "few_pairs_k_split": ([1, 2, 0, 3], 1408, 2048, None),
+        }[case]
+    E = len(loads)
+    products = [[tm.pack_weight_u8s(
+        torch.randint(-255, 256, (K, N), generator=gen).to(torch.float32)
+        * 0.001, torch.tensor(0.001), 8) for _ in range(E)] for _ in range(2)]
+    products = [[tm.PackedWeight8(*(t.to(cuda) for t in p)) for p in ps]
+                for ps in products]
+    x = torch.randn(sum(loads), K, generator=gen).to(cuda)
+    ends = torch.cumsum(torch.tensor(loads), 0).to(cuda)
+    mask = None
+    if held is not None:
+        mask = torch.zeros(E, dtype=torch.uint8)
+        mask[held] = 1
+        mask = mask.to(cuda)
+    return x, ends, mask, tg.group_weights(products, K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode", "ragged", "k_not_a_multiple_of_8",
+                                  "few_pairs_k_split"])
+def test_grouped_kernel_on_the_card(cuda, case):
+    """The grouped expert product holds against its plain version on the
+    card within rtol 1e-5, atol 1e-5 * max|ref| (float32 FMAs summed in
+    another order), one launch a call, in the held experts' rows."""
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+
+    x, ends, held, gw = _grouped_case(case, cuda)
+    before = tm.term_matmul.kernel_launches["grouped"]
+    got = tg.term_matmul_grouped(x, ends, gw, held)
+    want = tg.term_matmul_grouped_ref(x, ends, gw, held)
+    torch.cuda.synchronize()
+    assert tm.term_matmul.kernel_launches["grouped"] == before + 1
+    if held is not None:
+        starts = [0] + ends.tolist()[:-1]
+        rows = torch.cat([torch.arange(a, b) for e, (a, b) in enumerate(
+            zip(starts, ends.tolist())) if held[e]])
+        got, want = got[:, rows.to(cuda)], want[:, rows.to(cuda)]
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", [False, True], ids=["every", "held"])
+def test_grouped_layer_launches_on_the_card(cuda, held):
+    """An expert layer's two launches at the MoE cell's decode shapes
+    (gate and up on rows gathered by a sort, down scattered back times
+    the weights) hold against the plain version within rtol 1e-5, atol
+    1e-5 * max|ref|."""
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+
+    x, ends, _, gate_up = _grouped_case("decode", cuda)
+    gen = torch.Generator(device="cpu").manual_seed(32)
+    P, K, N = x.shape[0], 2048, 1408
+    down = tg.group_weights([[tm.PackedWeight8(*(t.to(cuda) for t in
+                                                 tm.pack_weight_u8s(
+        torch.randint(-255, 256, (N, K), generator=gen).to(torch.float32)
+        * 0.001, torch.tensor(0.001), 8))) for _ in range(64)]], N)
+    rows = torch.randn(P // 6, K, generator=gen).to(cuda)
+    order = torch.randperm(P, generator=gen).to(cuda)
+    weight = torch.rand(P, generator=gen).to(cuda)
+    mask = None
+    if held:
+        mask = (torch.arange(64) % 3 == 0).to(torch.uint8).to(cuda)
+    first = dict(gather=order, top_k=6)
+    second = dict(scatter=order, scale=weight)
+    h = tg.term_matmul_grouped(rows, ends, gate_up, mask, **first)
+    want_h = tg.term_matmul_grouped_ref(rows, ends, gate_up, mask, **first)
+    g = torch.nn.functional.silu(want_h[0]) * want_h[1]
+    out = tg.term_matmul_grouped(g, ends, down, mask, **second)
+    want = tg.term_matmul_grouped_ref(g, ends, down, mask, **second)
+    torch.cuda.synchronize()
+    for got, ref in ((h, want_h), (out, want)):
+        torch.testing.assert_close(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_what_it_does_not_take(cuda):
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+
+    x, ends, _, gw = _grouped_case("ragged", cuda)
+    with pytest.raises(TypeError, match="float32"):
+        tg.term_matmul_grouped(x.double(), ends, gw)
+    with pytest.raises(ValueError, match="ends"):
+        tg.term_matmul_grouped(x, ends.cpu(), gw)
+    with pytest.raises(ValueError, match="ends"):
+        tg.term_matmul_grouped(x, ends.to(torch.int32), gw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.term_matmul_grouped(torch.cat([x, x], 1)[:, ::2], ends, gw)
+    with pytest.raises(ValueError, match="gather"):
+        tg.term_matmul_grouped(x, ends, gw, gather=ends.to(torch.int32))
+    with pytest.raises(ValueError, match="scale"):
+        tg.term_matmul_grouped(x, ends, gw, scale=ends.float())

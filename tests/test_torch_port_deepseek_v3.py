@@ -65,13 +65,16 @@ def _weights(qparams, cfg=TINY):
     """The reference's flat weights from the port's (converted, packed or
     float) parameters: a packed linear decoded."""
     out = {}
+    shapes = dsv3.param_shapes(cfg)
     for name, p in qparams.items():
+        if name not in shapes:  # the grouped path's tables of the experts
+            continue
         if "scale" in p:
             out[name] = p["scale"]
         elif "bias" in p:
             out[name], out[f"{name}.bias"] = p["w"], p["bias"]
         elif isinstance(p["w"], PackedWeight8):
-            k = dsv3.param_shapes(cfg)[name]["w"][0]
+            k = shapes[name]["w"][0]
             out[name] = unpack_weight_u8s(p["w"], k=k)
         else:
             out[name] = p["w"]
@@ -198,15 +201,26 @@ def test_every_linear_is_converted_and_packed_the_rest_stays_float32():
     # products, lm_head.
     assert len(names) == 3 * 4 + 3 + 2 * 9 * 3 + 1
     assert set(qcfg) == names == set(qstate)
+    grouped = {f"layers.{i}.mlp.experts" for i in (1, 2)}
     for name, p in qp.items():
         if name in names:
             assert isinstance(p["w"], PackedWeight8), name
             assert all(t.quantize_input is False for t in qcfg.values())
+        elif name in grouped:
+            # The grouped path's tables hold the experts' own packs.
+            held = [*p.gate_up.packs, *p.down.packs]
+            assert [len(ps) for ps in held] == [8, 8, 8]
+            assert all(w is qp[f"{name}.{e}.{proj}_proj"]["w"]
+                       for ps, proj in zip(held, ("gate", "up", "down"))
+                       for e, w in enumerate(ps))
+            assert p.gate_up.ptrs[1, 3, 0] == qp[
+                f"{name}.3.up_proj"]["w"].lo.data_ptr()
         else:
             for key, t in p.items():
                 assert t.dtype == torch.float32 and t is params[name][key]
     unconv, ucfg, _ = dsv3.convert(params, TINY, SETTING)
     packed = dsv3.pack(unconv, ucfg, TINY)
+    assert grouped <= set(packed) and not grouped & set(unconv)
     for name in names:  # packing after conversion packs the same bytes
         assert all(torch.equal(a, b) for a, b in zip(packed[name]["w"],
                                                      qp[name]["w"]))

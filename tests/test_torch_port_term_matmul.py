@@ -107,7 +107,7 @@ def test_cpu_tensor_counts_no_launch(rng):
     assert len(tm.VARIANTS) == 21
     assert not any(tm.term_matmul.launches.values())
     assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled", "mma",
-                                                   "mma_lp"}
+                                                   "mma_lp", "grouped"}
     assert not any(tm.term_matmul.kernel_launches.values())
 
 

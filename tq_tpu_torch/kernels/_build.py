@@ -72,6 +72,10 @@ SIGNATURES = {
     # x, head, n_vec, tail, counts, num_bins, minv, maxv, inv_width,
     # blocks, stream
     "tq_histogram": [_P, _I64, _I64, _I64, _P, _I, _F, _F, _F, _I, _P],
+    # x, ends, held, ptrs, w_sf, out, gather, scatter, scale, P, E, N, K,
+    # G, tiles, splits, k_per_split, top_k, stream
+    "tq_term_matmul_grouped": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -645,5 +645,6 @@ def _stream_splits(blocks: int, groups: int, sms: int, per_sm: int) -> int:
 
 
 term_matmul.launches = dict.fromkeys(VARIANTS, 0)
-# Launches per kernel, whichever variant.
-term_matmul.kernel_launches = dict.fromkeys(_KERNELS, 0)
+# Launches per kernel, whichever variant; "grouped": the grouped expert
+# product (kernels/term_matmul_grouped.py), on no route of term_matmul.
+term_matmul.kernel_launches = dict.fromkeys([*_KERNELS, "grouped"], 0)

@@ -33,7 +33,13 @@ head ``k_nope`` and ``v``; causal softmax at ``(nope + rope)**-0.5``;
 
 The expert layers are :func:`~tq_tpu_torch.layers.moe.moe_apply`: sigmoid
 scores, selection by score plus ``e_score_correction_bias`` (``noaux_tc``
-with one group), weights normalised and scaled.
+with one group), weights normalised and scaled.  Where a layer's experts
+are raw-input 9-bit packs, :func:`convert` (with ``pack_fmt``) and
+:func:`pack` add ``layers.{i}.mlp.experts``: a
+:class:`~tq_tpu_torch.layers.moe.Grouped` table of those same packs
+(nothing copied), which a serving context hands ``moe_apply`` for its
+grouped path (one launch a product over every expert, in a decode step
+on the card).
 
 TR conversion (:func:`convert`) converts every ``nn.Linear`` of the
 published model: the attention's four projections, every expert, the
@@ -66,11 +72,13 @@ import torch.nn.functional as F
 from tq_tpu_torch.kernels.term_matmul import (PackedWeight8,
                                               flush_pack_checks,
                                               unpack_weight_u8s)
+from tq_tpu_torch.kernels.term_matmul_grouped import (group_weights,
+                                                      layout_error)
 from tq_tpu_torch.layers.common import TRParams
 from tq_tpu_torch.layers.linear import (init_quant_state,
                                         pack_dense_weights,
                                         tr_dense_convert)
-from tq_tpu_torch.layers.moe import moe_apply
+from tq_tpu_torch.layers.moe import Grouped, moe_apply
 from tq_tpu_torch.layers.qctx import QuantCtx
 from tq_tpu_torch.utils.trace import span
 
@@ -234,6 +242,8 @@ def convert(params: Mapping, cfg, setting, quantize_input: bool = False,
         qcfg[name] = tr
         qstate[name] = init_quant_state(device=p["w"].device)
     flush_pack_checks(checks)
+    if pack_fmt is not None:
+        _group_experts(qparams, qcfg, cfg)
     return qparams, qcfg, qstate
 
 
@@ -247,7 +257,32 @@ def pack(qparams, qcfg, cfg, fmt: str = "u8s") -> dict:
     for name, tr in qcfg.items():
         out[name] = _pack_one(name, qparams[name], tr, fmt, cfg, checks)
     flush_pack_checks(checks)
+    _group_experts(out, qcfg, cfg)
     return out
+
+
+def _group_experts(qparams: dict, qcfg, cfg) -> None:
+    """Add ``layers.{i}.mlp.experts``, the grouped path's
+    :class:`~tq_tpu_torch.layers.moe.Grouped` table, for each expert
+    layer whose experts all serve raw input (``quantize_input`` False),
+    without bias, from 9-bit packs that the grouped kernel takes."""
+    d, width = cfg["hidden_size"], cfg["moe_intermediate_size"]
+    for i in range(cfg["num_hidden_layers"]):
+        if not is_moe(cfg, i):
+            continue
+        pre = f"layers.{i}.mlp.experts"
+        names = {p: [f"{pre}.{e}.{p}_proj"
+                     for e in range(cfg["n_routed_experts"])]
+                 for p in ("gate", "up", "down")}
+        every = [n for ns in names.values() for n in ns]
+        if any(n not in qcfg or qcfg[n].quantize_input
+               or qparams[n].get("b") is not None for n in every):
+            continue
+        w = {p: [qparams[n]["w"] for n in ns] for p, ns in names.items()}
+        if (layout_error([w["gate"], w["up"]], d) is None
+                and layout_error([w["down"]], width) is None):
+            qparams[pre] = Grouped(group_weights([w["gate"], w["up"]], d),
+                                   group_weights([w["down"]], width))
 
 
 # ------------------------------------------------------------------ pieces
@@ -298,9 +333,21 @@ def _ffn(params, cfg, i: int, x: torch.Tensor, ctx, rows: slice,
 
     y, selected = moe_apply(x, params[f"{pre}.gate"], expert,
                             cfg["num_experts_per_tok"],
-                            cfg["routed_scaling_factor"], layer=pre)
+                            cfg["routed_scaling_factor"], layer=pre,
+                            grouped=_grouped(params, ctx, pre))
     ctx.record(f"{pre}.gate", selected.reshape(*shape, -1), rows)
     return y + _swiglu(ctx, params, f"{pre}.shared_experts", x)
+
+
+def _grouped(params, ctx, pre: str) -> Grouped | None:
+    """The expert layer ``pre``'s grouped table where ``ctx`` serves its
+    experts as :func:`_group_experts` built it for (converted, raw input,
+    not tracking), else None."""
+    grouped = params.get(f"{pre}.experts")
+    if grouped is None or ctx.track or ctx.cfg is None:
+        return None
+    tr = ctx.cfg.get(f"{pre}.experts.0.gate_proj")
+    return grouped if tr is not None and not tr.quantize_input else None
 
 
 def _projections(params, cfg, pre: str, a: torch.Tensor, ctx):
