@@ -19,7 +19,7 @@ non-zero without printing a result:
    shapes beside B5 on as many elements; the element-wise body also
    timed at the LSTM's activation shapes), ``term_matmul``
    (f32 mode on float32 weights, quantized and raw input, at M > 8: the
-   tensor-core kernel, and the tiled kernel it replaced) within
+   tensor-core kernel) within
    rtol=1e-5, atol=1e-4*max|ref| (float32 sums in another order); time
    each (CUDA events), beside its bound, the plain version's time and
    ``torch.matmul``;
@@ -27,8 +27,7 @@ non-zero without printing a result:
    TR ``mnist-tr``) and one ``--fixed-linear`` setting through
    ``run_sweep`` on the card, on ``pretrained/mnist_mlp.npz``; accs,
    tmacs and param_bits must equal the JAX package's (``EXPECTED_SWEEPS``),
-   every kernel must have launched and the tiled ``term_matmul`` kernel
-   never;
+   every kernel must have launched;
 4. the ``--fixed-linear`` setting on the card and through the CPU plain
    path on the same 512 test samples: equal calibrated scales, equal
    quantized layer inputs (but for float32-sum-order boundary flips,
@@ -41,18 +40,16 @@ non-zero without printing a result:
    kernel (M in {1, 2, STREAM_MAX_M}, N = 2 mod 16, K off a multiple of
    8, unaligned weight data; at M > 8 the f32 mode in every weight
    format on the ``mma`` kernel, the bf16 and int8 modes on the
-   ``mma_lp`` kernel, each counted, the tiled kernel never; the int8
+   ``mma_lp`` kernel, each counted; the int8
    mode bit for bit, the rest within rtol=1e-5, atol=1e-4*max|ref|); the
    M = 1 serving rows timed warm and cold (weight copies past the L2)
-   beside bound, plain version, library call and the tiled kernel; the
+   beside bound, plain version and library call; the
    streaming kernel and those above it timed at M in CROSSOVER_M; the f32
    mode's eight narrow variants at (64, 650, 33278) and (128, 784, 512)
    (NARROW_CELLS) on the ``mma`` kernel, bit for bit with it on the same
    weights widened to float32 (times w_sf) where both take one plan,
-   timed beside the tiled kernel, ``torch.matmul`` on the decoded weights
-   and the bound; the
-   ``mma_lp``
-   kernel timed beside the tiled one, the bound, the plain version and
+   timed beside ``torch.matmul`` on the decoded weights and the bound;
+   the ``mma_lp`` kernel timed beside the bound, the plain version and
    ``torch.matmul`` / ``torch._int_mm`` at (128, 784, 512), (350, 650,
    2600) and ``bench.py``'s (8192, 2048, 512) (MMA_LP_CELLS);
 6. the LSTM LM at full width (650/650/33278, ``lstm_checkpoint``'s seeded
@@ -70,7 +67,7 @@ non-zero without printing a result:
    the LSTM LM at full width packed as ``bench.py::bench_generate`` packs
    it (u8s, the recurrent weights too), then in int16 with the
    unquantized layer bf16-stored: every product at M = 64 on the mma
-   kernel (3 or 5 launches a step, by variant; the tiled kernel never);
+   kernel (3 or 5 launches a step, by variant);
    over 16 sampled steps the card's step on the CPU's inputs and its
    free-running log-probs on the rows without a boundary flip against the
    CPU plain path on the same packed model, within atol 1e-4; tokens/s,
@@ -290,6 +287,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from benchmark.roofline import HBM_BYTES_PER_S, PEAK_OPS_PER_S
 
 ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "pretrained" / "mnist_mlp.npz"
@@ -643,14 +642,9 @@ EXPECTED_ZOO = {
     },
 }
 
-# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM
-# bytes/s and float32 FLOP/s outside the tensor cores.  The bounds are
-# stated against them, beside the card's name and power limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67.0e12
-BF16_FLOP_PER_S = 989e12   # dense tensor-core rate
-TF32_FLOP_PER_S = 495e12
-INT8_OP_PER_S = 1979e12
+# The bounds are stated against the benchmark's peaks of one H100 SXM
+# (benchmark/roofline.py: HBM_BYTES_PER_S, PEAK_OPS_PER_S), beside the
+# card's name and power limit.
 
 # ResNet-18's activation shapes at batch 64 (NHWC): the inputs of layer1 to
 # layer4's convs, where the converted convs run B1.
@@ -687,27 +681,20 @@ KERNELS = {
         route="cuda", source="tq_tpu_torch/csrc/tr_quantize.cu",
         replaces="tq_tpu/kernels/tr_quantize.py:246", on_main_path=False),
     # term_matmul's f32 mode at M > STREAM_MAX_M, on the tensor cores: on
-    # float32 weights (the MLP eval) and, since it took them from the
-    # tiled kernel, on int8, int16, bf16-stored and 9-bit packed weights
-    # (the batch-64 LSTM serving step, phase lstm_batch_serving).
+    # float32 weights (the MLP eval) and on int8, int16, bf16-stored and
+    # 9-bit packed weights (the batch-64 LSTM serving step, phase
+    # lstm_batch_serving).
     "term_matmul_kernel_mma": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
     # The bf16 and int8 modes at M > STREAM_MAX_M, on the tensor cores.
-    # Held in phase term_matmul_modes (every variant) and timed there
-    # beside the tiled kernel it replaced; its path is group par's (the
+    # Held in phase term_matmul_modes (every variant) and timed there;
+    # its path is group par's (the
     # column-parallel decoder's quantized input, the TP int8 and bf16
     # products), timed there at the decoder's shard shape.
     "term_matmul_kernel_mma_lp": dict(
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_mma_lp.cu",
         replaces="tq_tpu/kernels/term_matmul.py:264"),
-    # On no route; timing reference only (launch(kernel="tiled")): held
-    # and timed in phase kernels beside the mma kernel on float32 weights
-    # and in phase term_matmul_modes beside the mma kernel on the narrow
-    # formats and the mma_lp kernel.
-    "term_matmul_kernel_tiled": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
-        replaces="tq_tpu/kernels/term_matmul.py:264", on_main_path=False),
     # No TPU kernel: the JAX package runs a term_matmul an expert.  The
     # MoE cell's expert layer in a decode step, every expert a launch;
     # held and timed in phase moe_grouped.
@@ -715,22 +702,22 @@ KERNELS = {
         route="cuda", source="tq_tpu_torch/csrc/term_matmul_grouped.cu",
         replaces="none (one tq_tpu/kernels/term_matmul.py call an expert)"),
     "term_matmul_raw_packed8": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:151"),
     "term_matmul_raw_int16": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:219"),
     "term_matmul_raw_int8": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:219"),
     "term_matmul_bf16_int16": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:202"),
     "term_matmul_bf16_packed8": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:237"),
     "term_matmul_int8": dict(
-        route="cuda", source="tq_tpu_torch/csrc/term_matmul.cu",
+        route="cuda", source="tq_tpu_torch/csrc/term_matmul_stream.cu",
         replaces="tq_tpu/kernels/term_matmul.py:253"),
 }
 # Kernel row -> term_matmul's launch-counter key (its VARIANTS): the
@@ -743,8 +730,8 @@ TERM_MATMUL_ROWS = {
     "term_matmul_bf16_packed8": "bf16_packed8",
     "term_matmul_int8": "int8_int8",
 }
-PEAK_OPS = {"f32": FP32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S,
-            "int8": INT8_OP_PER_S}
+PEAK_OPS = {"f32": PEAK_OPS_PER_S["fp32"], "bf16": PEAK_OPS_PER_S["bf16"],
+            "int8": PEAK_OPS_PER_S["int8"]}
 
 # TR serving generation: (name, (wb, gs, wt, db, dt), pack, fixed decoder).
 # The fixed decoder quantizes its input, so its packed weights take the
@@ -1111,7 +1098,7 @@ def timings(torch, kernel, plain, library=None) -> dict:
 
 
 def bound_ms(nbytes: float, flops: float,
-             peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+             peak: float = PEAK_OPS_PER_S["fp32"]) -> tuple[float, str]:
     """The least time for the work: bytes moved or operations done (at
     ``peak`` operations per second)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1381,20 +1368,19 @@ def phase_kernels(torch):
         bound_ms=b, bound_by=by, per_shape=per_shape)
 
     # term_matmul f32 on float32 weights at M > STREAM_MAX_M, on the mma
-    # kernel (the route), beside the tiled kernel it replaced, the raw
-    # input (f32 - f32_raw is the term-reveal's cost) and torch.matmul:
+    # kernel (the route), beside the raw input (f32 - f32_raw is the
+    # term-reveal's cost) and torch.matmul:
     # the fixed-linear eval shapes at batch 128 and at the last batch of
     # 16, a ragged one, the LSTM chunk (350 rows), and the smallest M the
     # kernel takes with x rows of 2,600 bytes (no 16-byte copies).
     per_shape = {}
-    tiled = {}
     for M, K, N in [(128, 784, 512), (128, 512, 512), (128, 512, 10),
                     (77, 300, 45), (350, 650, 2600), (16, 784, 512),
                     (16, 512, 10), (9, 650, 2600)]:
         x = randn(M, K).relu()
         w = randn(K, N, scale=0.05)
         sf = torch.tensor(0.2, device=dev)
-        errs, refs = {}, {}
+        errs = {}
         for qx in (True, False):
             before = term_matmul.kernel_launches["mma"]
             out = term_matmul(x, w, sf, 4, 2, quantize_x=qx)
@@ -1403,28 +1389,19 @@ def phase_kernels(torch):
             if term_matmul.kernel_launches["mma"] != before + 1:
                 fail(f"term_matmul {(M, K, N)} did not take the mma kernel")
             scale = float(ref.abs().max())
-            errs[qx], refs[qx] = float((out - ref).abs().max()), ref
+            errs[qx] = float((out - ref).abs().max())
             if not torch.allclose(out, ref, rtol=1e-5, atol=1e-4 * scale):
                 fail(f"term_matmul mma {(M, K, N)} quantize_x={qx}: max "
                      f"|diff| {errs[qx]} (max |ref| {scale})")
         xq = tr_quantize_ref(x, sf, 4, 1, 2)  # the library call's input
         nbytes = 4 * (M * K + K * N + M * N)
         flops = 2 * M * K * N
-        b, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)  # 3xTF32
+        b, by = bound_ms(nbytes, 3 * flops, PEAK_OPS_PER_S["tf32"])  # 3xTF32
         t = timings(torch, lambda: launch(x, w, sf, 4, 2),
                     lambda: term_matmul_ref(x, w, sf, 4, 2),
                     lambda: torch.matmul(xq, w))
         raw_ms = device_ms(torch, lambda: launch(x, w, sf, 4, 2,
                                                  quantize_x=False))
-        tiled_out = launch(x, w, sf, 4, 2, kernel="tiled")
-        torch.cuda.synchronize()
-        tiled_err = float((tiled_out - refs[True]).abs().max())
-        scale = float(refs[True].abs().max())
-        if not torch.allclose(tiled_out, refs[True], rtol=1e-5,
-                              atol=1e-4 * scale):
-            fail(f"term_matmul tiled {(M, K, N)}: max |diff| {tiled_err}")
-        tiled_ms = device_ms(torch, lambda: launch(x, w, sf, 4, 2,
-                                                   kernel="tiled"))
         p = tm_mod.plan(M, N, K, "f32", "f32",
                         tm_mod._sm_count(dev.index or 0), None,
                         tm_mod._mma_clusters(dev.index or 0))
@@ -1432,17 +1409,8 @@ def phase_kernels(torch):
             splits=p.splits, k_per_split=p.k_per_split,
             max_abs_err=errs[True], raw_max_abs_err=errs[False], **t,
             raw_ms=raw_ms, reveal_share=(t["ms"] - raw_ms) / t["ms"],
-            tiled_ms=tiled_ms, tiled_max_abs_err=tiled_err,
             bound_ms=b, bound_by=by,
             bound_fp32_ms=bound_ms(nbytes, flops)[0])
-        if (M, K, N) == (128, 784, 512):
-            bt, bty = bound_ms(nbytes, flops)
-            tiled = dict(
-                shape=[M, K, N], max_abs_err=tiled_err, ms=tiled_ms,
-                eager_ms=eager_ms(torch, lambda: launch(
-                    x, w, sf, 4, 2, kernel="tiled")),
-                plain_ms=t["plain_ms"], library_ms=t["library_ms"],
-                bound_ms=bt, bound_by=bty)
     # x whose data starts one float past a 16-byte boundary: 4-byte loads.
     x = randn(128 * 784 + 1).relu()[1:].view(128, 784)
     w = randn(784, 512, scale=0.05)
@@ -1462,8 +1430,7 @@ def phase_kernels(torch):
                         for v in per_shape.values()),
         **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by", "bound_fp32_ms",
-                                "tiled_ms", "raw_ms", "reveal_share")})
-    results["term_matmul_kernel_tiled"] = tiled
+                                "raw_ms", "reveal_share")})
     emit({"phase": "kernels", "ok": True, "results": results})
     return results
 
@@ -1499,9 +1466,6 @@ def phase_main_path(torch):
                                  "tr_quantize_grouped",
                                  "term_matmul_kernel_mma", "histogram"],
                       "main")
-    if launches["term_matmul_kernel_tiled"]:  # the f32 route at M > 8
-        fail(f"the main path launched the tiled kernel "
-             f"{launches['term_matmul_kernel_tiled']} times")
     # What each sweep spends making its synthetic test set, for scale.
     t1 = time.perf_counter()
     load_mnist()
@@ -1665,14 +1629,13 @@ def _offset_weight(torch, w):
     return shift(w)
 
 
-def _serving_row_times(torch, variant: str, weight, x,
-                       tiled: bool = False) -> dict:
+def _serving_row_times(torch, variant: str, weight, x) -> dict:
     """A ``term_matmul`` serving row at x's shape: device ms warm (the same
     weights every call) and cold (copies past the L2), eager ms, the plain
     version's and ``torch.matmul``'s ms on the same operands (the
     already-quantized input and the integer weights, or the raw input and
-    the decoded float32 weights), the bound, and with ``tiled`` the tiled
-    kernel warm and cold.  ``weight``: ``_tm_weights``' triple."""
+    the decoded float32 weights) and the bound.  ``weight``:
+    ``_tm_weights``' triple."""
     from tq_tpu_torch.kernels.term_matmul import (VARIANTS, launch,
                                                   term_matmul_ref)
     from tq_tpu_torch.kernels.tr_quantize import tr_quantize_int_ref
@@ -1685,8 +1648,8 @@ def _serving_row_times(torch, variant: str, weight, x,
     kw = dict(bf16=mode == "bf16", int8=mode == "int8", w_sf=w_sf,
               quantize_x=quantize_x)
 
-    def call(wc, kernel=None):
-        return lambda: launch(x, wc, sf, bits, terms, kernel=kernel, **kw)
+    def call(wc):
+        return lambda: launch(x, wc, sf, bits, terms, **kw)
 
     if quantize_x:
         xa = tr_quantize_int_ref(x, sf, bits, terms).to(torch.float32)
@@ -1705,16 +1668,12 @@ def _serving_row_times(torch, variant: str, weight, x,
                cold_ms=device_ms(torch, [call(c) for c in copies]),
                cold_copies=len(copies), bound_ms=b, bound_by=by)
     out["bound_share_cold"] = b / out["cold_ms"]
-    if tiled:
-        out["tiled_ms"] = device_ms(torch, call(w, "tiled"))
-        out["tiled_cold_ms"] = device_ms(torch, [call(c, "tiled")
-                                                 for c in copies])
     return out
 
 
 # The f32 mode's narrow weight formats at M > STREAM_MAX_M, on the mma
-# kernel since it took them from the tiled kernel: the batch-64 serving
-# step's decoder (phase lstm_batch_serving) and the MLP's first layer.
+# kernel: the batch-64 serving step's decoder (phase lstm_batch_serving)
+# and the MLP's first layer.
 NARROW_CELLS = [(64, 650, VOCAB), (128, 784, 512)]
 NARROW_VARIANTS = ("f32_bf16", "f32_int8", "f32_int16", "f32_packed8",
                    "f32_raw_bf16", "f32_raw_int8", "f32_raw_int16",
@@ -1723,12 +1682,12 @@ NARROW_VARIANTS = ("f32_bf16", "f32_int8", "f32_int16", "f32_packed8",
 
 def _narrow_f32_cells(torch, weights: dict, gen, smi: str) -> dict:
     """Each narrow f32 variant at NARROW_CELLS on the mma kernel (the
-    route): against the plain version and the tiled kernel, and where
-    its plan is float32 weights' (the same tile and K split) bit for bit
-    against the mma kernel on the same weights widened to float32, its
-    output times w_sf; timed beside the tiled kernel, ``torch.matmul`` on
-    the decoded float32 weights (TF32 off) and the bound (bytes as
-    stored; two TF32 products a multiply-add, three for int16)."""
+    route): against the plain version, and where its plan is float32
+    weights' (the same tile and K split) bit for bit against the mma
+    kernel on the same weights widened to float32, its output times w_sf;
+    timed beside ``torch.matmul`` on the decoded float32 weights (TF32
+    off) and the bound (bytes as stored; two TF32 products a
+    multiply-add, three for int16)."""
     from tq_tpu_torch.kernels import term_matmul as tm_mod
     from tq_tpu_torch.kernels.term_matmul import (VARIANTS, launch,
                                                   term_matmul,
@@ -1756,13 +1715,11 @@ def _narrow_f32_cells(torch, weights: dict, gen, smi: str) -> dict:
                 fail(f"term_matmul {variant} {(M, K, N)} did not take the "
                      "mma kernel")
             ref = term_matmul_ref(x, w, sf, 8, 3, **kw)
-            tiled_out = launch(x, w, sf, 8, 3, kernel="tiled", **kw)
             torch.cuda.synchronize()
-            tol = 1e-4 * float(ref.abs().max())
-            for name, got in (("mma", out), ("tiled", tiled_out)):
-                if not torch.allclose(got, ref, rtol=1e-5, atol=tol):
-                    fail(f"term_matmul {name} {variant} {(M, K, N)}: max "
-                         f"|diff| {float((got - ref).abs().max())}")
+            if not torch.allclose(out, ref, rtol=1e-5,
+                                  atol=1e-4 * float(ref.abs().max())):
+                fail(f"term_matmul mma {variant} {(M, K, N)}: max |diff| "
+                     f"{float((out - ref).abs().max())}")
             plans = [tm_mod.plan(M, N, K, f, "f32", sms, "mma",
                                  tm_mod._mma_clusters(dev.index or 0,
                                                       "mma", "f32", f))
@@ -1782,20 +1739,16 @@ def _narrow_f32_cells(torch, weights: dict, gen, smi: str) -> dict:
             wa = wv * scale if scale is not None else wv
             products = 3 if fmt == "int16" else 2
             b, by = bound_ms(4 * M * K + _weight_bytes(fmt, K, N) + 4 * M * N,
-                             products * 2 * M * K * N, TF32_FLOP_PER_S)
+                             products * 2 * M * K * N, PEAK_OPS_PER_S["tf32"])
             t = timings(torch, lambda: launch(x, w, sf, 8, 3, **kw),
                         lambda: term_matmul_ref(x, w, sf, 8, 3, **kw),
                         lambda: torch.matmul(xa, wa))
             cells[f"{variant} {M}x{K}x{N}"] = dict(
                 max_abs_err=float((out - ref).abs().max()),
-                tiled_max_abs_err=float((tiled_out - ref).abs().max()),
                 bit_equal_float32_weights=same_plan or None,
                 splits=plans[0].splits, k_per_split=plans[0].k_per_split,
-                products=products, **t,
-                tiled_ms=device_ms(torch, lambda: launch(
-                    x, w, sf, 8, 3, kernel="tiled", **kw)),
-                bound_ms=b, bound_by=by, card=smi)
-            del out, ref, tiled_out, xa, wa
+                products=products, **t, bound_ms=b, bound_by=by, card=smi)
+            del out, ref, xa, wa
         torch.cuda.empty_cache()
     return cells
 
@@ -1901,16 +1854,13 @@ def phase_term_matmul_modes(torch, smi: str):
     if by_kernel["mma_lp"] != want_mma_lp:
         fail(f"term_matmul: {by_kernel['mma_lp']} launches of the mma_lp "
              f"kernel for {want_mma_lp} bf16 and int8 cases with M > {T}")
-    if by_kernel["tiled"]:  # on no route
-        fail(f"term_matmul: {by_kernel['tiled']} launches of the tiled "
-             "kernel from the route")
 
     def call(w, x, sf, bits, terms, kw, kernel=None):
         return lambda: launch(x, w, sf, bits, terms, kernel=kernel, **kw)
 
     # Time the rows of the serving path at their M = 1 shapes: warm (the
     # same weights every call) and cold (copies past the L2), beside the
-    # bound, the plain version, torch.matmul and the tiled kernel.
+    # bound, the plain version and torch.matmul.
     results = {}
     for row, variant in TERM_MATMUL_ROWS.items():
         mode, fmt, _ = VARIANTS[variant]
@@ -1919,13 +1869,13 @@ def phase_term_matmul_modes(torch, smi: str):
             row_shapes.append((1, 650, 2600))  # the packed recurrent weights
         per_shape = {f"{M}x{K}x{N}": _serving_row_times(
             torch, variant, weights[(VARIANTS[variant][1], K, N)],
-            torch.randn(M, K, generator=gen, device=dev), tiled=True)
+            torch.randn(M, K, generator=gen, device=dev))
             for M, K, N in row_shapes}
         head = per_shape[f"1x650x{VOCAB}"]
         results[row] = dict(shape=[1, 650, VOCAB], variant=variant,
                             per_shape=per_shape, max_abs_err=max_err[variant],
                             **{k: head[k] for k in (
-                                "ms", "cold_ms", "tiled_ms", "eager_ms",
+                                "ms", "cold_ms", "eager_ms",
                                 "plain_ms", "library_ms", "bound_ms",
                                 "bound_by", "bound_share_cold")})
 
@@ -1951,7 +1901,7 @@ def phase_term_matmul_modes(torch, smi: str):
                 x = torch.randn(M, K, generator=gen, device=dev)
                 table[M] = {k: device_ms(torch, call(w, x, sf, bits, terms,
                                                     kw, k))
-                            for k in ("stream", "tiled", above)}
+                            for k in ("stream", above)}
             crossover.setdefault(f"{K}x{N}", {})[variant] = table
             faster = 0  # the largest M up to which the stream kernel wins
             for M in CROSSOVER_M:
@@ -1962,8 +1912,8 @@ def phase_term_matmul_modes(torch, smi: str):
         faster_up_to[f"{K}x{N}"] = up_to
     narrow = _narrow_f32_cells(torch, weights, gen, smi)
     # The bf16 and int8 modes at M > STREAM_MAX_M, which no path runs, on
-    # the mma_lp kernel (the route), beside the tiled kernel it replaced,
-    # the bound, the plain version and the library call on the
+    # the mma_lp kernel (the route), beside the bound, the plain version
+    # and the library call on the
     # already-quantized input (bf16 torch.matmul; torch._int_mm on
     # operands zero-padded to its multiples of 8): the MLP and LSTM-chunk
     # eval shapes, and bench.py::bench_matmul's (8192, 2048, 512).
@@ -1981,20 +1931,17 @@ def phase_term_matmul_modes(torch, smi: str):
             before = term_matmul.kernel_launches["mma_lp"]
             out = term_matmul(x, w, sf, bits, terms, **kw)
             ref = term_matmul_ref(x, w, sf, bits, terms, **kw)
-            tiled_out = launch(x, w, sf, bits, terms, kernel="tiled", **kw)
             torch.cuda.synchronize()
             if term_matmul.kernel_launches["mma_lp"] != before + 1:
                 fail(f"term_matmul {variant} {(M, K, N)} did not take the "
                      "mma_lp kernel")
-            scale = float(ref.abs().max())
-            for name, got in (("mma_lp", out), ("tiled", tiled_out)):
-                if mode == "int8" and not torch.equal(got, ref):
-                    fail(f"term_matmul {name} {variant} {(M, K, N)}: not "
-                         f"bit-exact")
-                if not torch.allclose(got, ref, rtol=1e-5,
-                                      atol=1e-4 * scale):
-                    fail(f"term_matmul {name} {variant} {(M, K, N)}: max "
-                         f"|diff| {float((got - ref).abs().max())}")
+            if mode == "int8" and not torch.equal(out, ref):
+                fail(f"term_matmul mma_lp {variant} {(M, K, N)}: not "
+                     f"bit-exact")
+            if not torch.allclose(out, ref, rtol=1e-5,
+                                  atol=1e-4 * float(ref.abs().max())):
+                fail(f"term_matmul mma_lp {variant} {(M, K, N)}: max "
+                     f"|diff| {float((out - ref).abs().max())}")
             xq = tr_quantize_int_ref(x, sf, bits, terms)
             if mode == "int8":
                 pk = -K % 8
@@ -2017,13 +1964,10 @@ def phase_term_matmul_modes(torch, smi: str):
                                                 **kw), library)
             mma_lp[f"{variant} {M}x{K}x{N}"] = dict(
                 max_abs_err=float((out - ref).abs().max()),
-                tiled_max_abs_err=float((tiled_out - ref).abs().max()),
-                **t, tiled_ms=device_ms(torch, lambda: launch(
-                    x, w, sf, bits, terms, kernel="tiled", **kw)),
-                bound_ms=bnd, bound_by=by, card=smi)
+                **t, bound_ms=bnd, bound_by=by, card=smi)
             mma_lp_err = max(mma_lp_err, mma_lp[f"{variant} {M}x{K}x{N}"][
                 "max_abs_err"])
-            del x, out, ref, tiled_out, xq, a, b, library
+            del x, out, ref, xq, a, b, library
     torch.cuda.empty_cache()  # bench.py's shape: x alone is 67 MB
     emit({"phase": "term_matmul_modes", "ok": True, "cases": cases,
           "variants": len(VARIANTS), "stream_max_m": T,
@@ -2039,7 +1983,7 @@ def phase_term_matmul_modes(torch, smi: str):
         max_abs_err=mma_lp_err, raw_ms=big["bf16_raw"],
         reveal_share=(big["bf16"] - big["bf16_raw"]) / big["bf16"],
         **{k: head[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms",
-                                "bound_ms", "bound_by", "tiled_ms")})
+                                "bound_ms", "bound_by")})
     results["narrow_f32"] = narrow  # main attaches it to the mma row
     return results
 
@@ -2350,8 +2294,8 @@ def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
     recurrent weights packed too), written here from the port's
     ``lstm_lm.make_quantized_apply``; then with int16 weights and the
     unquantized layer bf16-stored.  Every product runs at M = 64, above
-    STREAM_MAX_M: the f32 mode's narrow variants on the mma kernel, the
-    tiled kernel never.  Held: the launches per variant and per kernel;
+    STREAM_MAX_M: the f32 mode's narrow variants on the mma kernel.
+    Held: the launches per variant and per kernel;
     over TEACHER_TOKENS sampled steps, the card's step on the CPU's inputs
     against the CPU plain path on the same packed model (log-probs and
     hidden state within 1e-4), and the card's free-running log-probs
@@ -2422,12 +2366,10 @@ def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
                  f"{variants}, not {want}")
         mma = launches["term_matmul_kernel_mma"]
         if mma != sum(want.values()) or launches[
-                "term_matmul_kernel_tiled"] or launches[
                 "term_matmul_kernel_stream"] or launches[
                 "term_matmul_kernel_mma_lp"]:
             fail(f"batch serving {name}: {mma} mma launches (not "
-                 f"{sum(want.values())}), tiled "
-                 f"{launches['term_matmul_kernel_tiled']}, stream "
+                 f"{sum(want.values())}), stream "
                  f"{launches['term_matmul_kernel_stream']}, mma_lp "
                  f"{launches['term_matmul_kernel_mma_lp']}")
         _require_launched(launches, ["tr_quantize_elementwise"],
@@ -5453,8 +5395,6 @@ def phase_par(torch, smi: str, tmp: Path) -> dict:
         "term_matmul_kernel_mma", "term_matmul_kernel_mma_lp",
         "term_matmul_kernel_stream", "tr_quantize_elementwise",
         "tr_quantize_grouped"], "par")
-    if launches["term_matmul_kernel_tiled"]:
-        fail("par: the tiled term_matmul kernel ran")
 
     try:
         nccl_pair = launch.run(_nccl_pair, 2, backend="nccl",
@@ -5510,9 +5450,9 @@ def phase_par_cells(torch, smi: str) -> dict:
         nbytes = 4 * M * K + _weight_bytes("packed8", K, N) + 4 * M * N
         for row, variant, kw, peak, products in (
                 ("term_matmul_kernel_mma", "f32_raw_packed8",
-                 dict(quantize_x=False), TF32_FLOP_PER_S, 2),
+                 dict(quantize_x=False), PEAK_OPS_PER_S["tf32"], 2),
                 ("term_matmul_kernel_mma_lp", "bf16_packed8",
-                 dict(bf16=True), BF16_FLOP_PER_S, 1)):
+                 dict(bf16=True), PEAK_OPS_PER_S["bf16"], 1)):
             kernel = row.removeprefix("term_matmul_kernel_")
             before = term_matmul.kernel_launches[kernel]
             out = term_matmul(x, wp, sf, 8, 3, **kw)
@@ -6640,7 +6580,7 @@ def main(argv=None) -> None:
                       **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "eager_ms")},
-                      **{k: r[k] for k in ("cold_ms", "tiled_ms",
+                      **{k: r[k] for k in ("cold_ms",
                                            "bound_share_cold", "per_shape",
                                            "resnet_shape", "zoo_shapes",
                                            "zoo_int8_shapes",

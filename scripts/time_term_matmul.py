@@ -23,8 +23,8 @@ CUDA-graph replay (``chip_smoke.device_ms``):
   int16, bf16-stored and 9-bit packed weights (``chip_smoke.
   NARROW_VARIANTS``) at ``chip_smoke.NARROW_CELLS`` ((64, 650, 33278),
   the batch-64 serving step's decoder, and (128, 784, 512)), bits 8 and
-  3 terms (the ``mma`` kernel, or the tiled one in a checkout before
-  it).
+  3 terms (on the ``mma`` kernel, in a checkout whose route gives them
+  to it).
 
 Each call takes whatever kernel the checkout's route gives it.  To
 compare two commits on one card, run it once per checkout in the order

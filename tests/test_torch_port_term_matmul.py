@@ -106,7 +106,7 @@ def test_cpu_tensor_counts_no_launch(rng):
     assert set(tm.term_matmul.launches) == set(tm.VARIANTS)
     assert len(tm.VARIANTS) == 21
     assert not any(tm.term_matmul.launches.values())
-    assert set(tm.term_matmul.kernel_launches) == {"stream", "tiled", "mma",
+    assert set(tm.term_matmul.kernel_launches) == {"stream", "mma",
                                                    "mma_lp", "grouped"}
     assert not any(tm.term_matmul.kernel_launches.values())
 
@@ -129,6 +129,32 @@ MODES_OF = {"f32": ("f32", "bf16"), "bf16": ("f32", "bf16"),
             "packed8": ("f32", "bf16")}
 
 
+def _check_plan(p, M, K, N, fmt, mode):
+    """A plan's K ranges cover K in order, and its geometry is its
+    kernel's: the streaming kernel's strips and row groups, or a
+    tensor-core kernel's output tiles, with up to 8 K splits."""
+    ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
+              for s in range(p.splits)]  # the kernels' K ranges
+    assert len(ranges) == p.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(e > b for b, e in ranges) or K == 0
+    assert 1 <= p.splits <= 8
+    if p.kernel == "stream":
+        cols = 31 * 16 // {"f32": 4, "bf16": 2, "int16": 2}.get(fmt, 1)
+        assert p.row_tile == (1 if M <= 1 else 8)
+        assert p.k_per_split % 8 == 0
+        assert p.grid == (-(-N // cols) * p.splits, -(-M // p.row_tile), 1)
+    elif p.kernel == "mma":
+        assert p.k_per_split % 8 == 0
+        assert p.row_tile == 32
+        assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
+    else:  # mma_lp: K splits in whole mma chunks
+        assert p.k_per_split % (16 if mode == "bf16" else 32) == 0
+        assert p.row_tile == 64
+        assert p.grid == (-(-N // 128) * p.splits, -(-M // 64), 1)
+
+
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("M,K,N", PLAN_SHAPES)
 def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
@@ -138,49 +164,33 @@ def test_plan_routes_by_m_and_splits_k_in_order(M, K, N, fmt):
             assert p.kernel == (
                 "stream" if M <= tm.STREAM_MAX_M else
                 "mma_lp" if mode in ("bf16", "int8") else "mma")
-            ranges = [(s * p.k_per_split, min(K, (s + 1) * p.k_per_split))
-                      for s in range(p.splits)]  # the kernels' K ranges
-            assert len(ranges) == p.splits >= 1
-            assert ranges[0][0] == 0 and ranges[-1][1] == K
-            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-            assert all(e > b for b, e in ranges) or K == 0
-            if p.kernel == "stream":
-                cols = 31 * 16 // {"f32": 4, "bf16": 2, "int16": 2}.get(
-                    fmt, 1)
-                assert p.row_tile == (1 if M <= 1 else 8)
-                assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
-                assert p.grid == (-(-N // cols) * p.splits,
-                                  -(-M // p.row_tile), 1)
-                assert p.ws_shape is None and p.ws_dtype is None
-            elif p.kernel == "mma":
-                assert 1 <= p.splits <= 8 and p.k_per_split % 8 == 0
-                assert p.row_tile == 32
-                assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
-                assert p.ws_shape is None and p.ws_dtype is None
-            else:  # mma_lp: K splits in whole mma chunks
-                assert 1 <= p.splits <= 8
-                assert p.k_per_split % (16 if mode == "bf16" else 32) == 0
-                assert p.row_tile == 64
-                assert p.grid == (-(-N // 128) * p.splits, -(-M // 64), 1)
-                assert p.ws_shape is None and p.ws_dtype is None
+            _check_plan(p, M, K, N, fmt, mode)
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 650, 33278), (1, 650, 2600),
                                    (128, 784, 512), (350, 650, 2600)])
-@pytest.mark.parametrize("kernel", ["stream", "tiled"])
-def test_plan_workspace_only_for_tiled_split_k(M, K, N, kernel):
-    """The tiled kernel's split K sums partials in a (splits, M, N)
-    workspace, int32 in the int8 mode (exact); the streaming kernel sums
-    them in its cluster's shared memory and takes none."""
-    for mode in ("f32", "bf16", "int8"):
+@pytest.mark.parametrize("kernel", ["stream", "mma"])
+def test_plan_takes_a_named_kernel(M, K, N, kernel):
+    """A named kernel is taken also where the route gives another (the
+    streaming kernel at M = 128 and 350, mma at M = 1), with the geometry
+    the route gives that kernel, its K ranges covering K in order; where
+    the route gives it, the two plans are one."""
+    modes = ("f32", "bf16", "int8") if kernel == "stream" else ("f32",)
+    for mode in modes:
         p = tm.plan(M, N, K, "int8", mode, 132, kernel=kernel)
         assert p.kernel == kernel
-        if kernel == "stream" or p.splits == 1:
-            assert p.ws_shape is None and p.ws_dtype is None
-        else:
-            assert p.ws_shape == (p.splits, M, N)
-            assert p.ws_dtype == (torch.int32 if mode == "int8"
-                                  else torch.float32)
+        _check_plan(p, M, K, N, "int8", mode)
+        route = tm.plan(M, N, K, "int8", mode, 132)
+        assert (route == p) == (route.kernel == kernel)
+
+
+@pytest.mark.parametrize("kernel", ["tiled", "wide"])
+def test_plan_refuses_unknown_kernels(kernel):
+    """plan takes "stream", "mma" and "mma_lp" by name, and nothing else."""
+    with pytest.raises(ValueError, match="kernel must be"):
+        tm.plan(1, 8, 8, "f32", "f32", 132, kernel=kernel)
+    with pytest.raises(ValueError, match="kernel must be"):
+        tm.plan(128, 512, 784, "f32", "f32", 132, kernel=kernel)
 
 
 def test_plan_fills_the_card_at_the_serving_shapes():
@@ -191,8 +201,6 @@ def test_plan_fills_the_card_at_the_serving_shapes():
         assert p.grid[0] * p.grid[1] >= 2 * 132
     p = tm.plan(1, 2600, 650, "packed8", "f32", 132)
     assert p.splits == 8 and p.k_per_split == 88 and p.grid == (48, 1, 1)
-    with pytest.raises(ValueError, match="kernel must be"):
-        tm.plan(1, 8, 8, "f32", "f32", 132, kernel="wide")
 
 
 @pytest.mark.parametrize("M,K,N,splits,k_per_split", [
@@ -272,7 +280,7 @@ NARROW_F32_PLANS = [((64, 650, 33278), (1, 656), (1, 656)),
 def test_plan_narrow_f32_takes_the_mma_kernel(shape, default, h100, fmt):
     """The f32 mode on bf16-stored, int8, int16 and 9-bit weights at M > 8
     takes the mma kernel on float32 weights' tile and K split (so the two
-    sum in the same order); the tiled kernel only when named."""
+    sum in the same order)."""
     M, K, N = shape
     h100_clusters = (132, 66, 39, 30, 22, 17, 15, 15)
     for clusters, want in ((None, default), (h100_clusters, h100)):
@@ -280,7 +288,6 @@ def test_plan_narrow_f32_takes_the_mma_kernel(shape, default, h100, fmt):
         assert p.kernel == "mma" and (p.splits, p.k_per_split) == want
         assert p == tm.plan(M, N, K, "f32", "f32", 132, clusters=clusters)
         assert p.grid == (-(-N // 128) * p.splits, -(-M // 32), 1)
-    assert tm.plan(M, N, K, fmt, "f32", 132, kernel="tiled").kernel == "tiled"
 
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])

@@ -130,9 +130,8 @@ __device__ __forceinline__ void load4(const char* src, int n, int vec,
   }
 }
 
-// Element j of a loaded row of four weights as a float, as
-// term_matmul.cu's weight_value gives it: w, or q of integer and packed
-// weights (exact in float32).  sgn: the pack's four sign bytes; k: the
+// Element j of a loaded row of four weights as a float: w, or q of
+// integer and packed weights (exact in float32).  sgn: the pack's four sign bytes; k: the
 // element's K row.  Integers are widened without int-to-float
 // conversions (a quarter-rate instruction): q biased to an unsigned u is
 // placed under the exponent of 2^23, and 2^23 plus the bias subtracted,

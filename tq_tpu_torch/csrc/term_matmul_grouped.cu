@@ -12,12 +12,13 @@
 // cut the slices: host-paced, its small launches each on a fifth of the
 // card (PERF.md).
 //
-// The arithmetic is the streaming kernel's (csrc/term_matmul.cu) on the
-// raw-input f32 variant of the 9-bit pack (f32_raw_packed8): x itself
-// feeds the product, the weight is the pack's biased magnitude (lo + 128)
-// with its sign bit XOR-ed into bit 31, float32 FMAs in K order within a
-// warp's groups of 8 rows, the warps' partials summed in warp order, the
-// K splits in rank order, then times w_sf.  No TF32, no lower precision.
+// The arithmetic is the streaming kernel's (csrc/term_matmul_stream.cu)
+// on the raw-input f32 variant of the 9-bit pack (f32_raw_packed8): x
+// itself feeds the product, the weight is the pack's biased magnitude
+// (lo + 128) with its sign bit XOR-ed into bit 31, float32 FMAs in K
+// order within a warp's groups of 8 rows, the warps' partials summed in
+// warp order, the K splits in rank order, then times w_sf.  No TF32, no
+// lower precision.
 //
 // Bound on the card: bytes, every held expert's packed weights read once
 // (1.125 bytes a weight; an expert with more than 8 pairs reads them once

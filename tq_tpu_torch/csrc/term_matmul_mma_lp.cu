@@ -5,9 +5,8 @@
 // * bf16 mode: xa is the signed integer sign * kept (kept: the `budget`
 //   largest HESE terms of q = min(floor(|x| / sf + 0.5), 2^bits - 1))
 //   rounded to bfloat16, or x rounded to bfloat16 for raw input
-//   (quantize_x = 0); wa is the weight as term_matmul.cu's weight_value
-//   gives it (float32, bf16-stored, int8 or int16 q, the 9-bit pack's q)
-//   rounded to bfloat16.  mma.sync m16n8k16 bf16 accumulates in float32
+//   (quantize_x = 0); wa is the weight as stored (float32, bf16-stored,
+//   int8 or int16 q, the 9-bit pack's q) rounded to bfloat16.  mma.sync m16n8k16 bf16 accumulates in float32
 //   (a product of two bfloat16 values is exact in float32).
 // * int8 mode (int8 weights, bits <= 7): xa = sign * kept as int8, +128
 //   (one kept term of q >= 96) saturated to 127 as the TPU kernel's cast
@@ -16,8 +15,7 @@
 // Replaces, for these two modes at M > 8, the Pallas kernel
 // tq_tpu/kernels/term_matmul.py::term_matmul (bodies _body / _body_pipe
 // :264-348; _tr_tile(apply_sf=False) :202-216; _widen_w / _load_w
-// :219-250; _mac_into :253-261; pallas_call :528), and the tiled
-// CUDA-core kernel of csrc/term_matmul.cu that ran them before.
+// :219-250; _mac_into :253-261; pallas_call :528).
 //
 // Bound on the card.  At the eval shapes ((128, 784, 512), (350, 650,
 // 2600)) and bench.py's (8192, 2048, 512) the bytes bound it: x is read
@@ -145,7 +143,7 @@ constexpr int kLutBits = 8;
 
 // A producer's 16 bytes of x's step row: its 4 kR x values (as their
 // float bits) revealed (QX) and packed, bf16 pairs or int8 quads, as
-// term_matmul.cu's act_tile gives them.  All the values at once, so that
+// term_matmul_stream.cu's act_tile gives them.  All the values at once, so that
 // their chains overlap: tq::quantize_n, then the kept value from `lut`
 // (or tq::keep_terms_n where lut is null), then the sign of x.
 template <int MODE, bool QX>

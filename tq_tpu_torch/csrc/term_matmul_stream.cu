@@ -1,77 +1,67 @@
-// Fused activation term-reveal + matmul on Hopper, every mode of the TPU
-// kernel:
+// term_matmul at small M, every mode of the TPU kernel, in one
+// weight-streaming kernel:
 //   out = acc(xa @ wa) * epilogue
 //
 // Replaces the Pallas kernel tq_tpu/kernels/term_matmul.py::term_matmul
 // (bodies _body / _body_pipe; activation tile _tr_tile; weight tile
-// _load_w, _decode_packed and _widen_w; MAC _mac_into).  The activation
-// tile xa is
+// _load_w, _decode_packed and _widen_w; MAC _mac_into) for M <=
+// STREAM_MAX_M.  The activation tile xa is
 //   * f32 mode:  tr_quantize(x, sf, bits, 1, budget), sign * kept * sf;
 //   * bf16 mode: the signed integer sign * kept, rounded to bfloat16;
 //   * int8 mode: sign * kept as an integer (bits <= 7), +128 saturated
 //     to 127 as the TPU kernel's int8 cast saturates it;
 //   * raw input (quantize_x = 0): x itself (bf16 mode: rounded to bf16).
-// The weight tile wa is float32, bf16-stored, int8, int16 or the 9-bit
-// pack (magnitude lo + 128, sign bit k & 7 of sign row k / 8), widened as
-// it is loaded into shared memory (bf16 mode then rounds it to bfloat16),
-// so decoded weights never reach device memory.  The MAC is a float32 FMA
-// in the f32 and bf16 modes (a product of two bfloat16 values is exact in
-// float32) and an int32 multiply-add in the int8 mode (exact).  The
-// epilogue is w_sf in the f32 mode and sf * w_sf in the bf16 and int8
-// modes (sf = 1 for raw input), as the TPU kernel's sf_arr.
+// The weight wa is float32, bf16-stored, int8, int16 or the 9-bit pack
+// (magnitude lo + 128, sign bit k & 7 of sign row k / 8): w as stored,
+// or q of integer and packed weights (w_sf is in the epilogue), exact in
+// float32, widened in registers as it is loaded (the bf16 mode then
+// rounds it to bfloat16), so decoded weights never reach device memory.
+// The MAC is a float32 FMA in the f32 and bf16 modes (a product of two
+// bfloat16 values is exact in float32) and an int32 multiply-add in the
+// int8 mode (exact).  The epilogue is w_sf in the f32 mode and sf * w_sf
+// in the bf16 and int8 modes (sf = 1 for raw input), as the TPU kernel's
+// sf_arr.
+//
+// One of four term_matmul kernels, one a file.  The wrapper (plan() in
+// kernels/term_matmul.py) takes this one for M <= STREAM_MAX_M; above it
+// the tensor cores take the f32 mode (csrc/term_matmul_mma.cu) and the
+// bf16 and int8 modes (csrc/term_matmul_mma_lp.cu).  The MoE layer's
+// experts run this kernel's arithmetic, all of them in one launch
+// (csrc/term_matmul_grouped.cu).
 //
 // Bound on the card: at the serving shapes (M = 1 token, K = 650,
 // N = 2600 or 33278) the product streams the weights once and does 2 * M
 // operations per weight: bytes bound (the 9-bit pack at 1.125 bytes per
-// weight, int8 at 1, int16 at 2, float32 at 4).  At the eval shapes
-// (M = 128..350) the f32 mode is operations bound on CUDA cores.
+// weight, int8 at 1, int16 at 2, float32 at 4).
 //
-// Two kernels here compute it.  The wrapper (plan() in
-// kernels/term_matmul.py) takes the weight-streaming one for M <=
-// STREAM_MAX_M; above it every mode takes a tensor-core kernel
-// (csrc/term_matmul_mma.cu: the f32 mode; csrc/term_matmul_mma_lp.cu:
-// the bf16 and int8 modes).
-//
-// The tiled kernel (on no route: launched only when the wrapper is told
-// to, to time it beside the kernels that replaced it): a plain tiled
-// shared-memory GEMM on CUDA cores, 64x64 output tiles, a K step of 16,
-// 256 threads each holding a 4x4 block of accumulators; the ragged M, N
-// and K edges are masked here (packed weights have K8 >= K rows; the rows
-// past K meet no activation, as the TPU kernel's zero-padded x).  A small
-// M*N gives few output tiles, so K is split over blockIdx.z: each split
-// writes its partial tile to a workspace (int32 in the int8 mode, so the
-// sum stays exact) and a second kernel sums the splits in a fixed order
-// and applies the epilogue (deterministic; with one split the tile kernel
-// writes the output itself).
-//
-// The weight-streaming kernel (small M): every weight byte is read once,
-// with 16-byte loads that skip L1, and a thread owns a run of 16 bytes of
-// consecutive columns (16 int8 or 9-bit-pack columns, 8 int16 or bf16, 4
-// float32).  A block is 4 warps over one strip of columns; they split its
-// K range in groups of 8 rows (one sign-plane byte serves a pack's 8
-// rows), each warp keeping its next group in flight in registers while
-// it multiplies the current one, and the block sums their partials
-// through shared memory in warp order.  Rows of N = 33278 elements start at any even byte offset, and
-// a 16-byte load must be aligned, so each lane loads its aligned 16-byte
-// chunk, takes its right neighbour's with a warp shuffle and shifts the
-// pair by the row's offset (the same for every lane of the warp);
-// lane 31 only loads, so a strip is 31 lanes wide.  Bytes are widened
-// without int-to-float conversions: a byte or half word is placed under
-// the exponent of 2^23 (__byte_perm) and 2^23 subtracted; the pack's sign
-// is XOR-ed into bit 31.  The activation rows (1 row a block for M = 1,
-// else 8, rows past M masked to zero; larger M takes several row groups)
-// are term-revealed once per block into shared memory.  Where the strips are too few to fill the card, K is
-// split over the blocks of a thread-block cluster (up to 8): each block
-// stores the partial sums of each slice of the strip into the shared
-// memory of the block that owns the slice (distributed shared memory),
-// and after one cluster barrier every block sums its slice over the
-// blocks in rank order and applies the epilogue.  One launch, no
-// workspace, no atomics and no state kept between calls, so the sums
-// are deterministic and the launch can be captured in a CUDA graph.
-// Measured on an H100 at the decoder shape, it streams at about half the
-// HBM rate (PERF.md): the realignment and widening (about 4.6
-// instructions a weight, most on the integer pipe) and a per-block chain
-// of about 3 us (activations, barriers, cluster sum) hold it there.
+// Design: every weight byte is read once, with 16-byte loads that skip L1,
+// and a thread owns a run of 16 bytes of consecutive columns (16 int8 or
+// 9-bit-pack columns, 8 int16 or bf16, 4 float32).  A block is 4 warps
+// over one strip of columns; they split its K range in groups of 8 rows
+// (one sign-plane byte serves a pack's 8 rows), each warp keeping its next
+// group in flight in registers while it multiplies the current one, and
+// the block sums their partials through shared memory in warp order.  Rows
+// of N = 33278 elements start at any even byte offset, and a 16-byte load
+// must be aligned, so each lane loads its aligned 16-byte chunk, takes its
+// right neighbour's with a warp shuffle and shifts the pair by the row's
+// offset (the same for every lane of the warp); lane 31 only loads, so a
+// strip is 31 lanes wide.  Bytes are widened without int-to-float
+// conversions: a byte or half word is placed under the exponent of 2^23
+// (__byte_perm) and 2^23 subtracted; the pack's sign is XOR-ed into bit
+// 31.  The activation rows (1 row a block for M = 1, else 8, rows past M
+// masked to zero; larger M takes several row groups) are term-revealed
+// once per block into shared memory.  Where the strips are too few to fill
+// the card, K is split over the blocks of a thread-block cluster (up to
+// 8): each block stores the partial sums of each slice of the strip into
+// the shared memory of the block that owns the slice (distributed shared
+// memory), and after one cluster barrier every block sums its slice over
+// the blocks in rank order and applies the epilogue.  One launch, no
+// workspace, no atomics and no state kept between calls, so the sums are
+// deterministic and the launch can be captured in a CUDA graph.  Measured
+// on an H100 at the decoder shape, it streams at about half the HBM rate
+// (PERF.md): the realignment and widening (about 4.6 instructions a
+// weight, most on the integer pipe) and a per-block chain of about 3 us
+// (activations, barriers, cluster sum) hold it there.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -83,61 +73,21 @@
 
 namespace {
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;  // 16 x 16, each a 4 x 4 block of outputs
-constexpr int kPad = 4;        // keeps the transposed A tile 16-byte aligned
-
 // Multiply-accumulate policy (the TPU kernel's `mxu`); the wrapper's codes.
 enum Mode : int { kF32 = 0, kBF16 = 1, kInt8 = 2 };
 // Weight storage; the wrapper's codes.
 enum WFmt : int { kWF32 = 0, kWBF16 = 1, kWInt8 = 2, kWInt16 = 3,
                   kWPacked8 = 4 };
 
-// Shared-memory tile element and accumulator of each mode.
+// Activation and accumulator type of each mode.
 template <int MODE>
 using Tile = std::conditional_t<MODE == kInt8, int32_t, float>;
-template <typename T>
-using Vec4 = std::conditional_t<std::is_same_v<T, float>, float4, int4>;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Weight (k, n) as stored: its value for float weights, q for integer and
-// packed weights (w_sf is in the epilogue).  Exact in float32.
-template <int F>
-__device__ __forceinline__ float weight_value(const void* w,
-                                              const int8_t* signs, int k,
-                                              int n, int N) {
-  const int64_t i = static_cast<int64_t>(k) * N + n;
-  if constexpr (F == kWF32) {
-    return static_cast<const float*>(w)[i];
-  } else if constexpr (F == kWBF16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(w)[i]);
-  } else if constexpr (F == kWInt8) {
-    return static_cast<float>(static_cast<const int8_t*>(w)[i]);
-  } else if constexpr (F == kWInt16) {
-    return static_cast<float>(static_cast<const int16_t*>(w)[i]);
-  } else {  // 9-bit pack
-    const float mag =
-        static_cast<float>(static_cast<const int8_t*>(w)[i]) + 128.f;
-    const int plane = signs[static_cast<int64_t>(k >> 3) * N + n];
-    return ((plane >> (k & 7)) & 1) ? -mag : mag;
-  }
-}
-
-template <int MODE, int F>
-__device__ __forceinline__ Tile<MODE> weight_tile(const void* w,
-                                                  const int8_t* signs, int k,
-                                                  int n, int N) {
-  const float v = weight_value<F>(w, signs, k, n, N);
-  if constexpr (MODE == kF32) return v;
-  else if constexpr (MODE == kBF16) return round_bf16(v);
-  else return static_cast<int32_t>(v);  // int8 weights: exact
-}
-
+// An activation as the product takes it (xa above).
 template <int MODE, bool QX>
 __device__ __forceinline__ Tile<MODE> act_tile(float xv, float sf, float maxq,
                                                int budget) {
@@ -166,103 +116,6 @@ __device__ __forceinline__ float epilogue_scale(const float* sf_ptr,
   const float wsf = wsf_ptr != nullptr ? *wsf_ptr : 1.f;
   if constexpr (MODE == kF32) return wsf;
   else return __fmul_rn(QX ? *sf_ptr : 1.f, wsf);
-}
-
-// ws == nullptr: write acc * epilogue to out; else this split's partial
-// sums to ws[blockIdx.z].
-template <int MODE, int F, bool QX>
-__global__ void __launch_bounds__(kThreads)
-term_matmul_kernel(const float* __restrict__ x, const void* __restrict__ w,
-                   const int8_t* __restrict__ signs,
-                   const float* __restrict__ sf_ptr,
-                   const float* __restrict__ wsf_ptr, float* __restrict__ out,
-                   Tile<MODE>* __restrict__ ws, int M, int N, int K, int bits,
-                   int budget, int k_per_split) {
-  using T = Tile<MODE>;
-  __shared__ __align__(16) T As[kBK][kBM + kPad];  // activations, k-major
-  __shared__ __align__(16) T Bs[kBK][kBN];
-
-  const float sf = QX ? *sf_ptr : 1.f;
-  const float maxq = QX ? static_cast<float>((1u << bits) - 1u) : 0.f;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-
-  T acc[4][4] = {};
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    // A tile: 64 rows x 16 k; neighbouring threads read neighbouring k.
-#pragma unroll
-    for (int i = 0; i < (kBM * kBK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int m = e / kBK, k = e % kBK;
-      const int gm = row0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < k_end)
-                     ? act_tile<MODE, QX>(x[static_cast<int64_t>(gm) * K + gk],
-                                          sf, maxq, budget)
-                     : T(0);
-    }
-    // B tile: 16 k x 64 columns; neighbouring threads read neighbouring n.
-#pragma unroll
-    for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int k = e / kBN, n = e % kBN;
-      const int gk = k0 + k, gn = col0 + n;
-      Bs[k][n] = (gk < k_end && gn < N)
-                     ? weight_tile<MODE, F>(w, signs, gk, gn, N)
-                     : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const Vec4<T> a = *reinterpret_cast<const Vec4<T>*>(&As[k][ty * 4]);
-      const Vec4<T> b = *reinterpret_cast<const Vec4<T>*>(&Bs[k][tx * 4]);
-      const T av[4] = {a.x, a.y, a.z, a.w};
-      const T bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if constexpr (MODE == kInt8) acc[r][c] += av[r] * bv[c];
-          else acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-        }
-    }
-    __syncthreads();
-  }
-
-  const float scale =
-      ws == nullptr ? epilogue_scale<MODE, QX>(sf_ptr, wsf_ptr) : 1.f;
-  if (ws != nullptr) ws += static_cast<int64_t>(blockIdx.z) * M * N;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gm = row0 + ty * 4 + r;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gn = col0 + tx * 4 + c;
-      if (gn >= N) continue;
-      const int64_t i = static_cast<int64_t>(gm) * N + gn;
-      if (ws != nullptr) ws[i] = acc[r][c];
-      else out[i] = __fmul_rn(static_cast<float>(acc[r][c]), scale);
-    }
-  }
-}
-
-// out[i] = epilogue * (sum over the splits of ws[split][i]), splits in
-// order (an int32 sum in the int8 mode: exact).
-template <int MODE, bool QX>
-__global__ void split_k_sum_kernel(const Tile<MODE>* __restrict__ ws,
-                                   float* __restrict__ out, int64_t mn,
-                                   int splits,
-                                   const float* __restrict__ sf_ptr,
-                                   const float* __restrict__ wsf_ptr) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= mn) return;
-  Tile<MODE> s = 0;
-  for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-  out[i] = __fmul_rn(static_cast<float>(s),
-                     epilogue_scale<MODE, QX>(sf_ptr, wsf_ptr));
 }
 
 // ------------------------------------------------ weight-streaming kernel
@@ -328,8 +181,8 @@ __device__ __forceinline__ void round_bf16_pair(float& a, float& b) {
                       << 16);
 }
 
-// One weight row's 16 bytes under a lane (kCols<F> columns) as
-// weight_tile gives them: w, or q of integer and packed weights; rounded
+// One weight row's 16 bytes under a lane (kCols<F> columns) as the
+// product takes them: w, or q of integer and packed weights; rounded
 // to bfloat16 in the bf16 mode (int8 and 9-bit magnitudes are exact in
 // bfloat16); int32 in the int8 mode.  sgn: the pack's sign bytes of the
 // same columns; i: the row within its group of 8.
@@ -574,9 +427,6 @@ term_matmul_stream_kernel(const float* __restrict__ x,
 
 // ------------------------------------------------------------ launching
 
-// Which kernel; the wrapper's codes.
-enum Kernel : int { kTiled = 0, kStream = 1 };
-
 struct Args {
   const float* x;
   const void* w;
@@ -584,9 +434,7 @@ struct Args {
   const float* sf;
   const float* w_sf;
   float* out;
-  void* ws;
-  int M, N, K, bits, budget, quantize_x, splits, k_per_split, kernel,
-      row_tile;
+  int M, N, K, bits, budget, quantize_x, splits, k_per_split, row_tile;
 };
 
 template <int MODE, int F, int MT>
@@ -605,7 +453,8 @@ void launch_stream(const Args& a, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  // A refused launch is reported by cudaGetLastError in tq_term_matmul.
+  // A refused launch is reported by cudaGetLastError in
+  // tq_term_matmul_stream.
   cudaLaunchKernelEx(&cfg, term_matmul_stream_kernel<MODE, F, MT>, a.x,
                      static_cast<const char*>(a.w),
                      reinterpret_cast<const char*>(a.signs), a.sf, a.w_sf,
@@ -613,43 +462,16 @@ void launch_stream(const Args& a, cudaStream_t stream) {
                      a.splits, a.k_per_split);
 }
 
-template <int MODE, int F, bool QX>
-void launch_tiled(const Args& a, cudaStream_t stream) {
-  using T = Tile<MODE>;
-  const dim3 grid((a.N + kBN - 1) / kBN, (a.M + kBM - 1) / kBM, a.splits);
-  T* ws = a.splits > 1 ? static_cast<T*>(a.ws) : nullptr;
-  term_matmul_kernel<MODE, F, QX><<<grid, kThreads, 0, stream>>>(
-      a.x, a.w, a.signs, a.sf, a.w_sf, a.out, ws, a.M, a.N, a.K, a.bits,
-      a.budget, a.k_per_split);
-  if (ws != nullptr) {
-    const int64_t mn = static_cast<int64_t>(a.M) * a.N;
-    split_k_sum_kernel<MODE, QX>
-        <<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
-            ws, a.out, mn, a.splits, a.sf, a.w_sf);
-  }
-}
-
-// Launch the kernel a.kernel names for (MODE, F); false if it does not
-// take the arguments (nothing is launched).
+// Launch the kernel for (MODE, F); false if it does not take the
+// arguments (nothing is launched).
 template <int MODE, int F>
 bool launch_kernel(const Args& a, cudaStream_t stream) {
-  if (a.kernel == kStream) {
-    if (a.splits < 1 || a.splits > 8 || a.k_per_split % kSGroup) return false;
-    switch (a.row_tile) {
-      case 1: launch_stream<MODE, F, 1>(a, stream); return true;
-      case 8: launch_stream<MODE, F, 8>(a, stream); return true;
-      default: return false;
-    }
+  if (a.splits < 1 || a.splits > 8 || a.k_per_split % kSGroup) return false;
+  switch (a.row_tile) {
+    case 1: launch_stream<MODE, F, 1>(a, stream); return true;
+    case 8: launch_stream<MODE, F, 8>(a, stream); return true;
+    default: return false;
   }
-  if (a.kernel != kTiled) return false;
-  if constexpr (MODE == kInt8) {
-    launch_tiled<MODE, F, true>(a, stream);
-  } else if (a.quantize_x) {
-    launch_tiled<MODE, F, true>(a, stream);
-  } else {
-    launch_tiled<MODE, F, false>(a, stream);
-  }
-  return true;
 }
 
 template <int MODE>
@@ -669,24 +491,20 @@ bool launch_format(int wfmt, const Args& a, cudaStream_t stream) {
 // mode: 0 f32, 1 bf16, 2 int8.  wfmt: 0 float32, 1 bfloat16, 2 int8,
 // 3 int16, 4 9-bit pack (w = lo, signs = the sign plane; else signs may be
 // null).  sf: the activation scale (read only when quantize_x); w_sf: the
-// weight scale or null for 1.  kernel: 0 the tiled kernel, 1 the
-// weight-streaming kernel.  Tiled: K split over `splits` blocks of
-// k_per_split rows (a multiple of 16); ws: (splits, M, N) float32 (int32
-// in the int8 mode) scratch, unused (may be null) when splits == 1;
-// row_tile unused.  Streaming: K split over a cluster of `splits` <= 8
-// blocks of k_per_split rows (a multiple of 8), row_tile (1 or 8) rows of
-// x a block; ws unused.  Only the combinations term_matmul admits
-// launch: the int8 mode takes int8 weights and quantized activations;
-// anything else returns cudaErrorInvalidValue.
-extern "C" int tq_term_matmul(const float* x, const void* w,
-                              const int8_t* signs, const float* sf,
-                              const float* w_sf, float* out, void* ws, int M,
-                              int N, int K, int bits, int budget, int mode,
-                              int wfmt, int quantize_x, int splits,
-                              int k_per_split, int kernel, int row_tile,
-                              cudaStream_t stream) {
-  const Args a{x, w, signs, sf, w_sf, out, ws, M, N, K, bits, budget,
-               quantize_x, splits, k_per_split, kernel, row_tile};
+// weight scale or null for 1.  K split over a cluster of `splits` <= 8
+// blocks of k_per_split rows (a multiple of 8); row_tile (1 or 8) rows of
+// x a block.  Only the combinations term_matmul admits launch: the int8
+// mode takes int8 weights and quantized activations; anything else
+// returns cudaErrorInvalidValue.
+extern "C" int tq_term_matmul_stream(const float* x, const void* w,
+                                     const int8_t* signs, const float* sf,
+                                     const float* w_sf, float* out, int M,
+                                     int N, int K, int bits, int budget,
+                                     int mode, int wfmt, int quantize_x,
+                                     int splits, int k_per_split,
+                                     int row_tile, cudaStream_t stream) {
+  const Args a{x, w, signs, sf, w_sf, out, M, N, K, bits, budget,
+               quantize_x, splits, k_per_split, row_tile};
   bool ok = false;
   if (mode == kF32) {
     ok = launch_format<kF32>(wfmt, a, stream);

@@ -53,10 +53,10 @@ SIGNATURES = {
     # x, sf, out, outer, n, inner, group_size, bits, budget, serial, stream
     "tq_tr_quantize_grouped": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _I,
                                _P],
-    # x, w, signs, sf, w_sf, out, ws, M, N, K, bits, budget, mode, wfmt,
-    # quantize_x, splits, k_per_split, kernel, row_tile, stream
-    "tq_term_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _P],
+    # x, w, signs, sf, w_sf, out, M, N, K, bits, budget, mode, wfmt,
+    # quantize_x, splits, k_per_split, row_tile, stream
+    "tq_term_matmul_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _P],
     # x, w, signs, sf, w_sf, out, M, N, K, bits, budget, wfmt, quantize_x,
     # splits, k_per_split, stream
     "tq_term_matmul_mma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -21,13 +21,12 @@ Weights are float32, bfloat16-stored, int8/int16 with ``w_sf`` (see
 :func:`pack_weight_u8s`), widened or decoded inside the kernel.
 
 * On a CUDA tensor :func:`term_matmul` launches one of three kernels
-  (see :func:`plan`): the weight-streaming kernel of
-  ``csrc/term_matmul.cu`` for small M; above it, on the tensor cores,
-  the f32 mode in every weight format (``csrc/term_matmul_mma.cu``) and
-  the bf16 and int8 modes (``csrc/term_matmul_mma_lp.cu``).  The tiled
-  CUDA-core kernel of ``csrc/term_matmul.cu`` is on no route: only
-  :func:`launch` with ``kernel="tiled"`` takes it, to time it beside
-  them.  It raises on what the kernels do not take.
+  (see :func:`plan`), each with a C entry point of its own: the
+  weight-streaming kernel (``csrc/term_matmul_stream.cu``) for small M;
+  above it, on the tensor cores, the f32 mode in every weight format
+  (``csrc/term_matmul_mma.cu``) and the bf16 and int8 modes
+  (``csrc/term_matmul_mma_lp.cu``).  It raises on what the kernels do
+  not take.
 * On a CPU tensor it runs :func:`term_matmul_ref`, the plain version.
 * While ``torch.export`` traces it, it calls the operator
   ``tq::term_matmul`` (:func:`term_matmul_op`) instead, whose CUDA
@@ -58,11 +57,13 @@ __all__ = ["term_matmul", "term_matmul_ref", "term_matmul_op", "launch",
            "pack_weight_u8s", "unpack_weight_u8s", "flush_pack_checks",
            "PackedWeight8", "VARIANTS", "variant"]
 
-# M up to which term_matmul takes the weight-streaming kernel: the
-# crossover with the tiled kernel measured on the card (PERF.md).
+# M up to which term_matmul takes the weight-streaming kernel: its
+# crossover with the tensor-core kernels above it (mma in the f32 mode,
+# mma_lp in the bf16 and int8 modes) at the LSTM decoder's width, 650 x
+# 33278, in chip_smoke.py's crossover table (PERF.md).  At the recurrent
+# width, 650 x 2600, the tensor cores win from M = 2.
 STREAM_MAX_M = 8
 
-_TILE, _K_STEP = 64, 16  # the tiled kernel's output tile and K step
 # The tensor-core kernels' output tiles (rows, columns) and their K
 # splits' multiple (the f32 kernel's, and the bf16 / int8 kernel's by
 # mode: one mma's K), and most blocks in a cluster.
@@ -72,14 +73,12 @@ _MMA_LP_TILE, _MMA_LP_K_STEP = (64, 128), {"bf16": 16, "int8": 32}
 # per step, most rows of x a block and most blocks in a cluster.
 _STREAM_LANES, _STREAM_GROUP, _STREAM_MAX_ROWS, _STREAM_MAX_SPLITS = \
     31, 8, 8, 8
-# The kernel's codes for the multiply-accumulate mode, weight format and
-# kernel.
+# The kernels' codes for the multiply-accumulate mode and weight format.
 _MODES = {"f32": 0, "bf16": 1, "int8": 2}
 _FORMATS = {"f32": 0, "bf16": 1, "int8": 2, "int16": 3, "packed8": 4}
 _FORMAT_BYTES = {"f32": 4, "bf16": 2, "int8": 1, "int16": 2, "packed8": 1}
-# The kernel codes of tq_term_matmul; "mma" and "mma_lp" have their own
-# entry points.
-_KERNELS = {"tiled": 0, "stream": 1, "mma": 2, "mma_lp": 3}
+# The kernels plan() takes, each with an entry point of its own.
+_KERNELS = ("stream", "mma", "mma_lp")
 _DTYPE_FORMATS = {torch.float32: "f32", torch.bfloat16: "bf16",
                   torch.int8: "int8", torch.int16: "int16"}
 
@@ -414,9 +413,8 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
            ) -> torch.Tensor:
     """:func:`term_matmul` on CUDA tensors: check, plan, launch, count.
 
-    ``kernel`` ("stream", "tiled", "mma" or "mma_lp") overrides the
-    route, to time one kernel at a shape the route gives another (the
-    tiled kernel is on no route: this is its only way in);
+    ``kernel`` ("stream", "mma" or "mma_lp") overrides the route, to
+    time one kernel at a shape the route gives another;
     :func:`term_matmul` never passes it.  Raises on what the kernels do
     not take.
     """
@@ -459,8 +457,6 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
     sf_t = as_scale(sf, x.device) if quantize_x else None
     wsf = w.w_sf if packed else w_sf
     wsf_t = as_scale(wsf, x.device) if wsf is not None else None
-    ws = (torch.empty(p.ws_shape, dtype=p.ws_dtype, device=x.device)
-          if p.ws_shape is not None else None)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -480,11 +476,11 @@ def launch(x: torch.Tensor, w, sf, bits: int = 8, num_keep_terms: int = 8,
             _FORMATS[fmt], int(quantize_x), p.splits, p.k_per_split,
             stream), "tq_term_matmul_mma_lp")
     else:
-        _build.check(_build.load().tq_term_matmul(
+        _build.check(_build.load().tq_term_matmul_stream(
             x.data_ptr(), wt.data_ptr(), ptr(signs), ptr(sf_t), ptr(wsf_t),
-            out.data_ptr(), ptr(ws), M, N, K, bits, budget, _MODES[mode],
+            out.data_ptr(), M, N, K, bits, budget, _MODES[mode],
             _FORMATS[fmt], int(quantize_x), p.splits, p.k_per_split,
-            _KERNELS[p.kernel], p.row_tile, stream), "tq_term_matmul")
+            p.row_tile, stream), "tq_term_matmul_stream")
     term_matmul.launches[_variant_name(mode, fmt, quantize_x)] += 1
     term_matmul.kernel_launches[p.kernel] += 1
     return out
@@ -515,7 +511,7 @@ def _route(M: int, mode: str) -> str:
     """The kernel :func:`plan` takes by default: the weight-streaming
     kernel for M <= STREAM_MAX_M; above it the tensor cores, "mma" for
     the f32 mode in every weight format and "mma_lp" for the bf16 and
-    int8 modes.  No route takes the tiled kernel."""
+    int8 modes."""
     if M <= STREAM_MAX_M:
         return "stream"
     return "mma_lp" if mode in ("bf16", "int8") else "mma"
@@ -524,49 +520,44 @@ def _route(M: int, mode: str) -> str:
 class Plan(NamedTuple):
     """How :func:`term_matmul` launches at one shape (see :func:`plan`)."""
 
-    kernel: str                  # "stream", "tiled", "mma" or "mma_lp"
+    kernel: str                  # "stream", "mma" or "mma_lp"
     grid: tuple[int, int, int]   # blocks along x, y, z
     row_tile: int                # rows of x a block takes
-    splits: int                  # K splits (cluster blocks or blockIdx.z)
+    splits: int                  # K splits (blocks of a cluster)
     k_per_split: int             # K rows a split takes (the last: the rest)
-    ws_shape: tuple[int, int, int] | None  # tiled split-K workspace
-    ws_dtype: torch.dtype | None
 
 
 @functools.lru_cache(maxsize=1024)  # pure: computed once per shape
 def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
          kernel: str | None = None,
          clusters: tuple[int, ...] | None = None) -> Plan:
-    """The kernel, grid, K splits and workspace for an (M, K) x (K, N)
-    product in weight format ``fmt`` and mode ``mode`` on a card of
-    ``sms`` SMs.  ``kernel`` None routes by M and mode (:func:`_route`):
-    the weight-streaming kernel for M <= STREAM_MAX_M; above it the
+    """The kernel, grid and K splits for an (M, K) x (K, N) product in
+    weight format ``fmt`` and mode ``mode`` on a card of ``sms`` SMs.
+    ``kernel`` None routes by M and mode (:func:`_route`): the
+    weight-streaming kernel for M <= STREAM_MAX_M; above it the
     tensor-core kernels, ``mma`` for every f32 variant and ``mma_lp`` for
     every bf16 and int8 variant (any weight format, quantized or raw
-    input).  The tiled kernel is taken only when ``kernel`` names it.
+    input).  A named ``kernel`` is taken at any M.
 
     * stream: a block per strip of 31 lanes x 16 bytes of columns and per
       row group of ``row_tile`` rows of x (1 for M = 1, else 8 with the
       rows past M masked: only generation's M = 1 is a workload); K split in
       multiples of 8 rows over a cluster of up to 8 blocks, as evenly
-      over the SMs as one wave allows (:func:`_stream_splits`); no
-      workspace.
-    * tiled (on no route): a block per 64x64 output tile; K split in
-      multiples of the K step over ``blockIdx.z``, enough for about two
-      blocks per SM, the partials in a (splits, M, N) workspace (int32 in
-      the int8 mode, float32 otherwise) when there is more than one
-      split.
+      over the SMs as one wave allows (:func:`_stream_splits`).
     * mma: a block per 32x128 output tile and K split in multiples of 8
       rows over a cluster of up to 8 blocks: the largest cluster of which
       the card runs one per tile at once (``clusters[s - 1]``: clusters of
       s blocks it runs at once; by default ``sms // s``, one block an SM);
-      the partials meet in the cluster's shared memory, no workspace.
+      the partials meet in the cluster's shared memory.
     * mma_lp: the same with a 64x128 output tile and K split in
       multiples of one mma's K (16 in the bf16 mode, 32 in the int8
       mode).
     """
     if kernel is None:
         kernel = _route(M, mode)
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel must be 'stream', 'mma' or 'mma_lp', got "
+                         f"{kernel!r}")
     if kernel == "stream":
         cols = _STREAM_LANES * (16 // _FORMAT_BYTES[fmt])
         strips = -(-N // cols)
@@ -580,32 +571,18 @@ def plan(M: int, N: int, K: int, fmt: str, mode: str, sms: int,
         k_per_split = -(-groups // splits) * _STREAM_GROUP
         splits = max(1, -(-K // k_per_split))
         return Plan("stream", (strips * splits, row_groups, 1), row_tile,
-                    splits, k_per_split, None, None)
-    if kernel not in _KERNELS:
-        raise ValueError(f"kernel must be 'stream', 'tiled', 'mma' or "
-                         f"'mma_lp', got {kernel!r}")
-    tiles_n, tiles_m = -(-N // _TILE), -(-M // _TILE)
+                    splits, k_per_split)
     if kernel == "mma":
         if mode != "f32":
             raise ValueError(f"the mma kernel takes the f32 mode, got mode "
                              f"{mode!r}")
         return _cluster_plan("mma", M, N, K, _MMA_TILE, _MMA_K_STEP, sms,
                              clusters)
-    if kernel == "mma_lp":
-        if mode not in _MMA_LP_K_STEP:
-            raise ValueError(f"the mma_lp kernel takes the bf16 and int8 "
-                             f"modes, got mode {mode!r}")
-        return _cluster_plan("mma_lp", M, N, K, _MMA_LP_TILE,
-                             _MMA_LP_K_STEP[mode], sms, clusters)
-    k_steps = -(-K // _K_STEP)
-    splits = max(1, min(k_steps, -(-2 * sms // max(1, tiles_m * tiles_n))))
-    k_per_split = max(1, -(-k_steps // splits)) * _K_STEP
-    splits = max(1, -(-K // k_per_split))
-    ws = splits > 1
-    return Plan("tiled", (tiles_n, tiles_m, splits), _TILE, splits,
-                k_per_split, (splits, M, N) if ws else None,
-                (torch.int32 if mode == "int8" else torch.float32)
-                if ws else None)
+    if mode not in _MMA_LP_K_STEP:
+        raise ValueError(f"the mma_lp kernel takes the bf16 and int8 "
+                         f"modes, got mode {mode!r}")
+    return _cluster_plan("mma_lp", M, N, K, _MMA_LP_TILE,
+                         _MMA_LP_K_STEP[mode], sms, clusters)
 
 
 def _cluster_plan(kernel: str, M: int, N: int, K: int,
@@ -624,7 +601,7 @@ def _cluster_plan(kernel: str, M: int, N: int, K: int,
     k_per_split = max(1, -(-k_steps // splits)) * k_step
     splits = max(1, -(-K // k_per_split))
     return Plan(kernel, (tiles_n * splits, tiles_m, 1), rows, splits,
-                k_per_split, None, None)
+                k_per_split)
 
 
 def _stream_splits(blocks: int, groups: int, sms: int, per_sm: int) -> int:
