@@ -268,13 +268,18 @@ non-zero without printing a result:
     CUDA-graph replay beside its bytes bound, and a layer call on both
     paths at 64 to 8,192 rows (the crossover ``GROUPED_MAX_PAIRS``
     records).
+36. ``lstm_graph``: the LSTM LM's quantized step through its CUDA graph
+    (``utils/graphs.py``) at batch 1 and 64 on the serving cells' model:
+    20 chained greedy steps bit for bit against the eager step (log-probs,
+    h and c); host and wall us a step, eager and replayed; device us a
+    step; launches a step equal; the counter (one capture a batch).
 
 Then a ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one CUDA
 device; imports nothing of JAX.  ``--only
 mlp|lstm|cnn|zoo|tfm|train|leaf|par|calib|moe`` runs the build and those
-groups of phases only (phases 2-5, 6-9, 10-12, 13-15, 16-19, 20-23, 24-29,
-30-33, 34, 35).
+groups of phases only (phases 2-5, 6-9 and 36, 10-12, 13-15, 16-19,
+20-23, 24-29, 30-33, 34, 35).
 """
 
 from __future__ import annotations
@@ -839,6 +844,8 @@ EXPECTED_TRAIN = {
 
 GEN_WORDS = 100
 GEN_SEED = 1111
+# Chained steps held bit for bit, graph against eager (phase lstm_graph).
+GEN_STEPS = 20
 TEACHER_TOKENS = 16
 VOCAB = 33278
 
@@ -2089,6 +2096,7 @@ def phase_generation(torch, ckpt: Path):
     params_np, stream = _lstm_inputs(ckpt)
     params = params_from_jax(params_np, "cuda")
     _reset_counts()
+    graphs0 = _graph_counts_now()
     t0 = time.perf_counter()
     tokens, seconds = {}, {}
     for name, tr, pack, fixed in GEN_CONFIGS:
@@ -2116,7 +2124,7 @@ def phase_generation(torch, ckpt: Path):
         "term_matmul_kernel_stream"], "generation")
     emit({"phase": "generation", "ok": True, "seconds": total,
           "config_seconds": seconds, "words": GEN_WORDS,
-          "launches": launches,
+          "launches": launches, "step_graphs": _graph_counts(graphs0),
           "first_tokens": {k: v[:8] for k, v in tokens.items()}})
     return launches, tokens
 
@@ -2319,6 +2327,7 @@ def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
     start = torch.as_tensor(np.random.default_rng(GEN_SEED).integers(
         0, VOCAB, (1, BATCH)), device="cuda")
     results, counts = {}, []
+    graphs0 = _graph_counts_now()
     for name, pack, half, per_step in BATCH_SERVING:
         qpk = lstm_lm.pack(qp, qc, fmt=pack, rnn=True,
                            rnn_unquantized_dtype=getattr(torch, half)
@@ -2433,8 +2442,120 @@ def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
             first_tokens=toks[1:9, 0].tolist())
     emit({"phase": "lstm_batch_serving", "ok": True, "nvidia_smi": smi,
           "sf": {k: float(qs[k]["sf"]) for k in ("rnn", "decoder")},
-          "results": results})
+          "results": results, "step_graphs": _graph_counts(graphs0)})
     return _sum_counts(*counts)
+
+
+# --------------------------------------------------------------- phase 36
+
+
+def _graph_counts(before: dict) -> dict:
+    """``STEP_GRAPHS.counts`` since ``before`` (a copy of them)."""
+    from tq_tpu_torch.utils.graphs import STEP_GRAPHS
+
+    now = STEP_GRAPHS.counts
+    return {"captures": now["captures"] - before["captures"],
+            "replays": now["replays"] - before["replays"],
+            "eager": {k: n - before["eager"][k]
+                      for k, n in now["eager"].items()}}
+
+
+def _graph_counts_now() -> dict:
+    from tq_tpu_torch.utils.graphs import STEP_GRAPHS
+
+    c = STEP_GRAPHS.counts
+    return {**c, "eager": dict(c["eager"])}
+
+
+def phase_lstm_graph(torch, ckpt: Path, smi: str):
+    """The LSTM LM's quantized step through its CUDA graph
+    (``utils/graphs.py``) at batch 1 and 64, on the serving cells' model
+    (u8s-packed, the recurrent weights too, raw decoder input): GEN_STEPS
+    chained greedy steps of ``make_quantized_apply``'s forward against
+    the eager step (``lstm_lm.quantized_step``) on the card, bit for bit
+    (log-probs, h and c); host us a step of each (the call alone, and
+    GEN_WORDS steps to a synchronize, median of three runs); device us a
+    step (the eager step's launches captured by ``device_ms``); launches
+    a step, eager and replayed, equal; the counter: one capture a batch,
+    every later step a replay."""
+    from tq_tpu_torch.evals.generate import serving_model
+    from tq_tpu_torch.models import lstm_lm
+    from tq_tpu_torch.utils.params import params_from_jax
+
+    params_np, stream = _lstm_inputs(ckpt)
+    params = params_from_jax(params_np, "cuda")
+    qp, qc, qs = serving_model(params, (8, 8, 24, 8, 8), "u8s", stream)
+    fwd = lstm_lm.make_quantized_apply(qc, track=False)
+    H = qp["rnn"][0]["b_hh"].shape[0] // 4
+
+    def eager(tok, hidden):
+        return lstm_lm.quantized_step(qp, qc, qs, tok, hidden, False)[:2]
+
+    def graphed(tok, hidden):
+        return fwd(qp, qs, tok, hidden)[:2]
+
+    def chain(step, tok, steps: int, keep: bool):
+        """``steps`` greedy steps from ``tok``: (the steps' outputs if
+        ``keep``, host seconds in the calls, seconds to a synchronize)."""
+        hidden = lstm_lm.init_hidden(tok.shape[1], nhid=H, device="cuda")
+        kept, in_calls = [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            logp, hidden = step(tok, hidden)
+            in_calls += time.perf_counter() - t1
+            tok = logp.argmax(-1).reshape(1, -1)
+            if keep:
+                kept.append((logp, *hidden))
+        torch.cuda.synchronize()
+        return kept, in_calls, time.perf_counter() - t0
+
+    results = {}
+    for batch in (1, BATCH):
+        start = torch.as_tensor(np.random.default_rng(GEN_SEED).integers(
+            0, VOCAB, (1, batch)), device="cuda")
+        before = _graph_counts_now()
+        want, _, _ = chain(eager, start, GEN_STEPS, True)
+        got, _, _ = chain(graphed, start, GEN_STEPS, True)
+        for i, (a, b) in enumerate(zip(got, want)):
+            for name, x, y in zip(("log-probs", "h", "c"), a, b):
+                if not torch.equal(x, y):
+                    fail(f"lstm graph B={batch}: step {i}'s {name} differ "
+                         f"from the eager step's by "
+                         f"{float((x - y).abs().max())}")
+        counts = _graph_counts(before)
+        if counts["captures"] != 1 or counts["replays"] != GEN_STEPS - 1:
+            fail(f"lstm graph B={batch}: {counts}, not one capture and "
+                 f"{GEN_STEPS - 1} replays")
+        launches = {}
+        for name, step in (("eager", eager), ("graph", graphed)):
+            (_, _, _), launches[name] = _counted(
+                torch, chain, step, start, 1, False)
+        if launches["eager"] != launches["graph"]:
+            fail(f"lstm graph B={batch}: launches a step eager "
+                 f"{launches['eager']}, replayed {launches['graph']}")
+        timed = {}
+        for name, step in (("eager", eager), ("graph", graphed)):
+            runs = [chain(step, start, GEN_WORDS, False)[1:]
+                    for _ in range(3)]
+            timed[name] = {
+                "host_us": float(np.median([r[0] for r in runs]))
+                / GEN_WORDS * 1e6,
+                "wall_us": float(np.median([r[1] for r in runs]))
+                / GEN_WORDS * 1e6}
+        hidden = lstm_lm.init_hidden(batch, nhid=H, device="cuda")
+        device_us = device_ms(torch, lambda: eager(start, hidden)) * 1e3
+        results[f"B{batch}"] = {
+            "eager_host_us": timed["eager"]["host_us"],
+            "eager_wall_us": timed["eager"]["wall_us"],
+            "graph_host_us": timed["graph"]["host_us"],
+            "graph_wall_us": timed["graph"]["wall_us"],
+            "device_us": device_us, "bit_for_bit_steps": GEN_STEPS,
+            "launches_a_step": {k: v for k, v in launches["graph"].items()
+                                if v}, "counts": counts}
+    emit({"phase": "lstm_graph", "ok": True, "nvidia_smi": smi,
+          "results": results, "counts": _graph_counts_now()})
 
 
 # --------------------------------------------------------------- phase 10
@@ -6484,6 +6605,7 @@ def main(argv=None) -> None:
             phase_serving_compare(torch, ckpt, tokens, card, smi)
             by_path["lstm_batch_serving"] = phase_lstm_batch_serving(
                 torch, ckpt, smi)
+            phase_lstm_graph(torch, ckpt, smi)
     if "cnn" in groups:
         cnn = phase_cnn_kernels(torch)
         for name in ("tr_quantize_elementwise", "tr_quantize_grouped"):
@@ -6599,6 +6721,7 @@ def main(argv=None) -> None:
                          if k in r},
                       "match": True})
     emit({"kernels": lines, "card": smi, "groups": sorted(groups),
+          "step_graphs": _graph_counts_now(),
           "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

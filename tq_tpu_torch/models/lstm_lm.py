@@ -38,6 +38,7 @@ from tq_tpu_torch.layers.lstm import (
     tr_lstm_convert,
     tr_lstm_pack,
 )
+from tq_tpu_torch.utils.graphs import STEP_GRAPHS
 from tq_tpu_torch.utils.trace import span
 
 VOCAB = 33278  # wikitext-2 word vocabulary
@@ -46,8 +47,8 @@ NHID = 650
 NLAYERS = 2
 
 __all__ = ["init", "apply", "init_hidden", "infer_cell", "convert", "pack",
-           "make_quantized_apply", "finalize", "VOCAB", "EMSIZE", "NHID",
-           "NLAYERS"]
+           "make_quantized_apply", "quantized_step", "finalize", "VOCAB",
+           "EMSIZE", "NHID", "NLAYERS"]
 
 
 def init(generator: torch.Generator, vocab: int = VOCAB, emsize: int = EMSIZE,
@@ -161,21 +162,45 @@ def pack(qparams, qcfg, fmt: str = "int", rnn: bool | None = None,
     return out
 
 
+def quantized_step(qparams, qcfg, qstate, tokens, hidden, track: bool):
+    """One eager step of a converted model: (logp, hidden, new_qstate)."""
+    cell = qcfg.get("cell", "LSTM")
+    out, hidden, qs_rnn = tr_lstm_apply(
+        qparams["rnn"], qcfg["rnn"], qstate["rnn"], _embed(qparams, tokens),
+        hidden, track, cell)
+    T, B, H = out.shape
+    logits, qs_dec = tr_dense_apply(
+        qparams["decoder"], qcfg["decoder"], qstate["decoder"],
+        out.reshape(T * B, H), track)
+    new_state = {"rnn": qs_rnn, "decoder": qs_dec}
+    return torch.log_softmax(logits, dim=-1), hidden, new_state
+
+
 def make_quantized_apply(qcfg, track: bool):
-    """f(qparams, qstate, tokens, hidden) -> (logp, hidden, new_qstate)."""
+    """f(qparams, qstate, tokens, hidden) -> (logp, hidden, new_qstate).
+
+    Without tracking the step (:func:`quantized_step`) runs through one
+    CUDA graph a served model and input shape
+    (``utils/graphs.py::STEP_GRAPHS``), captured on its first call and
+    replayed on every later one, by any ``forward`` of any request,
+    wherever a graph engages: inputs on the card, none requiring grad, no
+    capture running, nothing tracing.  Elsewhere, and when tracking, it
+    runs eagerly.  ``new_qstate`` holds ``qstate``'s own quantizer states
+    when not tracking."""
     cell = qcfg.get("cell", "LSTM")
 
     def forward(qparams, qstate, tokens, hidden):
         with span("tq.lstm.step"):
-            out, hidden, qs_rnn = tr_lstm_apply(
-                qparams["rnn"], qcfg["rnn"], qstate["rnn"],
-                _embed(qparams, tokens), hidden, track, cell)
-            T, B, H = out.shape
-            logits, qs_dec = tr_dense_apply(
-                qparams["decoder"], qcfg["decoder"], qstate["decoder"],
-                out.reshape(T * B, H), track)
-            new_state = {"rnn": qs_rnn, "decoder": qs_dec}
-            return torch.log_softmax(logits, dim=-1), hidden, new_state
+            if track:
+                return STEP_GRAPHS.eager("track", quantized_step, qparams,
+                                         qcfg, qstate, tokens, hidden, True)
+            logp, hidden = STEP_GRAPHS.call(
+                lambda tok, hid: quantized_step(qparams, qcfg, qstate, tok,
+                                                hid, False)[:2],
+                (tokens, hidden), (qparams, qstate),
+                (qcfg["rnn"], qcfg["decoder"], cell))
+            return logp, hidden, {"rnn": qstate["rnn"],
+                                  "decoder": qstate["decoder"]}
 
     return forward
 
