@@ -267,7 +267,9 @@ non-zero without printing a result:
     host syncs (sync debug mode "error"); each launch timed by
     CUDA-graph replay beside its bytes bound, and a layer call on both
     paths at 64 to 8,192 rows (the crossover ``GROUPED_MAX_PAIRS``
-    records).
+    records); the same checks on a table of 256 router ids with packs
+    for 64 held experts alone, at the Kimi cell's decode shapes (2,048
+    pairs, 2,304 -> 1,024 and 1,024 -> 2,304), and its refusals.
 36. ``lstm_graph``: the LSTM LM's quantized step through its CUDA graph
     (``utils/graphs.py``) at batch 1 and 64 on the serving cells' model:
     20 chained greedy steps bit for bit against the eager step (log-probs,
@@ -6351,6 +6353,132 @@ def _zipf_rows(torch, gen, dev, rows: int, table: int = 1000):
     return torch.randn(table, MOE_HIDDEN, generator=gen, device=dev)[ids]
 
 
+# Kimi-Linear's expert-parallel share (benchmark cell
+# kimilinear48b-tr-decode-b256): rank 0 of 4 holds experts 0-63 of a
+# 256-way router (top 8, hidden 2,304, width 1,024); a decode step of 256
+# rows makes 2,048 pairs.
+SHARE_IDS, SHARE_HELD, SHARE_HIDDEN, SHARE_WIDTH, SHARE_TOP_K = 256, 64, \
+    2304, 1024, 8
+SHARE_ROWS = 256
+
+
+def _moe_share_case(torch, gen, dev) -> dict:
+    """The grouped product on a table of the router's 256 ids with packs
+    for the 64 held experts alone, at the Kimi cell's shapes: 256
+    Zipf-repeated rows routed by a seeded 256-way router (2,048 pairs),
+    gate and up (2,304 -> 1,024) in one launch on the gathered rows, down
+    (1,024 -> 2,304) in another, scattered back times the weights; each
+    against the plain version on the same inputs (max |err| / max |ref|
+    <= 1e-5, the same bound as the full table's), two launches counted;
+    ``moe_apply``'s grouped path against its per-expert path with the
+    same ``held`` (within 1e-4 of max |y|), free of host syncs; a call
+    without ``held``, or with an expert that has no pack, refused.
+    Timed: both launches by CUDA-graph replay beside their bytes bound."""
+    import torch.nn.functional as F
+
+    from tq_tpu_torch.kernels import term_matmul_grouped as tg
+    from tq_tpu_torch.kernels.term_matmul import pack_weight_u8s, term_matmul
+    from tq_tpu_torch.layers import moe
+
+    sf = torch.tensor(1e-4, device=dev)
+    held = range(SHARE_HELD)
+
+    def packs(K, N):
+        return [pack_weight_u8s(torch.randint(
+            -255, 256, (K, N), generator=gen, device=dev).to(torch.float32)
+            * sf, sf, 8, checks=[]) for _ in held]
+
+    gate, up = (packs(SHARE_HIDDEN, SHARE_WIDTH),
+                packs(SHARE_HIDDEN, SHARE_WIDTH))
+    down = packs(SHARE_WIDTH, SHARE_HIDDEN)
+    absent = [None] * (SHARE_IDS - SHARE_HELD)
+    grouped = moe.Grouped(
+        tg.group_weights([gate + absent, up + absent], SHARE_HIDDEN),
+        tg.group_weights([down + absent], SHARE_WIDTH))
+    if grouped.gate_up.stored != tuple(held):
+        fail(f"the share's table holds {grouped.gate_up.stored}")
+    router = {"w": torch.randn(SHARE_IDS, SHARE_HIDDEN, generator=gen,
+                               device=dev) * 0.02,
+              "bias": (torch.rand(SHARE_IDS, generator=gen, device=dev)
+                       - 0.5) * 0.02}
+    weights = 1.0 / torch.arange(1, 1001, device=dev, dtype=torch.float32)
+    ids = torch.multinomial(weights, SHARE_ROWS, replacement=True,
+                            generator=gen)
+    x = torch.randn(1000, SHARE_HIDDEN, generator=gen, device=dev)[ids]
+    idx, weight = moe.route(x, router, SHARE_TOP_K, 2.446)
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    loads = torch.bincount(flat, minlength=SHARE_IDS)
+    ends = torch.cumsum(loads, 0)
+    P = order.shape[0]
+    first = dict(gather=order, top_k=SHARE_TOP_K)
+    second = dict(scatter=order, scale=weight.reshape(-1))
+    before = term_matmul.kernel_launches["grouped"]
+    gu = tg.term_matmul_grouped(x, ends, grouped.gate_up, held, **first)
+    h = F.silu(gu[0]) * gu[1]
+    dn = tg.term_matmul_grouped(h, ends, grouped.down, held, **second)
+    torch.cuda.synchronize()
+    if term_matmul.kernel_launches["grouped"] != before + 2:
+        fail("the share's grouped product did not count its two launches")
+    errs = {}
+    for name, got, want in (
+            ("gate_up", gu, tg.term_matmul_grouped_ref(
+                x, ends, grouped.gate_up, held, **first)),
+            ("down", dn, tg.term_matmul_grouped_ref(
+                h, ends, grouped.down, held, **second))):
+        errs[name] = float((got - want).abs().max()) / float(
+            want.abs().max())
+        if not errs[name] <= 1e-5:
+            fail(f"term_matmul_grouped share {name}: max |err| / max |ref| "
+                 f"{errs[name]}")
+    for wrong in (None, range(SHARE_HELD + 1)):
+        try:
+            tg.term_matmul_grouped(x, ends, grouped.gate_up, wrong, **first)
+        except ValueError:
+            continue
+        fail(f"term_matmul_grouped took held={wrong} on a table of "
+             f"{SHARE_HELD} packs")
+
+    def expert(e, rows):
+        g, u = (term_matmul(rows, w[e], 1.0, quantize_x=False)
+                for w in (gate, up))
+        return term_matmul(F.silu(g) * u, down[e], 1.0, quantize_x=False)
+
+    want, _ = moe.moe_apply(x, router, expert, SHARE_TOP_K, 2.446,
+                            held=held, layer="smoke.share_per_expert")
+    k0 = term_matmul.kernel_launches["grouped"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = moe.moe_apply(x, router, expert, SHARE_TOP_K, 2.446,
+                               held=held, layer="smoke.share_grouped",
+                               grouped=grouped)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if term_matmul.kernel_launches["grouped"] != k0 + 2:
+        fail("the share's grouped path did not take two grouped launches")
+    layer_err = float((got - want).abs().max()) / float(want.abs().max())
+    if not layer_err <= 1e-4:
+        fail(f"moe_apply share grouped against per expert: {layer_err}")
+    host_loads = loads.tolist()
+    with_rows = sum(1 for e in held if host_loads[e])
+    held_pairs = sum(host_loads[e] for e in held)
+    gu_bytes = (2 * with_rows * SHARE_HIDDEN * SHARE_WIDTH * 9 / 8
+                + SHARE_ROWS * SHARE_HIDDEN * 4 + 2 * P * SHARE_WIDTH * 4)
+    dn_bytes = (with_rows * SHARE_WIDTH * SHARE_HIDDEN * 9 / 8
+                + P * SHARE_WIDTH * 4 + P * SHARE_HIDDEN * 4)
+    return dict(
+        shape=[P, SHARE_HIDDEN, SHARE_WIDTH], ids=SHARE_IDS,
+        held=SHARE_HELD, held_with_rows=with_rows, held_pairs=held_pairs,
+        errs=errs, layer_err=layer_err,
+        gate_up_ms=device_ms(torch, lambda: tg.term_matmul_grouped(
+            x, ends, grouped.gate_up, held, **first)),
+        down_ms=device_ms(torch, lambda: tg.term_matmul_grouped(
+            h, ends, grouped.down, held, **second)),
+        gate_up_bound_ms=bound_ms(gu_bytes, 0)[0],
+        down_bound_ms=bound_ms(dn_bytes, 0)[0])
+
+
 def phase_moe_grouped(torch):
     """The grouped expert product (``kernels/term_matmul_grouped.py``) at
     the MoE cell's decode shapes: 64 rows routed by a seeded router over
@@ -6369,7 +6497,8 @@ def phase_moe_grouped(torch):
     a weight; x in, the outputs out), the per-expert products' device
     time on the same slices, and a layer call's host-clock time on both
     paths at 64 to 8,192 rows (the crossover that ``GROUPED_MAX_PAIRS``
-    records; 8,192 rows are a prefill chunk)."""
+    records; 8,192 rows are a prefill chunk).  Then an expert-parallel
+    share at the Kimi cell's shapes (:func:`_moe_share_case`)."""
     import torch.nn.functional as F
 
     from tq_tpu_torch.kernels import term_matmul_grouped as tg
@@ -6411,12 +6540,11 @@ def phase_moe_grouped(torch):
                 x, ends, grouped.gate_up, **first)),
             "down": held_err(dn, tg.term_matmul_grouped_ref(
                 h, ends, grouped.down, **second))}
-    mask = torch.zeros(MOE_EXPERTS, dtype=torch.bool, device=dev)
-    mask[::2] = True
+    half = range(0, MOE_EXPERTS, 2)
     errs["held_half"] = held_err(
-        tg.term_matmul_grouped(h, ends, grouped.down, mask, **second),
-        tg.term_matmul_grouped_ref(h, ends, grouped.down, mask, **second),
-        mask[expert_of].nonzero()[:, 0])
+        tg.term_matmul_grouped(h, ends, grouped.down, half, **second),
+        tg.term_matmul_grouped_ref(h, ends, grouped.down, half, **second),
+        (expert_of % 2 == 0).nonzero()[:, 0])
     order1, ends1, _, _, _ = sort(x[:1])
     p1 = tg.plan(order1.shape[0], MOE_EXPERTS, MOE_WIDTH, MOE_HIDDEN, 2,
                  torch.cuda.get_device_properties(0).multi_processor_count)
@@ -6525,7 +6653,8 @@ def phase_moe_grouped(torch):
                per_expert_device_ms=per_expert_ms,
                layer_eager_ms={"grouped": sweep[0]["grouped_ms"],
                                "per_expert": sweep[0]["per_expert_ms"]},
-               one_row_splits=p1.splits, crossover=sweep)
+               one_row_splits=p1.splits, crossover=sweep,
+               kimi_share=_moe_share_case(torch, gen, dev))
     _reset_counts()
     with _NoPlainOnCard():
         moe.moe_apply(x, router, expert, MOE_TOP_K, MOE_SCALE,

@@ -58,11 +58,7 @@ def test_plain_version_is_a_loop_of_term_matmul_ref(case):
     gw = tg.group_weights(products, K)
     x = torch.randn(P, K, generator=gen)
     ends = torch.cumsum(torch.tensor(loads), 0)
-    mask = None
-    if held is not None:
-        mask = torch.zeros(E, dtype=torch.bool)
-        mask[held] = True
-    got = tg.term_matmul_grouped(x, ends, gw, mask)
+    got = tg.term_matmul_grouped(x, ends, gw, held)
     assert got.shape == (2, P, N) and got.dtype == torch.float32
     start = 0
     for e, n in enumerate(loads):
@@ -296,3 +292,79 @@ def test_pending_counts_are_folded_when_read(read):
     counts._pending.append(("c", torch.tensor([1]), _Event(), None))
     counts.clear()
     assert not counts._pending and len(counts) == 0
+
+
+# ------------------------------------------------- an expert-parallel share
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_a_table_of_every_id_with_the_held_packs_alone(device):
+    """An expert-parallel rank's table: the router's 256 ids, packs for
+    its 64 experts (ids 64-127) alone.  The grouped product (the kernel
+    on the card, the plain version on the CPU) gives each held expert's
+    rows what ``term_matmul_ref`` gives them one expert at a time, zeros
+    elsewhere; without ``held``, or with a ``held`` that names an expert
+    without a pack, it refuses."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator().manual_seed(41)
+    E, K, N, held = 256, 40, 32, range(64, 128)
+    packs = _packs(gen, len(held), K, N, products=2)
+    products = [[None] * E for _ in packs]
+    for ps, out in zip(packs, products):
+        for e, p in zip(held, ps):
+            out[e] = tm.PackedWeight8(*(t.to(device) for t in p))
+    gw = tg.group_weights(products, K)
+    assert gw.stored == tuple(held) and not gw.ptrs[:, :64].any()
+    # 2,048 pairs (256 rows x 8 slots) over all 256 ids.
+    loads = torch.bincount(torch.randint(0, E, (2048,), generator=gen),
+                           minlength=E)
+    x = torch.randn(2048, K, generator=gen)
+    ends = torch.cumsum(loads, 0)
+    got = tg.term_matmul_grouped(x.to(device), ends.to(device), gw,
+                                 held).cpu()
+    starts = (ends - loads).tolist()
+    for e in range(E):
+        rows = slice(starts[e], int(ends[e]))
+        for g in range(2):
+            if e not in held:
+                assert not got[g, rows].any()
+                continue
+            want = tm.term_matmul_ref(x[rows], packs[g][e - 64], 1.0,
+                                      quantize_x=False)
+            torch.testing.assert_close(got[g, rows], want, rtol=1e-5,
+                                       atol=1e-5 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="held"):
+        tg.term_matmul_grouped(x.to(device), ends.to(device), gw)
+    for wrong in ([63, 64], [64, 256]):  # no pack; past the router's ids
+        with pytest.raises(ValueError, match="no pack"):
+            tg.term_matmul_grouped(x.to(device), ends.to(device), gw, wrong)
+
+
+def test_a_held_share_of_256_router_ids_takes_the_grouped_path(monkeypatch):
+    """A Kimi-Linear expert layer on rank 1 of 4 (experts 64-127 of a
+    256-way router, top 8): its grouped table covers every id and its
+    grouped path gives what the per-expert path gives."""
+    from test_torch_port_kimi_linear import TINY as KIMI
+    from tq_tpu_torch.models import kimi_linear as kimi
+
+    cfg = {**KIMI, "num_hidden_layers": 2, "router_experts": 256,
+           "num_experts": 64, "ep_rank": 1, "num_experts_per_token": 8,
+           "linear_attn_config": {**KIMI["linear_attn_config"],
+                                  "kda_layers": [1], "full_attn_layers": [2]}}
+    qp, qcfg, qstate = kimi.convert(kimi.init(
+        cfg, torch.Generator().manual_seed(12)), cfg, SETTING,
+        pack_fmt="u8s")
+    table = qp["layers.1.mlp.experts"]
+    assert table.gate_up.ptrs.shape == (2, 256, 2)
+    assert table.gate_up.stored == table.down.stored == tuple(range(64, 128))
+    x = torch.randn(32, 64, generator=torch.Generator().manual_seed(13))
+    scfg = kimi.shared_cfg(cfg)
+    ctx = kimi.Context(qcfg, qstate)
+    want = dsv3._ffn(qp, scfg, 1, x, ctx, slice(None), (32,))
+    monkeypatch.setattr(moe, "takes_grouped", lambda x, top_k: True)
+    moe.moe_apply.counts.clear()
+    got = dsv3._ffn(qp, scfg, 1, x, ctx, slice(None), (32,))
+    assert moe.moe_apply.counts["layers.1.mlp"]["grouped"] == 1
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)

@@ -30,7 +30,10 @@ expert.  Two paths compute the experts on them:
 
 The layer is told which experts it holds (``held``): rows routed to an
 expert held elsewhere add nothing here, the share of the layer's result
-that an expert-parallel rank computes.  On one card every expert is held.
+that an expert-parallel rank computes.  On one card every expert is held
+unless the model is a rank's share (``models/kimi_linear.py``'s 64 of
+256); the grouped path's table then covers every id of the router, with
+packs for the held experts alone.
 
 ``moe_apply.counts`` (always on, :class:`Counts`) holds, by layer, the
 calls, the (row, slot) pairs routed to held experts, the largest load of
@@ -204,25 +207,16 @@ def _expert_ids(n_experts: int, device) -> torch.Tensor:
     return torch.arange(n_experts, device=device)
 
 
-@functools.lru_cache(maxsize=64)
-def _held_mask(held: tuple, n_experts: int, device) -> torch.Tensor:
-    mask = torch.zeros(n_experts, dtype=torch.bool)
-    mask[list(held)] = True
-    return mask.to(device)
-
-
 def _experts_grouped(x, order, ends, weight, grouped: Grouped, top_k,
                      held) -> torch.Tensor:
     """The grouped path's weighted expert outputs summed into their rows:
     the gate and up launch gathers each pair's row, the down launch writes
     each pair, times its weight, in the rows' order; a sum over the
     ``top_k`` slots (no atomics) gives each row."""
-    mask = (None if held is None
-            else _held_mask(tuple(held), ends.shape[0], x.device))
     gate_up = term_matmul_grouped(x.contiguous(), ends, grouped.gate_up,
-                                  mask, gather=order, top_k=top_k)
+                                  held, gather=order, top_k=top_k)
     out = term_matmul_grouped(F.silu(gate_up[0]) * gate_up[1], ends,
-                              grouped.down, mask, scatter=order,
+                              grouped.down, held, scatter=order,
                               scale=weight.reshape(-1))[0]
     return out.view(x.shape[0], top_k, -1).sum(1)
 

@@ -9,7 +9,13 @@ Every shape is read from the published configuration's keys
 ``n_shared_experts``, ``num_experts_per_tok``, ``first_k_dense_replace``,
 ``moe_layer_freq``, ``num_hidden_layers``, ``vocab_size``,
 ``rms_norm_eps``, ``rope_theta``, ``routed_scaling_factor``), so a tiny
-instance runs the same code.  Parameters are a flat dict keyed by the
+instance runs the same code.  Two keys the published configuration lacks
+serve the models that share this code (``models/kimi_linear.py``):
+``mla_use_nope`` (no rotation of ``q_pe`` and ``k_pe``: they enter the
+scores as projected) and ``n_held_experts`` with ``ep_rank`` (an
+expert-parallel rank's share: the router keeps its ``n_routed_experts``
+outputs, this rank holds experts ``ep_rank * n_held_experts`` onwards,
+:func:`held_experts`).  Parameters are a flat dict keyed by the
 published checkpoint's module names without ``model.``
 (``layers.{i}.self_attn.q_proj``, ``layers.{i}.mlp.experts.{e}.up_proj``,
 ...), dense weights stored (in, out), no biases.
@@ -84,7 +90,7 @@ from tq_tpu_torch.utils.trace import span
 
 __all__ = ["Context", "param_shapes", "linears", "is_moe", "init", "convert",
            "pack", "apply", "make_quantized_apply", "init_cache", "prefill",
-           "decode_step", "cache_width"]
+           "decode_step", "cache_width", "held_experts"]
 
 
 class Context(QuantCtx):
@@ -122,6 +128,25 @@ def is_moe(cfg, i: int) -> bool:
             and i % cfg.get("moe_layer_freq", 1) == 0)
 
 
+def held_experts(cfg) -> range | None:
+    """The routed experts this rank holds (``n_held_experts`` from
+    ``ep_rank * n_held_experts``), or None where it holds every one."""
+    E = cfg["n_routed_experts"]
+    n = cfg.get("n_held_experts", E)
+    if n == E:
+        return None
+    first = cfg.get("ep_rank", 0) * n
+    if not (0 < n and first + n <= E):
+        raise ValueError(f"rank {cfg.get('ep_rank', 0)} of {n} experts does "
+                         f"not fit {E}")
+    return range(first, first + n)
+
+
+def _held_ids(cfg) -> range:
+    held = held_experts(cfg)
+    return range(cfg["n_routed_experts"]) if held is None else held
+
+
 def cache_width(cfg) -> int:
     """Floats a token a layer in the latent cache: ``[c, k_pe]``."""
     return cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"]
@@ -133,39 +158,52 @@ def _swiglu_shapes(pre: str, d: int, width: int) -> dict:
             f"{pre}.down_proj": {"w": (width, d)}}
 
 
-def param_shapes(cfg) -> dict:
-    """name -> {key: shape} of every parameter, in the forward's order."""
+def attention_shapes(cfg, pre: str) -> dict:
+    """The MLA parameters of the attention module ``pre``."""
     d, H = cfg["hidden_size"], cfg["num_attention_heads"]
     nope, rope = cfg["qk_nope_head_dim"], cfg["qk_rope_head_dim"]
     v, r = cfg["v_head_dim"], cfg["kv_lora_rank"]
+    return {f"{pre}.q_proj": {"w": (d, H * (nope + rope))},
+            f"{pre}.kv_a_proj_with_mqa": {"w": (d, r + rope)},
+            f"{pre}.kv_a_layernorm": {"scale": (r,)},
+            f"{pre}.kv_b_proj": {"w": (r, H * (nope + v))},
+            f"{pre}.o_proj": {"w": (H * v, d)}}
+
+
+def ffn_shapes(cfg, i: int) -> dict:
+    """Layer ``i``'s FFN parameters: the dense SwiGLU, or the router (all
+    its outputs), the held experts and the shared experts."""
+    d, pre = cfg["hidden_size"], f"layers.{i}.mlp"
+    if not is_moe(cfg, i):
+        return _swiglu_shapes(pre, d, cfg["intermediate_size"])
+    E, w = cfg["n_routed_experts"], cfg["moe_intermediate_size"]
+    out = {f"{pre}.gate": {"w": (E, d), "bias": (E,)}}
+    for e in _held_ids(cfg):
+        out.update(_swiglu_shapes(f"{pre}.experts.{e}", d, w))
+    out.update(_swiglu_shapes(f"{pre}.shared_experts", d,
+                              w * cfg["n_shared_experts"]))
+    return out
+
+
+def param_shapes(cfg) -> dict:
+    """name -> {key: shape} of every parameter, in the forward's order."""
+    d = cfg["hidden_size"]
     out = {"embed_tokens": {"w": (cfg["vocab_size"], d)}}
     for i in range(cfg["num_hidden_layers"]):
         pre = f"layers.{i}"
         out[f"{pre}.input_layernorm"] = {"scale": (d,)}
-        out[f"{pre}.self_attn.q_proj"] = {"w": (d, H * (nope + rope))}
-        out[f"{pre}.self_attn.kv_a_proj_with_mqa"] = {"w": (d, r + rope)}
-        out[f"{pre}.self_attn.kv_a_layernorm"] = {"scale": (r,)}
-        out[f"{pre}.self_attn.kv_b_proj"] = {"w": (r, H * (nope + v))}
-        out[f"{pre}.self_attn.o_proj"] = {"w": (H * v, d)}
+        out.update(attention_shapes(cfg, f"{pre}.self_attn"))
         out[f"{pre}.post_attention_layernorm"] = {"scale": (d,)}
-        if is_moe(cfg, i):
-            E, w = cfg["n_routed_experts"], cfg["moe_intermediate_size"]
-            out[f"{pre}.mlp.gate"] = {"w": (E, d), "bias": (E,)}
-            for e in range(E):
-                out.update(_swiglu_shapes(f"{pre}.mlp.experts.{e}", d, w))
-            out.update(_swiglu_shapes(f"{pre}.mlp.shared_experts", d,
-                                      w * cfg["n_shared_experts"]))
-        else:
-            out.update(_swiglu_shapes(f"{pre}.mlp", d,
-                                      cfg["intermediate_size"]))
+        out.update(ffn_shapes(cfg, i))
     out["norm"] = {"scale": (d,)}
     out["lm_head"] = {"w": (d, cfg["vocab_size"])}
     return out
 
 
-def linears(cfg) -> list[str]:
-    """The names of every ``nn.Linear`` of the published model."""
-    return [n for n in param_shapes(cfg)
+def linears(cfg, shapes: dict | None = None) -> list[str]:
+    """The names of every ``nn.Linear`` of the published model (of
+    ``shapes``, :func:`param_shapes` where None)."""
+    return [n for n in (param_shapes(cfg) if shapes is None else shapes)
             if n.endswith("_proj") or n.endswith("_mqa") or n == "lm_head"]
 
 
@@ -216,21 +254,24 @@ def _pack_one(name: str, q: dict, tr: TRParams, fmt: str, cfg,
 
 
 def convert(params: Mapping, cfg, setting, quantize_input: bool = False,
-            pack_fmt: str | None = None):
+            pack_fmt: str | None = None, shapes: dict | None = None):
     """TR-convert every ``nn.Linear`` (:func:`linears`) at ``setting`` =
     (weight_bits, group_size, weight_terms, data_bits, data_terms):
     (qparams, qcfg, qstate), qcfg and qstate keyed by the linears' names.
 
-    ``params`` is read one name at a time, in :func:`param_shapes`'
-    order, and each linear is converted (and, with ``pack_fmt``, packed as
-    :func:`pack` packs it) before the next is read: a mapping that makes
-    each weight when it is read never holds more than one float32 linear.
+    ``params`` is read one name at a time, in the order of ``shapes``
+    (:func:`param_shapes` where None; a model that shares this code
+    passes its own), and each linear is converted (and, with
+    ``pack_fmt``, packed as :func:`pack` packs it) before the next is
+    read: a mapping that makes each weight when it is read never holds
+    more than one float32 linear.
     """
     _check_cfg(cfg)
     tr = TRParams(*setting, quantize_input=quantize_input)
-    convert_names = set(linears(cfg))
+    shapes = param_shapes(cfg) if shapes is None else shapes
+    convert_names = set(linears(cfg, shapes))
     qparams, qcfg, qstate, checks = {}, {}, {}, []
-    for name in param_shapes(cfg):
+    for name in shapes:
         p = params[name]
         if name not in convert_names:
             qparams[name] = p
@@ -264,21 +305,26 @@ def pack(qparams, qcfg, cfg, fmt: str = "u8s") -> dict:
 def _group_experts(qparams: dict, qcfg, cfg) -> None:
     """Add ``layers.{i}.mlp.experts``, the grouped path's
     :class:`~tq_tpu_torch.layers.moe.Grouped` table, for each expert
-    layer whose experts all serve raw input (``quantize_input`` False),
-    without bias, from 9-bit packs that the grouped kernel takes."""
+    layer whose held experts all serve raw input (``quantize_input``
+    False), without bias, from 9-bit packs that the grouped kernel takes;
+    the table covers the router's every id, an expert held elsewhere
+    without a pack."""
     d, width = cfg["hidden_size"], cfg["moe_intermediate_size"]
+    held = set(_held_ids(cfg))
+    ids = range(cfg["n_routed_experts"])
     for i in range(cfg["num_hidden_layers"]):
         if not is_moe(cfg, i):
             continue
         pre = f"layers.{i}.mlp.experts"
-        names = {p: [f"{pre}.{e}.{p}_proj"
-                     for e in range(cfg["n_routed_experts"])]
+        names = {p: [f"{pre}.{e}.{p}_proj" if e in held else None
+                     for e in ids]
                  for p in ("gate", "up", "down")}
-        every = [n for ns in names.values() for n in ns]
+        every = [n for ns in names.values() for n in ns if n is not None]
         if any(n not in qcfg or qcfg[n].quantize_input
                or qparams[n].get("b") is not None for n in every):
             continue
-        w = {p: [qparams[n]["w"] for n in ns] for p, ns in names.items()}
+        w = {p: [None if n is None else qparams[n]["w"] for n in ns]
+             for p, ns in names.items()}
         if (layout_error([w["gate"], w["up"]], d) is None
                 and layout_error([w["down"]], width) is None):
             qparams[pre] = Grouped(group_weights([w["gate"], w["up"]], d),
@@ -295,7 +341,10 @@ def _rms_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _rope_tables(cfg, positions: torch.Tensor):
-    """cos, sin (P, rope) of the float32 ``positions``."""
+    """cos, sin (P, rope) of the float32 ``positions``; (None, None)
+    where ``mla_use_nope`` leaves ``q_pe`` and ``k_pe`` unturned."""
+    if cfg.get("mla_use_nope", False):
+        return None, None
     dim = cfg["qk_rope_head_dim"]
     inv = 1.0 / (cfg["rope_theta"] ** (
         torch.arange(0, dim, 2, device=positions.device).float() / dim))
@@ -304,9 +353,13 @@ def _rope_tables(cfg, positions: torch.Tensor):
     return emb.cos(), emb.sin()
 
 
-def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+def _rope(x: torch.Tensor, cos: torch.Tensor | None,
+          sin: torch.Tensor | None):
     """DeepSeek-V3's interleaved RoPE: pairs (2i, 2i+1) regrouped as
-    halves, then rotate-half."""
+    halves, then rotate-half; ``x`` itself where ``cos`` is None
+    (NoPE)."""
+    if cos is None:
+        return x
     *lead, dim = x.shape
     x = x.reshape(*lead, dim // 2, 2).transpose(-1, -2).reshape(*lead, dim)
     rot = torch.cat([-x[..., dim // 2:], x[..., :dim // 2]], dim=-1)
@@ -333,20 +386,21 @@ def _ffn(params, cfg, i: int, x: torch.Tensor, ctx, rows: slice,
 
     y, selected = moe_apply(x, params[f"{pre}.gate"], expert,
                             cfg["num_experts_per_tok"],
-                            cfg["routed_scaling_factor"], layer=pre,
-                            grouped=_grouped(params, ctx, pre))
+                            cfg["routed_scaling_factor"],
+                            held=held_experts(cfg), layer=pre,
+                            grouped=_grouped(params, cfg, ctx, pre))
     ctx.record(f"{pre}.gate", selected.reshape(*shape, -1), rows)
     return y + _swiglu(ctx, params, f"{pre}.shared_experts", x)
 
 
-def _grouped(params, ctx, pre: str) -> Grouped | None:
+def _grouped(params, cfg, ctx, pre: str) -> Grouped | None:
     """The expert layer ``pre``'s grouped table where ``ctx`` serves its
     experts as :func:`_group_experts` built it for (converted, raw input,
     not tracking), else None."""
     grouped = params.get(f"{pre}.experts")
     if grouped is None or ctx.track or ctx.cfg is None:
         return None
-    tr = ctx.cfg.get(f"{pre}.experts.0.gate_proj")
+    tr = ctx.cfg.get(f"{pre}.experts.{_held_ids(cfg)[0]}.gate_proj")
     return grouped if tr is not None and not tr.quantize_input else None
 
 
@@ -382,8 +436,10 @@ def _layer_expanded(params, cfg, i: int, x: torch.Tensor, cos, sin, ctx,
     a = _rms_norm(params[f"{pre}.input_layernorm"], x, eps).reshape(b * T, d)
     q_nope, q_pe, c, k_pe = _projections(params, cfg, f"{pre}.self_attn", a,
                                          ctx)
-    q_pe = _rope(q_pe, cos.repeat(b, 1)[:, None], sin.repeat(b, 1)[:, None])
-    k_pe = _rope(k_pe, cos.repeat(b, 1), sin.repeat(b, 1))
+    if cos is not None:
+        q_pe = _rope(q_pe, cos.repeat(b, 1)[:, None],
+                     sin.repeat(b, 1)[:, None])
+        k_pe = _rope(k_pe, cos.repeat(b, 1), sin.repeat(b, 1))
     latent = torch.cat([c, k_pe], dim=-1).reshape(b, T, -1)
     ctx.record(f"{pre}.latent", latent, rows)
     kv = ctx.dense(f"{pre}.self_attn.kv_b_proj",
@@ -531,7 +587,9 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: int,
         x = params["embed_tokens"]["w"][tokens]
         cos, sin = _rope_tables(
             cfg, torch.full((1,), pos, device=cache.device))
+        if cos is not None:
+            cos, sin = cos[0], sin[0]
         for i in range(cfg["num_hidden_layers"]):
-            x = _layer_absorbed(params, cfg, i, x, pos, cache[i], cos[0],
-                                sin[0], ctx)
+            x = _layer_absorbed(params, cfg, i, x, pos, cache[i], cos, sin,
+                                ctx)
         return _head(params, cfg, x, ctx, slice(None))

@@ -51,7 +51,11 @@ def device_trace(out_dir: str = "traces", label: str = "run"):
     ``tq.dsv3.step`` (a DeepSeek-V3 prefill and decode step),
     ``tq.mla.attend`` (a layer's latent attention), ``tq.moe.route`` (an
     expert layer's router, sort and counts' copy to the host) and
-    ``tq.moe.experts`` (its experts' products)."""
+    ``tq.moe.experts`` (its experts' products); ``tq.kimi.prefill``,
+    ``tq.kimi.step`` and ``tq.kimi.restore`` (a Kimi-Linear prefill,
+    decode step and restore of the KDA state from a snapshot) and
+    ``tq.kda.recur`` (a KDA layer's work between its input products and
+    ``o_proj``)."""
     path = Path(out_dir) / label
     path.mkdir(parents=True, exist_ok=True)
     activities = [torch.profiler.ProfilerActivity.CPU]
