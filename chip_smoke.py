@@ -2452,21 +2452,30 @@ def phase_lstm_batch_serving(torch, ckpt: Path, smi: str):
 
 
 def _graph_counts(before: dict) -> dict:
-    """``STEP_GRAPHS.counts`` since ``before`` (a copy of them)."""
+    """``STEP_GRAPHS.counts`` since ``before`` (a copy of them), in all
+    and by step name."""
     from tq_tpu_torch.utils.graphs import STEP_GRAPHS
 
+    def since(now, then):
+        then = then or {"captures": 0, "replays": 0, "eager": {}}
+        return {"captures": now["captures"] - then["captures"],
+                "replays": now["replays"] - then["replays"],
+                "eager": {k: n - then["eager"].get(k, 0)
+                          for k, n in now["eager"].items()}}
+
     now = STEP_GRAPHS.counts
-    return {"captures": now["captures"] - before["captures"],
-            "replays": now["replays"] - before["replays"],
-            "eager": {k: n - before["eager"][k]
-                      for k, n in now["eager"].items()}}
+    return {**since(now, before),
+            "steps": {k: since(c, before["steps"].get(k))
+                      for k, c in now["steps"].items()}}
 
 
 def _graph_counts_now() -> dict:
+    """A copy of ``STEP_GRAPHS.counts``: in all and by step name."""
+    import copy
+
     from tq_tpu_torch.utils.graphs import STEP_GRAPHS
 
-    c = STEP_GRAPHS.counts
-    return {**c, "eager": dict(c["eager"])}
+    return copy.deepcopy(STEP_GRAPHS.counts)
 
 
 def phase_lstm_graph(torch, ckpt: Path, smi: str):

@@ -111,24 +111,65 @@ def test_prefill_logits_match_the_reference(kind):
     torch.testing.assert_close(last, want[:, -1], atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["float", "packed"])
-def test_decode_through_the_latent_cache_matches_the_full_forward(kind):
+@pytest.mark.parametrize("kind,turns", [("float", 1), ("packed", 1),
+                                        ("packed", 2)],
+                         ids=["float", "packed", "packed-second_turn"])
+def test_decode_through_the_latent_cache_matches_the_full_forward(kind,
+                                                                  turns):
+    """Each turn's steps (positions 6 .. 10, each a device position that
+    the attention reads the whole cache up to) equal the reference's and
+    ``apply``'s rows.  A second turn goes back to position 6 with other
+    tokens: its steps attend over the entries the first turn left after
+    their position, masked."""
     qp, qcfg, qstate = _served(kind)
     tokens = _tokens(4, 11, seed=5)
-    want = ref.forward(_weights(qp), TINY, tokens)
     T0 = 6
     cache = dsv3.init_cache(TINY, 4, 16)
-    got = [dsv3.prefill(qp, TINY, tokens[:, :T0], cache, qcfg, qstate,
-                        chunk_rows=T0)]
-    for pos in range(T0, tokens.shape[1]):
-        got.append(dsv3.decode_step(qp, TINY, tokens[:, pos], pos, cache,
-                                    qcfg, qstate))
-    torch.testing.assert_close(torch.stack(got, 1), want[:, T0 - 1:],
-                               atol=ATOL, rtol=0)
+    first = dsv3.prefill(qp, TINY, tokens[:, :T0], cache, qcfg, qstate,
+                         chunk_rows=T0)
+    for turn in range(turns):
+        if turn:
+            tokens = torch.cat([tokens[:, :T0],
+                                _tokens(4, 5, seed=5 + turn)], 1)
+        want = ref.forward(_weights(qp), TINY, tokens)
+        got = [first]
+        for pos in range(T0, tokens.shape[1]):
+            got.append(dsv3.decode_step(qp, TINY, tokens[:, pos], pos,
+                                        cache, qcfg, qstate))
+        got = torch.stack(got, 1)
+        torch.testing.assert_close(got, want[:, T0 - 1:], atol=ATOL, rtol=0)
+        rows = (dsv3.apply(qp, TINY, tokens) if kind == "float"
+                else dsv3.make_quantized_apply(TINY, qcfg)(qp, qstate,
+                                                           tokens))
+        torch.testing.assert_close(got, rows[:, T0 - 1:], rtol=1e-5, atol=0)
     # The cache holds [c, k_pe] (32 + 8 floats a token a layer), written
     # in place; positions past the last step stay empty.
     assert cache.shape == (3, 4, 16, 40)
     assert not cache[:, :, tokens.shape[1]:].any()
+
+
+@pytest.mark.parametrize("pos", [0, 9, 15])
+def test_masked_attention_over_the_whole_cache_equals_the_first_entries(
+        pos):
+    """A layer at position ``pos`` reads all 16 entries of its cache, the
+    ones after ``pos`` stale (a random earlier turn's), and gives what it
+    gives over a cache cut to its first ``pos + 1`` entries; both write
+    the same entry at ``pos``."""
+    qp, qcfg, qstate = _served("packed")
+    ctx = dsv3.Context(qcfg, qstate)
+    gen = torch.Generator().manual_seed(17)
+    stale = torch.randn(4, 16, 40, generator=gen)
+    full, cut = stale.clone(), stale[:, :pos + 1].clone()
+    x = torch.randn(4, 64, generator=gen)
+    at = dsv3._at(pos, full[None])
+    assert at.shape == () and int(at) == pos
+    cos, sin = dsv3._rope_tables(TINY, at.reshape(1))
+    out = [dsv3._layer_absorbed(qp, TINY, 1, x, dsv3._at(pos, c[None]), c,
+                                cos[0], sin[0], ctx) for c in (full, cut)]
+    torch.testing.assert_close(out[0], out[1], rtol=1e-6, atol=1e-7)
+    assert torch.equal(full[:, :pos + 1], cut)
+    assert not torch.equal(full[:, pos], stale[:, pos])
+    assert torch.equal(full[:, pos + 1:], stale[:, pos + 1:])
 
 
 def test_routing_matches_the_reference_and_the_bias_moves_only_selection():

@@ -1,11 +1,14 @@
-"""The LSTM LM's quantized step through its CUDA graph (``utils/graphs.py``).
+"""The LSTM LM's quantized step and the DeepSeek-V3 decode step through
+their CUDA graphs (``utils/graphs.py``).
 
-On the CPU the step stays eager and the tests hold the gate, the counter
+On the CPU the steps stay eager and the tests hold the gate, the counter
 and the keys.  The tests marked ``cuda`` need a card and skip without
 one; they import neither JAX nor the JAX package, so on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_graphs.py
 """
+
+import copy
 
 import pytest
 import torch
@@ -48,6 +51,13 @@ def _counts():
     return {**c, "eager": dict(c["eager"])}
 
 
+def _step_counts(step: str) -> dict:
+    """``STEP_GRAPHS.counts["steps"][step]``, copied (zeros before the
+    step's first call)."""
+    c = STEP_GRAPHS.counts["steps"].get(step) or graphs._zero_counts()
+    return {**c, "eager": dict(c["eager"])}
+
+
 @pytest.mark.parametrize("kind", ["converted", "int", "u8s"])
 def test_cpu_step_stays_eager_and_equals_the_eager_step(kind):
     """On the CPU the forward runs eagerly, counted under 'cpu', and
@@ -72,6 +82,35 @@ def test_cpu_step_stays_eager_and_equals_the_eager_step(kind):
     assert after["eager"]["cpu"] - before["eager"]["cpu"] == 3
     assert after["captures"] == before["captures"]
     assert after["replays"] == before["replays"]
+
+
+def test_each_step_is_counted_under_its_own_name():
+    """The LSTM step counts under ``lstm.step``, the DeepSeek-V3 decode
+    step under ``dsv3.decode``, each beside the totals: on the CPU both
+    eager for 'cpu', a tracking decode step for 'track'."""
+    from test_torch_port_deepseek_v3 import TINY, _served, _tokens
+    from tq_tpu_torch.models import deepseek_v3 as dsv3
+
+    qp, qc, qs = _model("u8s")
+    tok, hidden = _inputs(2)
+    before = _counts()
+    lstm0, dsv0 = _step_counts("lstm.step"), _step_counts("dsv3.decode")
+    lstm_lm.make_quantized_apply(qc, track=False)(qp, qs, tok, hidden)
+    dp, dc, ds = _served("packed")
+    cache = dsv3.init_cache(TINY, 2, 4)
+    tokens = _tokens(2, 1)[:, 0]
+    dsv3.decode_step(dp, TINY, tokens, 0, cache, dc, ds)
+    dsv3.decode_step(dp, TINY, tokens, 1, cache,
+                     ctx=dsv3.Context(dc, ds, track=True))
+    lstm1, dsv1 = _step_counts("lstm.step"), _step_counts("dsv3.decode")
+    assert lstm1["eager"]["cpu"] - lstm0["eager"]["cpu"] == 1
+    assert dsv1["eager"]["cpu"] - dsv0["eager"]["cpu"] == 1
+    assert dsv1["eager"]["track"] - dsv0["eager"]["track"] == 1
+    after = _counts()
+    assert after["eager"]["cpu"] - before["eager"]["cpu"] == 2
+    assert after["eager"]["track"] - before["eager"]["track"] == 1
+    for c in (lstm1, dsv1):
+        assert c["captures"] == c["replays"] == 0
 
 
 def test_gate_keeps_tracking_grad_and_tracing_eager():
@@ -210,3 +249,122 @@ def test_requests_and_conversions_share_graphs_by_key(cuda):
     assert last["captures"] - after["captures"] == 1
     assert last["replays"] - after["replays"] == 99
     assert again == first
+
+
+# ------------------------------------------------ the DeepSeek-V3 decode step
+
+
+class _Kept:
+    """A recording context's store: each record point's (name, a copy of
+    the value, rows), in the order the step calls ``record``."""
+
+    def __init__(self):
+        self.records = []
+
+    def context(self, qcfg, qstate):
+        from tq_tpu_torch.models import deepseek_v3 as dsv3
+
+        kept = self.records
+
+        class Recording(dsv3.Context):
+            def record(self, name, value, rows):
+                kept.append((name, value.clone(), rows))
+
+        return Recording(qcfg, qstate)
+
+
+def _dsv3_model(device):
+    """The tiny DeepSeek-V3 of the model's tests, converted and 9-bit
+    packed on ``device``: its expert layers take the grouped path on the
+    card."""
+    from test_torch_port_deepseek_v3 import SETTING, TINY, _model
+    from tq_tpu_torch.models import deepseek_v3 as dsv3
+
+    params = {n: {k: t.to(device) for k, t in p.items()}
+              for n, p in _model().items()}
+    return dsv3.convert(params, TINY, SETTING, pack_fmt="u8s")
+
+
+@pytest.mark.cuda
+def test_decode_replays_equal_the_eager_step_over_a_turn(cuda):
+    """Two turns of 8 steps from one prefill, each step at its host
+    position: the replayed step (one capture, then replays, no eager call
+    under ``dsv3.decode``) equals the eager step (``_step`` on a second
+    cache) bit for bit, in log-probabilities, in the records a recording
+    context is handed (a replay's taken from the graph's own tensors) and
+    in every cache entry it writes; the expert layers' counts of the
+    replays equal the eager steps'."""
+    from test_torch_port_deepseek_v3 import TINY, _tokens
+    from tq_tpu_torch.layers import moe
+    from tq_tpu_torch.models import deepseek_v3 as dsv3
+
+    STEP_GRAPHS.clear()
+    qp, qc, qs = _dsv3_model(cuda)
+    B, T0, steps = 4, 6, 8
+    tokens = _tokens(B, T0 + steps, seed=5).to(cuda)
+    cache = dsv3.init_cache(TINY, B, T0 + steps, cuda)
+    dsv3.prefill(qp, TINY, tokens[:, :T0], cache, qc, qs)
+    eager_cache = cache.clone()
+    kept, want_kept = _Kept(), _Kept()
+    ctx = kept.context(qc, qs)
+    before = _step_counts("dsv3.decode")
+    counts = {}
+    for turn in range(2):
+        toks = tokens if not turn else torch.cat(
+            [tokens[:, :T0], tokens[:, T0:].flip(1)], 1)
+        for pos in range(T0, T0 + steps):
+            if turn:
+                moe.moe_apply.counts.clear()
+            kept.records.clear()
+            got = dsv3.decode_step(qp, TINY, toks[:, pos], pos, cache,
+                                   ctx=ctx)
+            got_counts = {k: dict(v) for k, v in
+                          moe.moe_apply.counts.items()} if turn else None
+            with torch.inference_mode():
+                if turn:
+                    moe.moe_apply.counts.clear()
+                want, records = dsv3._step(
+                    qp, TINY, toks[:, pos], dsv3._at(pos, eager_cache),
+                    eager_cache, ctx)
+            if turn:
+                counts[pos] = (got_counts, {
+                    k: dict(v) for k, v in moe.moe_apply.counts.items()})
+            assert torch.equal(got, want), pos
+            assert torch.equal(cache, eager_cache), pos
+            assert [(n, r) for n, _, r in kept.records] == [
+                (n, r) for n, _, r in records]
+            for (_, a, _), (_, b, _) in zip(kept.records, records):
+                assert torch.equal(a, b), pos
+    after = _step_counts("dsv3.decode")
+    assert after["captures"] - before["captures"] == 1
+    assert after["replays"] - before["replays"] == 2 * steps - 1
+    assert after["eager"] == before["eager"]
+    for got_counts, want_counts in counts.values():
+        assert got_counts == want_counts
+        assert set(got_counts) == {"layers.1.mlp", "layers.2.mlp"}
+        assert all(c["grouped"] == c["calls"] == 1
+                   for c in got_counts.values())
+    assert len(kept.records) == 3 * 3 + 2 + 1  # input, latent, output;
+    # the experts selected in layers 1 and 2; the final hidden
+
+
+@pytest.mark.cuda
+def test_the_kimi_linear_step_stays_eager_on_the_card(cuda):
+    """Kimi-Linear's decode step (its NoPE MLA layers through the shared
+    absorbed attention) runs eagerly on the card: no step graph captures
+    or replays, and no step counts a call."""
+    from test_torch_port_deepseek_v3 import SETTING, _tokens
+    from test_torch_port_kimi_linear import TINY as KIMI
+    from test_torch_port_kimi_linear import _model as kimi_model
+    from tq_tpu_torch.models import kimi_linear as kimi
+
+    params = {n: {k: t.to(cuda) for k, t in p.items()}
+              for n, p in kimi_model().items()}
+    qp, qc, qs = kimi.convert(params, KIMI, SETTING, pack_fmt="u8s")
+    tokens = _tokens(2, 5).to(cuda)
+    cache = kimi.init_cache(KIMI, 2, 6, cuda)
+    kimi.prefill(qp, KIMI, tokens[:, :4], cache, qc, qs)
+    before = copy.deepcopy(STEP_GRAPHS.counts)
+    out = kimi.decode_step(qp, KIMI, tokens[:, 4], 4, cache, qc, qs)
+    assert torch.isfinite(out).all()
+    assert STEP_GRAPHS.counts == before

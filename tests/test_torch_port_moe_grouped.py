@@ -235,6 +235,33 @@ def test_grouped_calls_are_counted_as_the_per_expert_path_counts_them(
         assert c["calls"] == 1 + steps and c["tokens"] == (B * T + B * steps) * 3
 
 
+@pytest.mark.parametrize("held", [None, [5, 0, 3, 1]],
+                         ids=["every", "share"])
+def test_n_grouped_calls_count_what_the_per_expert_path_counts(monkeypatch,
+                                                               held):
+    """Five calls of one layer on 1 to 24 rows: the grouped path's counts,
+    kept on the device in a histogram a row count and folded on the read,
+    equal the per-expert path's host counts, ``grouped`` aside."""
+    qp, pre, expert = _layer()
+    gen = torch.Generator().manual_seed(9)
+    xs = [torch.randn(n, 64, generator=gen) for n in (24, 1, 24, 7, 13)]
+
+    def counts(grouped):
+        moe.moe_apply.counts.clear()
+        for x in xs:
+            moe.moe_apply(x, qp[f"{pre}.gate"], expert, 3, 2.446, held=held,
+                          layer=pre, grouped=grouped)
+        return dict(moe.moe_apply.counts[pre])
+
+    want = counts(None)
+    monkeypatch.setattr(moe, "takes_grouped", lambda x, top_k: True)
+    got = counts(qp[f"{pre}.experts"])
+    assert want["grouped"] == 0 and got["grouped"] == want["calls"] == 5
+    assert {k: v for k, v in got.items() if k != "grouped"} == {
+        k: v for k, v in want.items() if k != "grouped"}
+    assert got["mma"] > 0 and got["stream"] > 0
+
+
 @pytest.mark.parametrize("rows,on_card,grouped", [
     (64, True, True),      # the MoE cell's decode step: 384 pairs
     (4096, True, True),    # 24,576 pairs, the largest
@@ -248,50 +275,42 @@ def test_decode_sized_calls_on_the_card_take_the_grouped_path(rows, on_card,
     assert moe.takes_grouped(x, 6) is grouped
 
 
-class _Event:
-    """A CUDA event's stand-in: complete once ``done`` is set or it is
-    waited for."""
-
-    def __init__(self):
-        self.done = False
-
-    def query(self):
-        return self.done
-
-    def synchronize(self):
-        self.done = True
-
-
 @pytest.mark.parametrize("read", ["getitem", "get", "values", "items",
                                   "keys", "iter", "len", "contains"])
 def test_pending_counts_are_folded_when_read(read):
+    """A grouped call's counts wait on the device, in its layer's
+    histogram of loads, until a read folds them in; ``clear()`` zeroes
+    the histograms in place."""
     counts = moe.Counts()
     counts.add("a", [3, 0, 9])
-    event = _Event()
-    # Each call's experts' end rows: loads (0, 2, 5) and (1, 4, 4).
-    counts._pending.append(("a", torch.tensor([0, 2, 7]), event, None))
-    counts._pending.append(("b", torch.tensor([1, 5, 9]), _Event(), [1, 2]))
-    counts.fold(wait=False)  # nothing complete: nothing folded
-    assert len(counts._pending) == 2
-    event.done = True
-    counts.fold(wait=False)  # the first completed: folded alone
-    assert len(counts._pending) == 1
-    assert dict.__getitem__(counts, "a") == {
-        "calls": 2, "tokens": 19, "max_load": 9, "stream": 3, "mma": 1,
-        "grouped": 1}
+    # Each call's experts' end rows: loads (0, 2, 5) on 5 rows, then
+    # (1, 4, 4) of which experts 1 and 2 are held, on 4 rows.
+    counts.count("a", torch.tensor([0, 2, 7]), None, 5)
+    counts.count("b", torch.tensor([1, 5, 9]), [1, 2], 4)
+    assert dict.__getitem__(counts, "a")["calls"] == 1  # nothing folded
+    assert not dict.__contains__(counts, "b")
+    hists = dict(counts._hists)
+    assert [h.shape[0] for h in hists.values()] == [6, 5]
     seen = {"getitem": lambda: counts["b"], "get": lambda: counts.get("b"),
             "values": lambda: list(counts.values()),
             "items": lambda: dict(counts.items()),
             "keys": lambda: list(counts.keys()), "iter": lambda: list(counts),
             "len": lambda: len(counts), "contains": lambda: "b" in counts}
     seen[read]()
-    assert not counts._pending
+    assert not any(h.any() for h in hists.values())
+    assert dict.__getitem__(counts, "a") == {
+        "calls": 2, "tokens": 19, "max_load": 9, "stream": 3, "mma": 1,
+        "grouped": 1}
     assert dict.__getitem__(counts, "b") == {
         "calls": 1, "tokens": 8, "max_load": 4, "stream": 2, "mma": 0,
         "grouped": 1}
-    counts._pending.append(("c", torch.tensor([1]), _Event(), None))
+    seen[read]()  # a second read folds nothing more
+    assert dict.__getitem__(counts, "b")["calls"] == 1
+    counts.count("c", torch.tensor([1]), None, 1)
     counts.clear()
-    assert not counts._pending and len(counts) == 0
+    assert len(counts) == 0 and counts._hists.keys() == hists.keys() | {
+        ("c", 1, 1, torch.device("cpu"))}
+    assert all(h is counts._hists[k] for k, h in hists.items())
 
 
 # ------------------------------------------------- an expert-parallel share

@@ -46,7 +46,6 @@ grouped path (``grouped``).
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import Callable, NamedTuple, Sequence
 
@@ -66,9 +65,6 @@ __all__ = ["route", "moe_apply", "takes_grouped", "Grouped", "Counts",
 # than on the per-expert path (an H100: 17.9 against 19.5 ms at 24,576
 # pairs, 36.3 against 32.4 at 49,152, a prefill chunk; PERF.md).
 GROUPED_MAX_PAIRS = 24576
-# Grouped calls whose counts may wait in pinned memory before a new call
-# folds the completed ones in (one event query a call otherwise).
-_PENDING = 64
 
 
 class Grouped(NamedTuple):
@@ -91,73 +87,83 @@ def route(x: torch.Tensor, router: dict, top_k: int, scale: float):
     return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scale
 
 
+_KEYS = ("calls", "tokens", "max_load", "stream", "mma", "grouped")
+
+
 class Counts(dict):
     """``moe_apply.counts``: by layer, a dict of host numbers (``calls``,
     ``tokens``, ``max_load``, ``stream``, ``mma``, ``grouped``).
 
-    A grouped call's counts reach it without a host sync (:meth:`defer`):
-    a non-blocking copy of the experts' end rows into pinned host memory
-    and one CUDA event,
-    folded in once the event has completed.  A new call folds the
-    completed ones once more than ``_PENDING`` wait; every read (``[]``, ``get``, ``values()``,
-    ``items()``, ``keys()``, iteration, ``len``, ``in``) first waits for
-    and folds what is still pending.  ``clear()`` drops it."""
+    A grouped call counts on its device (:meth:`count`), with no host
+    sync: one ``index_add_`` of its held experts' loads into a histogram
+    of loads (experts by load) that the layer keeps for the process, so
+    that a call captured in a CUDA graph counts again on every replay.
+    Every read (``[]``, ``get``, ``values()``, ``items()``, ``keys()``,
+    iteration, ``len``, ``in``) first folds the histograms in (one copy
+    to the host a histogram) and zeroes them; ``clear()`` drops the host
+    numbers and zeroes the histograms in place: a captured graph keeps
+    their addresses."""
 
     def __init__(self):
         super().__init__()
-        self._pending = collections.deque()  # (layer, buffer, event, held)
-        self._free = []  # (pinned buffer, event) pairs to reuse
+        # (layer, held experts, rows, device) -> (rows + 1,) int64
+        self._hists: dict = {}
 
-    def add(self, layer: str, loads: Sequence[int],
-            grouped: bool = False) -> None:
-        """Count one call of ``layer`` whose held experts had ``loads``."""
-        c = dict.setdefault(self, layer, dict.fromkeys(
-            ("calls", "tokens", "max_load", "stream", "mma", "grouped"), 0))
-        c["calls"] += 1
-        c["grouped"] += int(grouped)
-        c["tokens"] += sum(loads)
-        c["max_load"] = max(c["max_load"], max(loads, default=0))
-        c["stream"] += sum(1 for n in loads if 0 < n <= STREAM_MAX_M)
-        c["mma"] += sum(1 for n in loads if n > STREAM_MAX_M)
+    def _merge(self, layer: str, calls: int, tokens: int, max_load: int,
+               stream: int, mma: int, grouped: int) -> None:
+        c = dict.setdefault(self, layer, dict.fromkeys(_KEYS, 0))
+        c["calls"] += calls
+        c["tokens"] += tokens
+        c["max_load"] = max(c["max_load"], max_load)
+        c["stream"] += stream
+        c["mma"] += mma
+        c["grouped"] += grouped
 
-    def defer(self, layer: str, ends: torch.Tensor,
-              held: Sequence[int] | None) -> None:
-        """Count a grouped call from its device ``ends`` (every expert's
-        end row: the loads' inclusive prefix sums) without waiting for
-        them; ``held``: the experts counted (all when None)."""
-        if not ends.is_cuda:
-            self._fold_one(layer, ends.tolist(), held)
-            return
-        i = next((i for i, (b, _) in enumerate(self._free)
-                  if b.shape == ends.shape and b.dtype == ends.dtype), None)
-        if i is None:
-            buf = torch.empty(ends.shape, dtype=ends.dtype, pin_memory=True)
-            event = torch.cuda.Event()
-        else:
-            buf, event = self._free.pop(i)
-        buf.copy_(ends, non_blocking=True)
-        event.record(torch.cuda.current_stream(ends.device))
-        self._pending.append((layer, buf, event, held))
-        if len(self._pending) > _PENDING:
-            self.fold(wait=False)
+    def add(self, layer: str, loads: Sequence[int]) -> None:
+        """Count one per-expert call of ``layer`` whose held experts had
+        ``loads``."""
+        self._merge(layer, 1, sum(loads), max(loads, default=0),
+                    sum(1 for n in loads if 0 < n <= STREAM_MAX_M),
+                    sum(1 for n in loads if n > STREAM_MAX_M), 0)
 
-    def fold(self, wait: bool = True) -> None:
-        """Fold the pending calls in, in order: all of them (``wait``,
-        waiting for their events), or those whose events have
-        completed."""
-        while self._pending and (wait or self._pending[0][2].query()):
-            layer, buf, event, held = self._pending.popleft()
-            event.synchronize()
-            self._fold_one(layer, buf.tolist(), held)
-            self._free.append((buf, event))
+    def count(self, layer: str, ends: torch.Tensor,
+              held: Sequence[int] | None, rows: int) -> None:
+        """Count a grouped call of ``layer`` on ``rows`` rows on the device
+        from its ``ends`` (every expert's end row: the loads' inclusive
+        prefix sums; a load is at most ``rows``); ``held``: the experts
+        counted (all when None)."""
+        held = None if held is None else tuple(held)
+        weights = _held_weights(held, ends.shape[0], ends.device)
+        key = (layer, len(ends) if held is None else len(set(held)), rows,
+               ends.device)
+        hist = self._hists.get(key)
+        if hist is None:
+            hist = self._hists[key] = torch.zeros(
+                rows + 1, dtype=torch.int64, device=ends.device)
+        hist.index_add_(0, torch.diff(ends, prepend=_zero(ends.device)),
+                        weights)
 
-    def _fold_one(self, layer, ends, held) -> None:
-        loads = [b - a for a, b in zip([0] + ends[:-1], ends)]
-        self.add(layer, loads if held is None else [loads[e] for e in held],
-                 grouped=True)
+    # Inference mode: a histogram made in a decode step is an inference
+    # tensor, which only inference mode may change in place.
+    @torch.inference_mode()
+    def fold(self) -> None:
+        """Fold the histograms into the host numbers, zeroing them."""
+        for (layer, n, rows, device), hist in self._hists.items():
+            load = _expert_ids(rows + 1, device)
+            sums = torch.stack((
+                hist.sum(), (hist * load).sum(),
+                torch.where(hist > 0, load, 0).max(),
+                hist[1:STREAM_MAX_M + 1].sum(),
+                hist[STREAM_MAX_M + 1:].sum())).tolist()
+            hist.zero_()
+            calls = sums[0] // n
+            if calls:
+                self._merge(layer, calls, *sums[1:], calls)
 
+    @torch.inference_mode()
     def clear(self) -> None:
-        self._pending.clear()
+        for hist in self._hists.values():
+            hist.zero_()
         super().clear()
 
     def __getitem__(self, layer):
@@ -202,9 +208,27 @@ def takes_grouped(x: torch.Tensor, top_k: int) -> bool:
     return x.is_cuda and x.shape[0] * top_k <= GROUPED_MAX_PAIRS
 
 
-@functools.lru_cache(maxsize=64)
+# The tensors below are kept for the process: a captured step reads them.
+
+
+@functools.cache
 def _expert_ids(n_experts: int, device) -> torch.Tensor:
     return torch.arange(n_experts, device=device)
+
+
+@functools.cache
+def _zero(device) -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.int64, device=device)
+
+
+@functools.cache
+def _held_weights(held: tuple | None, n_experts: int,
+                  device) -> torch.Tensor:
+    """(E,) int64: 1 for each expert ``held`` names (every one when None),
+    0 elsewhere: what an expert adds to its load's count."""
+    w = torch.zeros(n_experts, dtype=torch.int64)
+    w[list(range(n_experts) if held is None else held)] = 1
+    return w.to(device)
 
 
 def _experts_grouped(x, order, ends, weight, grouped: Grouped, top_k,
@@ -244,7 +268,7 @@ def moe_apply(x: torch.Tensor, router: dict,
             experts, order = torch.sort(flat, stable=True)
             ends = torch.searchsorted(
                 experts, _expert_ids(n_experts, x.device), right=True)
-            moe_apply.counts.defer(layer, ends, held)
+            moe_apply.counts.count(layer, ends, held, x.shape[0])
         else:
             order = torch.argsort(flat, stable=True)
             loads = torch.bincount(flat, minlength=n_experts).tolist()

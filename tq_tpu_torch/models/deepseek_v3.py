@@ -35,7 +35,11 @@ head ``k_nope`` and ``v``; causal softmax at ``(nope + rope)**-0.5``;
   position t's logit is ``(W_UK_hᵀ q_nope_h)·c_t + q_pe_h·k_pe_t`` and the
   head's output ``W_UV_h (Σ_t a_t c_t)``, over a cache that holds only
   ``[c_t, k_pe_t]`` (``kv_lora_rank + qk_rope_head_dim`` floats a token a
-  layer), preallocated and written in place.
+  layer), preallocated and written in place.  The position is a tensor on
+  the cache's device and the attention reads the cache's whole length,
+  the entries after the position masked, so that one CUDA graph serves
+  every position: on the card the step replays one graph a model and
+  batch shape (``utils/graphs.py::STEP_GRAPHS``, step ``dsv3.decode``).
 
 The expert layers are :func:`~tq_tpu_torch.layers.moe.moe_apply`: sigmoid
 scores, selection by score plus ``e_score_correction_bias`` (``noaux_tc``
@@ -61,15 +65,20 @@ Every product takes a context (:class:`Context`, a
 :class:`~tq_tpu_torch.layers.qctx.QuantCtx`): its ``dense`` runs the
 converted and float products, and its ``record`` sees each layer's input
 and output, the cache entries written, the experts selected and the final
-hidden, for a subclass that keeps them (the benchmark's check).
+hidden, for a subclass that keeps them (the benchmark's check).  A decode
+step calls ``record`` once it has run, in the order of the step's record
+points.
 
 Spans (``utils/trace.py``): ``tq.dsv3.prefill``, ``tq.dsv3.step``,
 ``tq.mla.attend`` (device), and the expert layer's ``tq.moe.route`` and
-``tq.moe.experts`` (device).
+``tq.moe.experts`` (device); a replayed decode step opens
+``tq.dsv3.step`` alone (a replay runs none of the step's Python).
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import Mapping
 
 import torch
@@ -86,6 +95,7 @@ from tq_tpu_torch.layers.linear import (init_quant_state,
                                         tr_dense_convert)
 from tq_tpu_torch.layers.moe import Grouped, moe_apply
 from tq_tpu_torch.layers.qctx import QuantCtx
+from tq_tpu_torch.utils.graphs import STEP_GRAPHS
 from tq_tpu_torch.utils.trace import span
 
 __all__ = ["Context", "param_shapes", "linears", "is_moe", "init", "convert",
@@ -101,7 +111,9 @@ class Context(QuantCtx):
     experts selected, rows by ``num_experts_per_tok``) and ``norm`` (the
     final hidden, before the norm); ``value`` has the batch's sequences
     first, ``rows`` is the slice of the batch they are (a prefill chunk's
-    sequences).  Here it keeps nothing."""
+    sequences).  A decode step's values may be its CUDA graph's own
+    tensors, overwritten by its next replay: copy what is kept.  Here it
+    keeps nothing."""
 
     def record(self, name: str, value: torch.Tensor, rows: slice) -> None:
         pass
@@ -340,6 +352,19 @@ def _rms_norm(p, x: torch.Tensor, eps: float) -> torch.Tensor:
                                          + eps))
 
 
+@functools.cache  # kept for the process: a captured step reads it
+def _positions(length: int, device) -> torch.Tensor:
+    """0 .. ``length`` - 1, int64 on ``device``."""
+    return torch.arange(length, device=device)
+
+
+def _at(pos: int, cache: torch.Tensor) -> torch.Tensor:
+    """The host position ``pos`` as a 0-d int64 tensor on the device of
+    ``cache`` (layers, batch, length, ·): a view into a table of its
+    positions, so that nothing is copied to the device."""
+    return _positions(cache.shape[2], cache.device)[pos]
+
+
 def _rope_tables(cfg, positions: torch.Tensor):
     """cos, sin (P, rope) of the float32 ``positions``; (None, None)
     where ``mla_use_nope`` leaves ``q_pe`` and ``k_pe`` unturned."""
@@ -464,11 +489,13 @@ def _layer_expanded(params, cfg, i: int, x: torch.Tensor, cos, sin, ctx,
     return out, latent
 
 
-def _layer_absorbed(params, cfg, i: int, x: torch.Tensor, pos: int,
+def _layer_absorbed(params, cfg, i: int, x: torch.Tensor, at: torch.Tensor,
                     cache_i: torch.Tensor, cos, sin, ctx):
-    """Layer ``i`` on one token a sequence ``x`` (B, d) at position
-    ``pos``, attending over ``cache_i`` (B, L, rank + rope), into which it
-    writes its entry at ``pos``."""
+    """Layer ``i`` on one token a sequence ``x`` (B, d) at the position
+    ``at`` (a 0-d int64 tensor on ``x``'s device), attending over
+    ``cache_i`` (B, L, rank + rope), into which it writes its entry at
+    ``at``.  The attention reads all L entries, the scores of those after
+    ``at`` set to -inf: their probabilities are exactly 0."""
     pre = f"layers.{i}"
     B, d = x.shape
     H, r, v = cfg["num_attention_heads"], cfg["kv_lora_rank"], \
@@ -483,13 +510,13 @@ def _layer_absorbed(params, cfg, i: int, x: torch.Tensor, pos: int,
     ctx.record(f"{pre}.latent", entry, every)
     wk, wv = _absorbed(params[f"{pre}.self_attn.kv_b_proj"], cfg)
     with span("tq.mla.attend", device=x.is_cuda):
-        cache_i[:, pos] = entry
+        cache_i.index_copy_(1, at.reshape(1), entry[:, None])
         q_lat = torch.bmm(q_nope.transpose(0, 1), wk).transpose(0, 1)
         qf = torch.cat([q_lat, _rope(q_pe, cos, sin)], dim=-1)  # (B, H, ·)
-        kv = cache_i[:, :pos + 1]  # (B, P, rank + rope)
-        probs = torch.softmax(torch.bmm(qf, kv.transpose(1, 2))
-                              * _scale(cfg), dim=-1)
-        o_lat = torch.bmm(probs, kv[..., :r])  # (B, H, rank)
+        scores = torch.bmm(qf, cache_i.transpose(1, 2)) * _scale(cfg)
+        after = _positions(cache_i.shape[1], x.device) > at  # (L,)
+        probs = torch.softmax(scores.masked_fill_(after, -torch.inf), -1)
+        o_lat = torch.bmm(probs, cache_i[..., :r])  # (B, H, rank)
         o = torch.bmm(o_lat.transpose(0, 1), wv).transpose(0, 1)
     h = x + ctx.dense(f"{pre}.self_attn.o_proj",
                       params[f"{pre}.self_attn.o_proj"],
@@ -573,6 +600,25 @@ def prefill(params, cfg, tokens: torch.Tensor, cache: torch.Tensor,
     return torch.cat(out)
 
 
+def _step(params, cfg, tokens: torch.Tensor, at: torch.Tensor,
+          cache: torch.Tensor, ctx) -> tuple:
+    """One decode step at the device position ``at``: (the (B, vocab)
+    log-probabilities, the step's record points as (name, value, rows)
+    in order), ``ctx.record`` left uncalled; every value is held until
+    the step ends, so none of them shares memory with a later tensor of
+    the step."""
+    kept = []
+    ctx = copy.copy(ctx)
+    ctx.record = lambda name, value, rows: kept.append((name, value, rows))
+    x = params["embed_tokens"]["w"][tokens]
+    cos, sin = _rope_tables(cfg, at.reshape(1))
+    if cos is not None:
+        cos, sin = cos[0], sin[0]
+    for i in range(cfg["num_hidden_layers"]):
+        x = _layer_absorbed(params, cfg, i, x, at, cache[i], cos, sin, ctx)
+    return _head(params, cfg, x, ctx, slice(None)), tuple(kept)
+
+
 @torch.inference_mode()
 def decode_step(params, cfg, tokens: torch.Tensor, pos: int,
                 cache: torch.Tensor, qcfg=None, qstate=None,
@@ -581,15 +627,31 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: int,
     (a host int: every sequence at the same position), attending over the
     cache's positions 0 .. pos and writing its entries at ``pos`` in
     place: the (B, vocab) log-probabilities.  Equals :func:`apply`'s row
-    at ``pos`` over the same tokens."""
+    at ``pos`` over the same tokens.
+
+    The step runs through one CUDA graph a model, cache and batch shape
+    (``STEP_GRAPHS``, step ``dsv3.decode``): ``pos`` enters it as a device
+    tensor, the cache and the weights are read in place.  It runs eagerly
+    where no graph engages (a tensor off the card, a tracking context, a
+    capture or a tracer running), counted there by reason.  Either way
+    ``ctx.record`` is called once the step has run, with the record
+    points in the step's order."""
     ctx = _ctx(ctx, qcfg, qstate)
     with span("tq.dsv3.step"):
-        x = params["embed_tokens"]["w"][tokens]
-        cos, sin = _rope_tables(
-            cfg, torch.full((1,), pos, device=cache.device))
-        if cos is not None:
-            cos, sin = cos[0], sin[0]
-        for i in range(cfg["num_hidden_layers"]):
-            x = _layer_absorbed(params, cfg, i, x, pos, cache[i], cos, sin,
-                                ctx)
-        return _head(params, cfg, x, ctx, slice(None))
+        at = _at(pos, cache)
+
+        def step(tok, at):
+            return _step(params, cfg, tok, at, cache, ctx)
+
+        if ctx.track:
+            logp, kept = STEP_GRAPHS.eager("track", step, tokens, at,
+                                           step="dsv3.decode")
+        else:
+            logp, kept = STEP_GRAPHS.call(
+                step, (tokens, at), (params, cfg, ctx.cfg, ctx.state, cache),
+                (type(ctx).dense, ctx.compute_dtype, ctx.count_reduce),
+                step="dsv3.decode", shared=True)
+        if type(ctx).record is not Context.record:
+            for name, value, rows in kept:
+                ctx.record(name, value, rows)
+        return logp

@@ -67,7 +67,8 @@ import torch
 
 from tq_tpu_torch.layers.kda import kda_prefill, kda_step
 from tq_tpu_torch.models import deepseek_v3 as dsv3
-from tq_tpu_torch.models.deepseek_v3 import (_ffn, _head, _layer_absorbed,
+from tq_tpu_torch.models.deepseek_v3 import (_at, _ffn, _head,
+                                             _layer_absorbed,
                                              _layer_expanded, _rms_norm)
 from tq_tpu_torch.utils.trace import span
 
@@ -388,11 +389,12 @@ def decode_step(params, cfg, tokens: torch.Tensor, pos: int,
     ctx = _ctx(ctx, qcfg, qstate)
     scfg = shared_cfg(cfg)
     with span("tq.kimi.step"):
+        at = _at(pos, cache.latent)
         x = params["embed_tokens"]["w"][tokens]
         for i, kind in enumerate(kinds(cfg)):
             j = cache.slots[i]
             if kind == "mla":
-                x = _layer_absorbed(params, scfg, i, x, pos, cache.latent[j],
+                x = _layer_absorbed(params, scfg, i, x, at, cache.latent[j],
                                     None, None, ctx)
             else:
                 x = _layer_kda_step(params, scfg, i, x, cache.state[j],

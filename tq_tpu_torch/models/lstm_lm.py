@@ -193,12 +193,13 @@ def make_quantized_apply(qcfg, track: bool):
         with span("tq.lstm.step"):
             if track:
                 return STEP_GRAPHS.eager("track", quantized_step, qparams,
-                                         qcfg, qstate, tokens, hidden, True)
+                                         qcfg, qstate, tokens, hidden, True,
+                                         step="lstm.step")
             logp, hidden = STEP_GRAPHS.call(
                 lambda tok, hid: quantized_step(qparams, qcfg, qstate, tok,
                                                 hid, False)[:2],
                 (tokens, hidden), (qparams, qstate),
-                (qcfg["rnn"], qcfg["decoder"], cell))
+                (qcfg["rnn"], qcfg["decoder"], cell), step="lstm.step")
             return logp, hidden, {"rnn": qstate["rnn"],
                                   "decoder": qstate["decoder"]}
 

@@ -26,15 +26,20 @@ another key: a graph never reads another model's memory.  At most
 The graph engages only when every tensor is on a CUDA device, none
 requires grad, no capture runs on the current stream and nothing traces
 (``torch.export``, ``torch.compile``, ``torch.jit``); otherwise the step
-runs eagerly, counted by reason.  What a call returns is the caller's
-own: clones of the graph's outputs.  The kernels' launch counters count
-launches on the card: a capture's counts are taken back, and each replay
-adds them.
+runs eagerly, counted by reason.  A recording profiler does not stop it:
+a replay shows in the trace as the graph's kernels.  What a call returns
+is the caller's own: clones of the graph's outputs, except a ``shared``
+part, the graph's own tensors until its next replay.  The kernels'
+launch counters count launches on the card: a capture's counts are taken
+back, and each replay adds them.  The program's spans
+(``utils/trace.py``) are off while a step warms up and is captured: a
+replay runs none of the step's Python.
 
 ``STEP_GRAPHS.counts`` (always on) counts each call once: ``captures``
 (calls that captured a graph, then ran it), ``replays`` (calls that ran
 one captured earlier) and ``eager`` calls by reason (``cpu``, ``track``,
-``grad``, ``capturing``, ``tracing``).
+``grad``, ``capturing``, ``tracing``); ``steps`` holds the same counts by
+the name of the step (``lstm.step``, ``dsv3.decode``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 from tq_tpu_torch.kernels.histogram import histogram
 from tq_tpu_torch.kernels.term_matmul import term_matmul
 from tq_tpu_torch.kernels.tr_quantize import tr_quantize, tr_scale_copy
+from tq_tpu_torch.utils.trace import suspended
 
 __all__ = ["StepGraphs", "STEP_GRAPHS", "REASONS"]
 
@@ -59,6 +65,10 @@ WARMUP = 3
 # Graphs kept, and trees held by identity: the least recently used go
 # first, so a sweep over many settings keeps a few graph pools.
 MAX_GRAPHS = 8
+
+
+def _zero_counts() -> dict:
+    return {"captures": 0, "replays": 0, "eager": dict.fromkeys(REASONS, 0)}
 
 
 def _launch_counters() -> tuple[dict, ...]:
@@ -176,17 +186,29 @@ class StepGraphs:
         self._graphs: collections.OrderedDict = collections.OrderedDict()
         self._consts: collections.OrderedDict = collections.OrderedDict()
         self._streams: dict = {}
-        self.counts = {"captures": 0, "replays": 0,
-                       "eager": dict.fromkeys(REASONS, 0)}
+        self.counts = {**_zero_counts(), "steps": {}}
 
     def clear(self) -> None:
         """Drop every graph and held tree (the counts stay)."""
         self._graphs.clear()
         self._consts.clear()
 
-    def eager(self, reason: str, fn: Callable, *args):
-        """``fn(*args)``, counted as an eager call for ``reason``."""
-        self.counts["eager"][reason] += 1
+    def _count(self, step: str, what: str) -> None:
+        """Count a call of ``step``: ``what`` is ``captures``,
+        ``replays`` or an eager call's reason."""
+        by_step = self.counts["steps"].get(step)
+        if by_step is None:
+            by_step = self.counts["steps"][step] = _zero_counts()
+        for c in (self.counts, by_step):
+            if what in REASONS:
+                c["eager"][what] += 1
+            else:
+                c[what] += 1
+
+    def eager(self, reason: str, fn: Callable, *args, step: str = "step"):
+        """``fn(*args)``, counted as an eager call of ``step`` for
+        ``reason``."""
+        self._count(step, reason)
         return fn(*args)
 
     def key(self, args, consts: tuple = (), static=()):
@@ -223,45 +245,53 @@ class StepGraphs:
         return held
 
     def call(self, fn: Callable, args: tuple, consts: tuple = (),
-             static=()):
+             static=(), step: str = "step", shared: bool = False):
         """``fn(*args)`` through the CUDA graph of its key, captured on the
-        key's first call; eagerly where no graph engages.  ``consts``: a
-        tuple of the trees (dicts, lists and tuples) of every tensor
-        ``fn`` reads besides ``args``.  After their first call the trees
-        are known by identity, so change a model by building new trees,
-        as conversion and packing do, not in place.  ``static``: the
-        hashable host values ``fn`` bakes in."""
+        key's first call; eagerly where no graph engages; counted under
+        ``step``.  ``consts``: a tuple of the trees (dicts, lists and
+        tuples) of every tensor ``fn`` reads besides ``args``.  After
+        their first call the trees are known by identity, so change a
+        model by building new trees, as conversion and packing do, not in
+        place.  ``static``: the hashable host values ``fn`` bakes in.
+        With ``shared``, ``fn`` returns a pair ``(outputs, kept)`` and the
+        call ``(clones of outputs, kept)``, ``kept``'s tensors the graph's
+        own: read them before the key's next call."""
         reason, key, leaves = self.key(args, consts, static)
         if reason is not None:
-            return self.eager(reason, fn, *args)
+            return self.eager(reason, fn, *args, step=step)
         device = leaves[0].device
         if device.index != torch.cuda.current_device():
             with torch.cuda.device(device):
-                return self._replay(fn, args, key, leaves)
-        return self._replay(fn, args, key, leaves)
+                return self._replay(fn, args, key, leaves, step, shared)
+        return self._replay(fn, args, key, leaves, step, shared)
 
-    def _replay(self, fn: Callable, args, key, leaves: list):
+    def _replay(self, fn: Callable, args, key, leaves: list, step: str,
+                shared: bool):
         entry = self._graphs.get(key)
         if entry is None:
             entry = self._capture(fn, args, leaves)
             self._graphs[key] = entry
             if len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
+            self._count(step, "captures")
         else:
             self._graphs.move_to_end(key)
-            self.counts["replays"] += 1
+            self._count(step, "replays")
         for buf, t in zip(entry.inputs, leaves):
             buf.copy_(t)
         entry.graph.replay()
         for counter, k, n in entry.launches:
             counter[k] += n
+        if shared:
+            outputs, kept = entry.outputs
+            return _clone(outputs), kept
         return _clone(entry.outputs)
 
     def _capture(self, fn: Callable, args, leaves: list) -> _Graph:
         """Warm ``fn`` up on its input buffers on a side stream, then
-        capture it there."""
+        capture it there, with the program's spans off."""
         device = leaves[0].device
-        with torch.cuda.device(device):
+        with torch.cuda.device(device), suspended():
             inputs = [t.clone() for t in leaves]
             static_args = _rebuild(args, iter(inputs))
             side = self._streams.get(device)
@@ -286,11 +316,11 @@ class StepGraphs:
                             for k in c if c[k] != b[k]]
                 for c, b in zip(counters, before):
                     c.update(b)
-        self.counts["captures"] += 1
         return _Graph(graph, inputs, outputs, launches)
 
 
-# The graphs of every model step that uses them (``models/lstm_lm.py``):
-# one set a process, so that a graph outlives the forward that captured
-# it and serves every later request on the same model and shape.
+# The graphs of every model step that uses them (``models/lstm_lm.py``,
+# ``models/deepseek_v3.py``): one set a process, so that a graph outlives
+# the forward that captured it and serves every later request on the same
+# model and shape.
 STEP_GRAPHS = StepGraphs()

@@ -11,7 +11,8 @@ switch: with none recording, a span is one shared no-op (one check, no
 clock read, no allocation); while one records, a span enters
 ``torch.profiler.record_function`` (so it lies in the Chrome trace on the
 kernels' clock) and appends a :class:`SpanRecord` to a bounded list that
-:func:`records` returns.
+:func:`records` returns.  Inside :func:`suspended` (a CUDA graph's
+capture) every span is the no-op.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
 __all__ = ["device_trace", "span", "records", "dropped", "clear",
-           "SpanRecord", "MAX_RECORDS", "TRACE_FILE"]
+           "suspended", "SpanRecord", "MAX_RECORDS", "TRACE_FILE"]
 
 TRACE_FILE = "trace.json"
 # Spans kept at most; those past it are counted by dropped().
@@ -50,8 +51,9 @@ def device_trace(out_dir: str = "traces", label: str = "run"):
     ``tq.calib.search`` (a layer's scale search); ``tq.dsv3.prefill`` and
     ``tq.dsv3.step`` (a DeepSeek-V3 prefill and decode step),
     ``tq.mla.attend`` (a layer's latent attention), ``tq.moe.route`` (an
-    expert layer's router, sort and counts' copy to the host) and
-    ``tq.moe.experts`` (its experts' products); ``tq.kimi.prefill``,
+    expert layer's router, sort and counts) and ``tq.moe.experts`` (its
+    experts' products), the last three inside the decode step, so absent
+    where it replays its CUDA graph; ``tq.kimi.prefill``,
     ``tq.kimi.step`` and ``tq.kimi.restore`` (a Kimi-Linear prefill,
     decode step and restore of the KDA state from a snapshot) and
     ``tq.kda.recur`` (a KDA layer's work between its input products and
@@ -102,6 +104,7 @@ class _Off:
 _OFF = _Off()
 _records: list[SpanRecord] = []
 _dropped = 0
+_suspended = 0  # the suspended() blocks entered and not yet left
 _open: list["_Span"] = []  # the spans entered and not yet left
 
 
@@ -155,9 +158,22 @@ def span(name: str, rid=None, device: bool = False):
     from the enclosing span when not given.  ``device``: also time the
     span's work on the current CUDA stream (pass it only for work on a
     CUDA device); the events are read by :func:`records`, never here."""
-    if not _profiler_enabled():
+    if _suspended or not _profiler_enabled():
         return _OFF
     return _Span(name, rid, device)
+
+
+@contextlib.contextmanager
+def suspended():
+    """Every span the no-op inside the block, a profiler recording or not:
+    a CUDA graph's capture, whose replays run none of the Python that
+    opened its spans and could fire none of the events it recorded."""
+    global _suspended
+    _suspended += 1
+    try:
+        yield
+    finally:
+        _suspended -= 1
 
 
 def records() -> list[SpanRecord]:
